@@ -1,0 +1,204 @@
+"""Shared building blocks for the model zoo (counterpart of
+``lxt_tpu/models/common.py``).
+
+- Parameters are plain dicts of tensors; per-layer weights are stacked on a
+  leading ``[L, ...]`` axis as in ``lxt_tpu``, and the layer driver is a
+  Python loop over views of that axis.
+- Linear weights are stored ``[in, out]``, so the forward is ``x @ w``.
+- Rotary tables are computed in float32 from integer positions, with the
+  inverse frequencies in float64 on the host.
+"""
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+ACTIVATIONS: Dict[str, Callable] = {
+    "silu": F.silu,
+    # jax.nn.gelu defaults to the tanh approximation (HF 'gelu_pytorch_tanh')
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_exact": F.gelu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "tanh": torch.tanh,
+    # OpenCLIP QuickGELU: x * sigmoid(1.702 x)
+    "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
+}
+
+
+def _inv_freq(head_dim, theta, scaling, rope_scaling, seq_len=None):
+    """Host-side (float64) inverse frequencies + attention scale factor,
+    with optional HF-style rope scaling (``None``, ``("linear", f)``,
+    ``("llama3", ...)``, ``("longrope", ...)`` or ``("yarn", ...)``; see
+    ``lxt_tpu.models.common._inv_freq``, of which this is a copy).
+    Returns (inv_freq [head_dim//2] float32 numpy, attention_factor)."""
+    half = np.arange(0, head_dim, 2, dtype=np.float64)
+    inv = 1.0 / (theta ** (half / head_dim))
+    attn_factor = 1.0
+    if rope_scaling is not None:
+        kind = rope_scaling[0]
+        if kind == "linear":
+            inv = inv / rope_scaling[1]
+        elif kind == "llama3":
+            _, factor, low_ff, high_ff, old_ctx = rope_scaling
+            wavelen = 2 * np.pi / inv
+            low_wl = old_ctx / low_ff
+            high_wl = old_ctx / high_ff
+            smooth = (old_ctx / wavelen - low_ff) / (high_ff - low_ff)
+            inv_scaled = np.where(wavelen > low_wl, inv / factor, inv)
+            smoothed = (1 - smooth) * inv / factor + smooth * inv
+            is_mid = (wavelen <= low_wl) & (wavelen >= high_wl)
+            inv = np.where(is_mid, smoothed, inv_scaled)
+        elif kind == "longrope":
+            _, short, long, old_ctx, max_ctx, af = rope_scaling
+            ext = np.asarray(
+                long if (seq_len or 0) > old_ctx else short, np.float64)
+            if ext.shape != half.shape:
+                raise ValueError(
+                    f"longrope factor length {ext.shape[0]} != head_dim//2 "
+                    f"({half.shape[0]}) — HF ships one factor per rotary "
+                    f"frequency pair")
+            inv = 1.0 / (ext * theta ** (half / head_dim))
+            factor = max_ctx / old_ctx
+            if af is not None:
+                attn_factor = af
+            elif factor > 1:
+                attn_factor = math.sqrt(1 + math.log(factor) / math.log(old_ctx))
+        elif kind == "yarn":
+            _, factor, beta_fast, beta_slow, old_ctx, af = rope_scaling
+
+            def correction_dim(n_rot):
+                return (head_dim * math.log(old_ctx / (n_rot * 2 * math.pi))
+                        ) / (2 * math.log(theta))
+            low = max(math.floor(correction_dim(beta_fast)), 0)
+            high = min(math.ceil(correction_dim(beta_slow)), head_dim - 1)
+            if low == high:
+                high += 0.001
+            ramp = np.clip((np.arange(head_dim // 2, dtype=np.float64) - low)
+                           / (high - low), 0.0, 1.0)
+            extrap_w = 1.0 - ramp
+            inv = (inv / factor) * (1 - extrap_w) + inv * extrap_w
+            attn_factor = af if af is not None else 0.1 * math.log(factor) + 1.0
+        else:
+            raise ValueError(f"unsupported rope scaling: {kind}")
+    return (inv / scaling).astype(np.float32), attn_factor
+
+
+def rope_tables(positions, head_dim, theta=10000.0, scaling=1.0,
+                rope_scaling=None, seq_len=None):
+    """float32 cos/sin tables (half-frequencies duplicated, HF convention).
+
+    ``positions``: integer tensor ``[T]`` -> tables ``[T, head_dim]``, or
+    ``[B, T]`` (per-example positions for left-padded batches) ->
+    ``[B, T, head_dim]``. ``seq_len``: the total sequence length, used by
+    longrope scaling to pick the short or long factor schedule."""
+    inv_freq, attn_factor = _inv_freq(head_dim, theta, scaling, rope_scaling,
+                                      seq_len=seq_len)
+    inv_freq = torch.from_numpy(inv_freq).to(positions.device)
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    if attn_factor != 1.0:
+        return torch.cos(emb) * attn_factor, torch.sin(emb) * attn_factor
+    return torch.cos(emb), torch.sin(emb)
+
+
+def rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rope(q, k, cos, sin):
+    """q,k: [B, H, T, D]; cos/sin: [T, D] or [B, T, D] (padded batches).
+    The rotation runs in the activation dtype (HF semantics)."""
+    dt = q.dtype
+    if cos.dim() == 3:
+        c, s = cos[:, None].to(dt), sin[:, None].to(dt)
+    else:
+        c, s = cos[None, None].to(dt), sin[None, None].to(dt)
+    return q * c + rotate_half(q) * s, k * c + rotate_half(k) * s
+
+
+def padding_setup(attention_mask, kv_begin, positions, T, device):
+    """Resolve ``(positions, bias, kv_begin)`` for batched prompts.
+
+    - ``attention_mask`` ([B, T] of 1/0, any pattern): an additive bias,
+      which forces the einsum attention path;
+    - ``kv_begin`` ([B] int, index of each example's first real token):
+      structural, so the flash kernels stay eligible.
+
+    Positions follow the HF convention (0 at the first real token)."""
+    bias = None
+    if attention_mask is not None:
+        if kv_begin is not None:
+            raise ValueError("pass attention_mask OR kv_begin, not both")
+        mask = torch.as_tensor(attention_mask, device=device)
+        if positions is None:
+            positions = torch.clamp(torch.cumsum(mask, dim=-1) - 1, min=0)
+        # large-but-finite so fully padded query rows softmax to uniform
+        # instead of NaN; they never reach real positions
+        bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e30).float()
+    elif kv_begin is not None:
+        kv_begin = torch.as_tensor(kv_begin, dtype=torch.int32, device=device)
+        if positions is None:
+            positions = torch.clamp(
+                torch.arange(T, dtype=torch.int32, device=device)[None]
+                - kv_begin[:, None], min=0)
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32, device=device)
+    return positions, bias, kv_begin
+
+
+def split_heads(x, n_heads, head_dim):
+    """[B, T, n*d] -> [B, n, T, d] (a view; the kernels read its strides)."""
+    b, t, _ = x.shape
+    return x.view(b, t, n_heads, head_dim).transpose(1, 2)
+
+
+def merge_heads(x):
+    """[B, n, T, d] -> [B, T, n*d]"""
+    b, n, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, n * d)
+
+
+def run_layers(layer_fn, h, num_layers, remat, keep_hidden=False):
+    """The layer driver: ``h = layer_fn(h, i)`` for each depth ``i``.
+
+    ``remat=True`` recomputes each layer in the backward (non-reentrant
+    ``torch.utils.checkpoint``); ``False`` saves everything. Returns
+    ``(h, hiddens)`` with ``hiddens`` the stacked ``[L, B, T, D]`` layer
+    outputs when ``keep_hidden``, else None."""
+    hiddens = []
+    for i in range(num_layers):
+        if remat:
+            h = checkpoint(layer_fn, h, i, use_reentrant=False)
+        else:
+            h = layer_fn(h, i)
+        if keep_hidden:
+            hiddens.append(h)
+    return h, (torch.stack(hiddens) if keep_hidden else None)
+
+
+def take_frontier(h, logits_at):
+    """Slice the single position whose logits will be computed."""
+    return h.narrow(1, logits_at % h.shape[1], 1)
+
+
+def uniform_init(generator, shape, scale=0.02, dtype=torch.float32,
+                 device=None):
+    """Normal(0, scale) weights drawn directly in ``dtype`` from ``generator``
+    (which must live on ``device``)."""
+    w = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    return w.mul_(scale)
+
+
+@dataclasses.dataclass
+class ModelOutputs:
+    """Forward outputs. ``hidden_states`` is ``[L+1, B, T, D]`` when
+    requested (embeddings + each layer output)."""
+    logits: Any
+    hidden_states: Optional[Any] = None

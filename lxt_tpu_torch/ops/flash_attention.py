@@ -1,0 +1,399 @@
+"""Flash attention for CUDA: hand-written Hopper kernels and their plain
+PyTorch versions (counterpart of ``lxt_tpu/ops/flash_attention.py``).
+
+The AttnLRP rules wrap *around* attention (``Composite.qkv``), so these
+kernels compute standard flash attention and its standard backward:
+
+- K1 ``flash_fwd`` (``csrc/flash_fwd.cu``): out = softmax(q kᵀ·scale + mask) v
+  by online softmax, plus the natural-log logsumexp of each row;
+- K2 ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``): the
+  gradients from p = exp(s − lse) and Δ = rowsum(out∘do).
+
+Layout: q ``[B, H, T, D]``, k/v ``[B, Hkv, T, D]`` with ``Hkv`` dividing
+``H``; the kernels read the batch, head and time strides (the last dim must
+be contiguous), so head-split views of a projection need no copy. Masks are
+in global positions: ``causal``, a sliding ``window`` (``k > q − window``),
+and per-example ``kv_begin``/``kv_end`` [B] valid-key spans. Query rows with
+no visible key give out 0 and lse −1e30. Optional ``rope`` ``(cos, sin)``
+[T, D] tables rotate q and k inside the kernels (HF rotate-half, in the
+activation dtype), and the transposed rotation is applied to dq and dk.
+
+Every kernel wrapper takes its plain version for CPU tensors (the tests);
+for a CUDA tensor it launches the kernel or raises. ``launches`` counts the
+kernel launches of each wrapper.
+"""
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from lxt_tpu_torch.models import common as _mcommon
+from lxt_tpu_torch.ops.attention import NATIVE_HEAD_DIMS, repeat_kv
+
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+#: launch count of each kernel wrapper; the wrappers add one per launch
+launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+#: rows per tile in every kernel: CUDA calls need T % TILE == 0
+TILE = 64
+
+
+def reset_launches():
+    for name in launches:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# argument checks (lxt_tpu.ops.flash_attention._canon / _check_rope)
+# ---------------------------------------------------------------------------
+
+def _canon(q, k, window, scale):
+    """(window, scale) as Python numbers: window None means no window, and
+    the window is clamped to >= 1 (each row sees at least its own key) and
+    to T + 2**20 (any window >= T masks nothing; the kernels take an int)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    no_window = max(q.shape[2], k.shape[2]) + 2**20
+    window = no_window if window is None else min(max(int(window), 1), no_window)
+    return window, float(scale)
+
+
+def _check_rope(rope, q, k):
+    """Validate in-kernel rope tables ([T, D]); cast to the activation dtype
+    (HF apply_rotary_pos_emb semantics — the rotation runs in x.dtype)."""
+    if rope is None:
+        return None, None
+    cos, sin = rope
+    Tq, Tk, D = q.shape[2], k.shape[2], q.shape[-1]
+    if Tq != Tk:
+        raise ValueError("in-kernel rope requires Tq == Tk")
+    if tuple(cos.shape) != (Tq, D) or tuple(sin.shape) != (Tq, D):
+        raise ValueError(f"rope tables must be [T={Tq}, D={D}], got "
+                         f"{tuple(cos.shape)}")
+    return cos.to(q.dtype).contiguous(), sin.to(q.dtype).contiguous()
+
+
+def _span(x, B, device):
+    return None if x is None else torch.as_tensor(
+        x, dtype=torch.int32, device=device).reshape(B).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions of the kernels
+# ---------------------------------------------------------------------------
+
+def _allowed(q, k, kv_begin, kv_end, window, causal):
+    """Boolean [B|1, 1, Tq, Tk] mask in global positions."""
+    dev = q.device
+    qi = torch.arange(q.shape[2], device=dev)[:, None]
+    kj = torch.arange(k.shape[2], device=dev)[None, :]
+    ok = kj > qi - window
+    if causal:
+        ok = ok & (kj <= qi)
+    ok = ok[None, None]
+    if kv_begin is not None:
+        ok = ok & (kj >= kv_begin.long()[:, None, None, None])
+    if kv_end is not None:
+        ok = ok & (kj < kv_end.long()[:, None, None, None])
+    return ok
+
+
+def _rope_qk(q, k, cos, sin):
+    return (q, k) if cos is None else _mcommon.apply_rope(q, k, cos, sin)
+
+
+def _rope_transpose(x, cos, sin):
+    """The transpose of the rope rotation (its vjp), on a float32 tensor."""
+    if cos is None:
+        return x
+    y = x * sin.float()
+    h = x.shape[-1] // 2
+    return x * cos.float() + torch.cat([y[..., h:], -y[..., :h]], dim=-1)
+
+
+def _scores(q, k, cos, sin, kv_begin, kv_end, window, scale, causal):
+    """Roped float32 q, repeated float32 k, masked scores and the mask."""
+    q, k = _rope_qk(q, k, cos, sin)
+    n_rep = q.shape[1] // k.shape[1]
+    qf, kf = q.float(), repeat_kv(k.float(), n_rep)
+    ok = _allowed(q, k, kv_begin, kv_end, window, causal)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    return qf, kf, s.masked_fill(~ok, NEG_INF), ok
+
+
+def flash_fwd_ref(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal):
+    """Plain version of K1: float32 softmax; returns (out, lse [B, H, T])."""
+    _, _, s, ok = _scores(q, k, cos, sin, kv_begin, kv_end, window, scale,
+                          causal)
+    vf = repeat_kv(v.float(), q.shape[1] // k.shape[1])
+    m = s.amax(-1, keepdim=True)
+    empty = m <= NEG_INF / 2
+    p = torch.exp(s - m).masked_fill(~ok, 0.0)
+    l = p.sum(-1, keepdim=True)
+    out = torch.matmul(p, vf) / torch.where(empty, 1.0, l)
+    out = out.masked_fill(empty, 0.0)
+    lse = torch.where(empty, NEG_INF, m + torch.log(l))
+    return out.to(q.dtype), lse.squeeze(-1)
+
+
+def _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale, causal):
+    qf, kf, s, ok = _scores(q, k, cos, sin, kv_begin, kv_end, window, scale,
+                            causal)
+    lse = lse[..., None]
+    p = torch.exp(s - lse).masked_fill(~ok | (lse <= NEG_INF / 2), 0.0)
+    return qf, kf, p
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
+                     window, scale, causal):
+    """Plain version of ``flash_bwd_dq``: dq = (p∘(do vᵀ − Δ)) k · scale."""
+    _, kf, p = _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale,
+                      causal)
+    vf = repeat_kv(v.float(), q.shape[1] // k.shape[1])
+    ds = p * (torch.matmul(do.float(), vf.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    return _rope_transpose(dq, cos, sin).to(q.dtype)
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
+                      window, scale, causal):
+    """Plain version of ``flash_bwd_dkv``: dv = pᵀ do, dk = dsᵀ q · scale,
+    both summed over each GQA group."""
+    qf, _, p = _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale,
+                      causal)
+    B, Hkv, Tk, D = k.shape
+    n_rep = q.shape[1] // Hkv
+    dof = do.float()
+    vf = repeat_kv(v.float(), n_rep)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dk = dk.view(B, Hkv, n_rep, Tk, D).sum(2)
+    dv = dv.view(B, Hkv, n_rep, Tk, D).sum(2)
+    return _rope_transpose(dk, cos, sin).to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+class _FlashArgs(ctypes.Structure):
+    """Mirror of ``struct FlashArgs`` in ``csrc/flash_common.cuh``."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "q", "k", "v", "dout", "lse", "delta", "cos", "sin",
+            "kv_begin", "kv_end", "out0", "out1", "lse_out")]
+        + [(f"stride{i}", ctypes.c_longlong) for i in range(18)]
+        + [(n, ctypes.c_int) for n in (
+            "B", "H", "Hkv", "T", "window", "causal")]
+        + [(n, ctypes.c_float) for n in ("scale", "scale_log2")])
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ENTRY = {"flash_fwd": "lxt_flash_fwd", "flash_bwd_dq": "lxt_flash_bwd_dq",
+          "flash_bwd_dkv": "lxt_flash_bwd_dkv"}
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from lxt_tpu_torch.ops import _build
+        lib = _build.library()
+        for sym in _ENTRY.values():
+            fn = getattr(lib, sym)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _aligned(t):
+    """The kernels load 16-byte vectors: last dim contiguous, base and the
+    batch/head/time strides 16-byte aligned."""
+    e = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * e % 16 == 0 for s in t.stride()[:3]))
+
+
+def _prepared(t):
+    return t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch(name, q, k, v, *, dout=None, lse=None, delta=None, cos=None,
+            sin=None, kv_begin=None, kv_end=None, outs=(), lse_out=None,
+            window, scale, causal):
+    """Check the arguments and launch kernel ``name`` on the current stream."""
+    if not q.is_cuda:
+        raise ValueError(f"{name}: expected CUDA tensors, got {q.device}")
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported "
+                         f"(bfloat16 or float32)")
+    if D not in NATIVE_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {NATIVE_HEAD_DIMS}")
+    if (T % TILE or H % Hkv or tuple(k.shape) != (B, Hkv, T, D)
+            or v.shape != k.shape or (dout is not None and dout.shape != q.shape)):
+        raise ValueError(f"{name}: needs k, v [B, Hkv, T, D] with Hkv dividing "
+                         f"H and T % {TILE} == 0; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    acts = [q, k, v] + ([dout] if dout is not None else [])
+    # (tensor, dtype, shape) of every other input the kernel reads densely
+    dense = [(lse, torch.float32, (B, H, T)), (delta, torch.float32, (B, H, T)),
+             (cos, q.dtype, (T, D)), (sin, q.dtype, (T, D)),
+             (kv_begin, torch.int32, (B,)), (kv_end, torch.int32, (B,))]
+    for t in acts + list(outs) + [x for x, _, _ in dense if x is not None]:
+        if t.device != q.device:
+            raise ValueError(f"{name}: all tensors must be on {q.device}")
+    for t in acts + list(outs):
+        if t.dtype != q.dtype or not _aligned(t):
+            raise ValueError(f"{name}: activations must share q's dtype and "
+                             f"be 16-byte aligned with a contiguous last dim")
+    for t, dtype, shape in dense:
+        if t is not None and (t.dtype != dtype or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor of "
+                             f"shape {shape}, got {t.dtype} {tuple(t.shape)}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    strided = acts + [None] * (4 - len(acts)) + list(outs) + [None] * (2 - len(outs))
+    strides = []
+    for t in strided:
+        strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
+    args = _FlashArgs(
+        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(cos),
+        ptr(sin), ptr(kv_begin), ptr(kv_end),
+        ptr(outs[0]) if outs else None, ptr(outs[1]) if len(outs) > 1 else None,
+        ptr(lse_out), *strides, B, H, Hkv, T, window, int(causal), scale,
+        scale * LOG2E)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, _ENTRY[name])(ctypes.addressof(args),
+                                         _DTYPE_CODE[q.dtype], D, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    launches[name] += 1
+
+
+def flash_fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal):
+    """K1. Returns (out like q, lse float32 [B, H, T])."""
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, cos, sin, kv_begin, kv_end, window,
+                             scale, causal)
+    q, k, v = _prepared(q), _prepared(k), _prepared(v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", q, k, v, cos=cos, sin=sin, kv_begin=kv_begin,
+            kv_end=kv_end, outs=(out,), lse_out=lse, window=window,
+            scale=scale, causal=causal)
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
+                 scale, causal):
+    """K2, dq half: one CTA per (b, h, q tile), looping over kv tiles."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_ref(q, k, v, do, lse, delta, cos, sin, kv_begin,
+                                kv_end, window, scale, causal)
+    q, k, v, do = (_prepared(t) for t in (q, k, v, do))
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", q, k, v, dout=do, lse=lse.contiguous(),
+            delta=delta.contiguous(), cos=cos, sin=sin, kv_begin=kv_begin,
+            kv_end=kv_end, outs=(dq,), window=window, scale=scale,
+            causal=causal)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
+                  scale, causal):
+    """K2, dk/dv half: one CTA per (b, kv head, kv tile), looping over the
+    GQA group's q heads and the visible q tiles."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_ref(q, k, v, do, lse, delta, cos, sin, kv_begin,
+                                 kv_end, window, scale, causal)
+    q, k, v, do = (_prepared(t) for t in (q, k, v, do))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", q, k, v, dout=do, lse=lse.contiguous(),
+            delta=delta.contiguous(), cos=cos, sin=sin, kv_begin=kv_begin,
+            kv_end=kv_end, outs=(dk, dv), window=window, scale=scale,
+            causal=causal)
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+def _attention_function(fwd, bwd_dq, bwd_dkv):
+    """An autograd Function whose forward is ``fwd`` and whose backward runs
+    ``bwd_dq`` and ``bwd_dkv`` on Δ = rowsum(out∘do)."""
+
+    class _Attention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, cos, sin, kv_begin, kv_end, window, scale,
+                    causal):
+            out, lse = fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale,
+                           causal)
+            ctx.save_for_backward(q, k, v, out, lse, cos, sin, kv_begin, kv_end)
+            ctx.static = (window, scale, causal)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse, cos, sin, kv_begin, kv_end = ctx.saved_tensors
+            delta = (out.float() * do.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
+                    *ctx.static)
+            dq = bwd_dq(*args)
+            dk, dv = bwd_dkv(*args)
+            return dq, dk, dv, None, None, None, None, None, None, None
+
+    return _Attention
+
+
+_Flash = _attention_function(flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+_FlashRef = _attention_function(flash_fwd_ref, flash_bwd_dq_ref,
+                                flash_bwd_dkv_ref)
+
+
+def _call(fn, q, k, v, window, scale, causal, kv_begin, kv_end, rope):
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"Hkv={k.shape[1]} must divide H={q.shape[1]}")
+    window, scale = _canon(q, k, window, scale)
+    cos, sin = _check_rope(rope, q, k)
+    B = q.shape[0]
+    return fn.apply(q, k, v, cos, sin, _span(kv_begin, B, q.device),
+                    _span(kv_end, B, q.device), window, scale, causal)
+
+
+def flash_attention(q, k, v, window=None, *, scale: Optional[float] = None,
+                    causal: bool = True, kv_begin=None, kv_end=None,
+                    rope=None):
+    """Fused attention softmax(q kᵀ·scale + mask) v with its backward.
+
+    q ``[B, H, T, D]``, k/v ``[B, Hkv, T, D]``. ``window``: sliding-window
+    size (None = no window). ``kv_begin``/``kv_end``: optional [B] valid-key
+    span. ``rope``: optional ``(cos, sin)`` [T, D] tables applied in-kernel.
+    CUDA tensors run K1/K2 (or raise if the call is not supported); CPU
+    tensors run the plain versions."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _call(_Flash, q, k, v, window, scale, causal, kv_begin, kv_end,
+                 rope)
+
+
+def flash_attention_ref(q, k, v, window=None, *, scale: Optional[float] = None,
+                        causal: bool = True, kv_begin=None, kv_end=None,
+                        rope=None):
+    """The plain PyTorch version of :func:`flash_attention` on any device:
+    float32 softmax, masks in global positions, empty rows give out 0 and
+    lse −1e30; its backward runs the plain math of K2."""
+    return _call(_FlashRef, q, k, v, window, scale, causal, kv_begin, kv_end,
+                 rope)
