@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of lxt_tpu_torch on one NVIDIA GPU: builds the flash-attention
-kernels, holds each against its plain PyTorch version, and drives the AttnLRP
-main path (input relevance of a Llama-family LM with TinyLlama-1.1B widths,
-random weights from a seed) through the kernels.
+"""Smoke run of lxt_tpu_torch on one NVIDIA GPU: builds the kernels, holds
+each against its plain PyTorch version, and drives the AttnLRP main path
+(input relevance of a Llama-family LM with TinyLlama-1.1B widths, random
+weights from a seed) and the quantized path (NF4 weights at Llama-3-8B width
+and depth, and a bitsandbytes-NF4 checkpoint through from_pretrained)
+through the kernels.
 
     python3 chip_smoke.py
 
@@ -12,23 +14,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. K1 flash_fwd and K2 flash_bwd_dq / flash_bwd_dkv against their plain
      versions, bf16 and float32, over the mask regimes; times at the main
      path's shapes;
-  4. the main path in float32, 22 layers, batch 1 x 1024: the kernel path
+  4. K3 nf4_dequant against its plain version, bit-exact, bf16 and float32,
+     over the Llama-3-8B projection shapes and ragged ones; times at the
+     wg [4096, 14336] and wd [14336, 4096] shapes;
+  5. the main path in float32, 22 layers, batch 1 x 1024: the kernel path
      against the einsum path (normalized L2 of logits and relevance <= 1e-4)
      and the kernel launches per attribution;
-  5. the main path served: bf16, batch 8 x 1024, three attributions through
+  6. the main path served: bf16, batch 8 x 1024, three attributions through
      the kernels (launch counts, finite relevance, heatmaps/s), the einsum
      path's heatmaps/s, the bf16-vs-float32 relevance divergence at batch 1,
-     and the peak device memory.
+     and the peak device memory;
+  7. the NF4 path at Llama-3-8B width and depth (32 layers, bf16, batch
+     1 x 4096, remat): three attributions (heatmaps/s, launches per
+     attribution of K1, K2 and K3 against 64 / 32 / 640, finite relevance,
+     peak memory), then the
+     dense control with every projection plainly dequantized to bf16
+     (heatmaps/s, normalized L2 of its relevance against the NF4 run <= 1e-3);
+  8. from_pretrained on the card: a tiny bitsandbytes-NF4-serialized Llama
+     checkpoint written here, loaded with device="cuda" and attributed
+     (QuantizedTensor leaves, weights exact against the checkpoint's values,
+     finite relevance within 1e-4 of the CPU load, K3 launched).
 The line before the last is a JSON object with each kernel's launches, error
 and times; the last line is {"ok": true, "device": {...}}.
 """
 
+import itertools
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEQ, SERVE_BATCH, REQUESTS = 1024, 8, 3
@@ -60,7 +80,34 @@ KERNELS = {
                      "lxt_tpu/ops/flash_attention.py:759"),
     "flash_bwd_dkv": ("lxt_tpu_torch/csrc/flash_bwd.cu",
                       "lxt_tpu/ops/flash_attention.py:837"),
+    "nf4_dequant": ("lxt_tpu_torch/csrc/nf4_dequant.cu",
+                    "lxt_tpu/ops/quant.py:206"),
 }
+# Meta-Llama-3-8B's config.json widths (bench.py llama3_8b_config), full
+# depth, random weights; bench_8b's setup: bf16, batch 1 x 4096, remat
+LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                 num_layers=32, num_heads=32, num_kv_heads=8, rms_eps=1e-5,
+                 rope_theta=500000.0)
+SEQ_8B, DENSE_BAR = 4096, 1e-3
+PROJECTIONS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+# K3 cases: name -> (weight shape [..., K, N], nf4 block); the 8B projection
+# shapes, the whole 8B wk stack, and ragged shapes (K 64 with block 64 is
+# one lxt_tpu's Pallas kernel refuses: K/2 % block != 0)
+K3_CASES = {
+    "wq_wo_4096x4096": ((4096, 4096), 64),
+    "wk_wv_4096x1024": ((4096, 1024), 64),
+    "wg_wu_4096x14336": ((4096, 14336), 64),
+    "wd_14336x4096": ((14336, 4096), 64),
+    "wk_stack_32x4096x1024": ((32, 4096, 1024), 64),
+    "ragged_128x48": ((128, 48), 64),
+    "ragged_64x40": ((64, 40), 64),
+}
+K3_TIMED = ("wg_wu_4096x14336", "wd_14336x4096")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# the tiny bitsandbytes-NF4 checkpoint of phase 8
+TINY = dict(model_type="llama", vocab_size=512, hidden_size=256,
+            intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, rms_norm_eps=1e-5, tie_word_embeddings=False)
 
 
 def card_line():
@@ -301,6 +348,244 @@ def phase_served(card, params32, ids1, rel32):
     return failures, launches
 
 
+def phase_k3(card):
+    """K3 against its plain version: bit-exact on every case, both dtypes;
+    then times at the wg and wd shapes (bf16, the main path's dtype)."""
+    import torch
+    from lxt_tpu_torch.ops import quant
+    failures, err_max = [], 0.0
+    gen = torch.Generator("cuda").manual_seed(7)
+
+    def weight(shape):
+        return 0.02 * torch.randn(shape, generator=gen, device="cuda")
+
+    for name, (shape, block) in K3_CASES.items():
+        qt = quant.quantize(weight(shape), "nf4", block=block)
+        for dtype in (torch.bfloat16, torch.float32):
+            got = quant.nf4_dequant(qt.q, qt.scale, qt.block, dtype)
+            want = quant.nf4_dequant_ref(qt.q, qt.scale, qt.block, dtype)
+            torch.cuda.synchronize()
+            ok = got.dtype == want.dtype and got.shape == want.shape
+            err = (got.float() - want.float()).abs().max().item() if ok else math.inf
+            ok = ok and torch.equal(got, want)
+            err_max = max(err_max, err)
+            if not ok:
+                failures.append(f"K3 case {name} {dtype}")
+            print(f"K3 case {str(dtype)[6:]:8s} {name:22s} block {qt.block}: "
+                  f"max abs err {err:.3g}, bit-exact {ok}"
+                  + (" PASS" if ok else " FAIL"), flush=True)
+            del got, want
+    times = {}
+    for name in K3_TIMED:
+        shape, block = K3_CASES[name]
+        # four weights in turn: their 4 x 33 MB of codes and scales overflow
+        # the 50 MB L2, so each launch reads its inputs cold, as a layer does
+        qts = [quant.quantize(weight(shape), "nf4", block=block) for _ in range(4)]
+        turn = itertools.cycle(qts)
+
+        def kern():
+            qt = next(turn)
+            quant.nf4_dequant(qt.q, qt.scale, qt.block, torch.bfloat16)
+
+        def plain():
+            qt = next(turn)
+            quant.nf4_dequant_ref(qt.q, qt.scale, qt.block, torch.bfloat16)
+
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        K, N = shape
+        moved = K * N // 2 + K // block * N * 4 + K * N * 2
+        rate = moved / (times[name][0] * 1e-3)
+        print(f"K3 time {name} bf16: kernel {times[name][0]:.4f} ms "
+              f"({rate / 1e9:.0f} GB/s, {rate / HBM_BYTES_PER_S:.0%} of "
+              f"3.35 TB/s), plain {times[name][1]:.4f} ms [{card}]", flush=True)
+        del qts
+    return failures, err_max, times
+
+
+def serve_rate(fn, requests):
+    """Heatmaps/s of ``fn`` (one batch-1 request -> relevance) over
+    ``requests``, host clock around synchronised work; and the relevances."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rels = [fn(ids) for ids in requests]
+    torch.cuda.synchronize()
+    return len(requests) / (time.perf_counter() - t0), rels
+
+
+def phase_nf4_8b(card):
+    """The NF4 path at Llama-3-8B width and depth, then the dense control."""
+    import torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.ops import flash_attention as fa
+    from lxt_tpu_torch.ops import quant
+    failures = []
+    cfg = llama.LlamaConfig(**LLAMA3_8B, dtype="bfloat16")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(8),
+                               quantize_bits="nf4")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    qbytes = sum(t.numel() * t.element_size() for n in PROJECTIONS
+                 for t in (params["layers"][n].q, params["layers"][n].scale))
+    gen = torch.Generator("cuda").manual_seed(9)
+    requests = [torch.randint(0, cfg.vocab_size, (1, SEQ_8B), generator=gen,
+                              device="cuda") for _ in range(REQUESTS)]
+
+    def run(p):
+        return lambda ids: attribute(p, cfg, ids, "auto", remat=True)[1]
+
+    run(params)(requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    quant.reset_launches()
+    rate, rels = serve_rate(run(params), requests)
+    launches = {**fa.launches, **quant.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per = {n: c / REQUESTS for n, c in launches.items()}
+    # per layer: K1 in the forward and the recompute; K3 for the 7
+    # projections in the forward and the backward, and for 6 in the
+    # recompute, which stops before wd (its backward needs only codes)
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "nf4_dequant": 20 * L}
+    ok = all(r.shape == (1, SEQ_8B) and bool(torch.isfinite(r).all())
+             for r in rels)
+    print(f"NF4 Llama-3-8B width L{L} B1x{SEQ_8B} bf16 remat: init and "
+          f"quantize {t_init:.1f} s, nf4 codes and scales "
+          f"{qbytes / 2**30:.2f} GiB; {REQUESTS} attributions, {rate:.4f} "
+          f"heatmaps/s ({1 / rate:.3f} s each), launches per attribution "
+          f"{per} (expected {want}), relevance finite and [1, {SEQ_8B}]: {ok}, "
+          f"peak device memory {peak:.2f} GiB [{card}]", flush=True)
+    if not ok:
+        failures.append("NF4 8B relevance not finite or misshapen")
+    if per != want:
+        failures.append(f"NF4 8B launches per attribution {per}")
+
+    # dense control: every projection plainly dequantized to bf16, one
+    # layer at a time (the plain version's int64 indices for a whole
+    # stacked wg would take ~15 GB)
+    dense = dict(params, layers=dict(params["layers"]))
+    for name in PROJECTIONS:
+        qt = params["layers"][name]
+        w = torch.empty(qt.shape, dtype=torch.bfloat16, device="cuda")
+        for i in range(L):
+            w[i] = quant.nf4_dequant_ref(qt.q[i], qt.scale[i], qt.block,
+                                         torch.bfloat16)
+        dense["layers"][name] = w
+    run(dense)(requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    rate_d, rels_d = serve_rate(run(dense), requests)
+    peak_d = torch.cuda.max_memory_allocated() / 2**30
+    d = max(nl2(a, b) for a, b in zip(rels_d, rels))
+    print(f"NF4 Llama-3-8B dense control (bf16 weights, plainly dequantized): "
+          f"{rate_d:.4f} heatmaps/s, peak device memory {peak_d:.2f} GiB "
+          f"(NF4 weights still resident); relevance against the NF4 run: "
+          f"normalized L2 {d:.3g} (bar {DENSE_BAR}) [{card}]", flush=True)
+    if not (math.isfinite(d) and d <= DENSE_BAR):
+        failures.append("NF4 8B dense control")
+    return failures, launches
+
+
+def write_safetensors(path, tensors):
+    """A minimal safetensors writer (the card's machine has no safetensors
+    package): 8-byte header length, JSON header, raw little-endian data."""
+    kinds = {np.dtype(np.float32): "F32", np.dtype(np.uint8): "U8"}
+    header, blobs, offset = {}, [], 0
+    for name, arr in tensors.items():
+        raw = np.ascontiguousarray(arr).tobytes()
+        header[name] = {"dtype": kinds[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        f.writelines(blobs)
+
+
+def bnb_nf4(w):
+    """bitsandbytes' 4-bit serialization of one [out, in] weight (flat
+    blocks of 64, nearest NF4 code, first element in the high nibble) and
+    the values it stands for."""
+    from lxt_tpu_torch.ops.quant import NF4_CODE
+    blocks = w.reshape(-1, 64)
+    absmax = np.abs(blocks).max(axis=1).astype(np.float32)
+    idx = np.argmin(np.abs((blocks / absmax[:, None])[..., None] - NF4_CODE),
+                    axis=-1).astype(np.uint8)
+    values = (NF4_CODE[idx] * absmax[:, None]).reshape(w.shape)
+    flat = idx.reshape(-1)
+    meta = {"blocksize": 64, "quant_type": "nf4", "dtype": "float32",
+            "shape": list(w.shape)}
+    entries = {"": ((flat[0::2] << 4) | flat[1::2]).reshape(-1, 1),
+               ".absmax": absmax, ".quant_map": NF4_CODE.copy(),
+               ".quant_state.bitsandbytes__nf4": np.frombuffer(
+                   json.dumps(meta).encode(), np.uint8).copy()}
+    return entries, values
+
+
+def phase_from_pretrained(card):
+    """A tiny bitsandbytes-NF4 Llama checkpoint, loaded on the card."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.ops import quant
+    failures = []
+    rng = np.random.default_rng(10)
+    D, I, V = TINY["hidden_size"], TINY["intermediate_size"], TINY["vocab_size"]
+    kv = TINY["num_key_value_heads"] * D // TINY["num_attention_heads"]
+
+    def w(*shape):
+        return (0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+    state = {"model.embed_tokens.weight": w(V, D), "lm_head.weight": w(V, D),
+             "model.norm.weight": 1 + w(D)}
+    values = {}
+    for i in range(TINY["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        state[p + "input_layernorm.weight"] = 1 + w(D)
+        state[p + "post_attention_layernorm.weight"] = 1 + w(D)
+        for name, shape in (("self_attn.q_proj", (D, D)), ("self_attn.k_proj", (kv, D)),
+                            ("self_attn.v_proj", (kv, D)), ("self_attn.o_proj", (D, D)),
+                            ("mlp.gate_proj", (I, D)), ("mlp.up_proj", (I, D)),
+                            ("mlp.down_proj", (D, I))):
+            entries, values[p + name] = bnb_nf4(w(*shape))
+            state.update({p + name + ".weight" + k: v for k, v in entries.items()})
+    ids = rng.integers(0, V, (1, 256))
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(TINY, f)
+        write_safetensors(os.path.join(tmp, "model.safetensors"), state)
+        model = lxt_tpu_torch.from_pretrained(tmp, device="cuda")
+        cpu_model = lxt_tpu_torch.from_pretrained(tmp)
+    wq = model.params["layers"]["wq"]
+    leaves_ok = all(isinstance(model.params["layers"][n], quant.QuantizedTensor)
+                    and model.params["layers"][n].bits == "nf4"
+                    and model.params["layers"][n].q.is_cuda for n in PROJECTIONS)
+    got_wq = quant.nf4_dequant(wq.q[0], wq.scale[0], wq.block, torch.float32)
+    exact = torch.equal(got_wq.cpu(), torch.from_numpy(
+        values["model.layers.0.self_attn.q_proj"].T.copy()))
+    quant.reset_launches()
+    _, rel = model.attribute(ids)
+    torch.cuda.synchronize()
+    k3 = quant.launches["nf4_dequant"]
+    _, rel_cpu = cpu_model.attribute(ids)
+    d = nl2(rel.cpu(), rel_cpu)
+    ok = (leaves_ok and exact and k3 > 0 and rel.shape == (1, 256)
+          and bool(torch.isfinite(rel).all()) and d <= PARITY_BAR)
+    print(f"from_pretrained bnb-NF4 Llama checkpoint (L{TINY['num_hidden_layers']} "
+          f"D{D}, float32) on the card: QuantizedTensor nf4 leaves {leaves_ok}, "
+          f"wq exact against the checkpoint's values {exact}, K3 launches per "
+          f"attribution {k3}, relevance finite [1, 256] against the CPU load: "
+          f"normalized L2 {d:.3g} (bar {PARITY_BAR})"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("from_pretrained on the card")
+    return failures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -325,11 +610,23 @@ def main():
     print(f"kernel build {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds:.1f} s) [{card}]", flush=True)
 
+    t_start = time.perf_counter()
     failures, errs, times = phase_kernels(card)
+    f, errs["nf4_dequant"], k3_times = phase_k3(card)
+    failures += f
+    times["nf4_dequant"] = k3_times[K3_TIMED[0]]
     f, params32, ids1, rel32 = phase_parity(card)
     failures += f
     f, launches = phase_served(card, params32, ids1, rel32)
     failures += f
+    del params32, ids1, rel32
+    torch.cuda.empty_cache()
+    f, nf4_launches = phase_nf4_8b(card)
+    failures += f
+    launches["nf4_dequant"] = nf4_launches["nf4_dequant"]
+    torch.cuda.empty_cache()
+    failures += phase_from_pretrained(card)
+    print(f"phases 3-8 took {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -1,20 +1,38 @@
 """lxt_tpu_torch — AttnLRP attribution for transformers in PyTorch, with
-hand-written Hopper (sm_90a) flash-attention kernels.
+hand-written Hopper (sm_90a) kernels.
 
 The port of ``lxt_tpu`` (JAX on a TPU), which stays in this repository as
 the reference each ported part is tested against. Every LRP rule is an
 autograd Function or a stop-gradient inside the model forward, so
-``relevance = x * grad`` is one backward pass. Attention on CUDA tensors
-runs the kernels in ``csrc/`` (built with nvcc at first use); on CPU
-tensors it runs their plain PyTorch versions.
+``relevance = x * grad`` is one backward pass. Attention and nf4
+dequantization on CUDA tensors run the kernels in ``csrc/`` (built with
+nvcc at first use); on CPU tensors they run their plain PyTorch versions.
+
+``from_pretrained``, ``from_hf``, ``quantize_params`` and
+``QuantizedTensor`` are imported on first access.
 """
+
+import importlib
 
 __version__ = "0.1.0"
 
 from lxt_tpu_torch.attribution import input_relevance, select_logit
 from lxt_tpu_torch.composites import Composite, attnlrp, cp_lrp, vanilla_gradient
 
+_LAZY = {
+    "from_pretrained": "lxt_tpu_torch.models.registry",
+    "from_hf": "lxt_tpu_torch.models.registry",
+    "quantize_params": "lxt_tpu_torch.ops.quant",
+    "QuantizedTensor": "lxt_tpu_torch.ops.quant",
+}
+
 __all__ = [
     "Composite", "attnlrp", "cp_lrp", "vanilla_gradient",
-    "input_relevance", "select_logit", "__version__",
+    "input_relevance", "select_logit", "__version__", *_LAZY,
 ]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'lxt_tpu_torch' has no attribute {name!r}")

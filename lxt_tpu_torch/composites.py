@@ -7,8 +7,10 @@ methods (``act``, ``qkv``, ``gated_mul``, ``mul_uniform``, ``rms_norm``,
 
 Presets mirror ``lxt_tpu``: :data:`attnlrp`, :data:`cp_lrp` and
 :data:`vanilla_gradient`. The explicit linear rules (gamma, alpha-beta,
-modified-z), per-site and per-layer overrides and quantized weights are not
-ported yet and raise :class:`NotImplementedError`.
+modified-z) and per-site and per-layer overrides are not ported yet and
+raise :class:`NotImplementedError`. Quantized weights
+(:class:`~lxt_tpu_torch.ops.quant.QuantizedTensor`) go through
+:func:`~lxt_tpu_torch.ops.quant.quant_matmul`.
 """
 
 import dataclasses
@@ -16,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from lxt_tpu_torch.ops.quant import QuantizedTensor, quant_matmul
 from lxt_tpu_torch.ops.rules import divide_gradient, identity_rule, stop_gradient
 
 
@@ -108,12 +111,17 @@ class Composite:
 
     def linear(self, x, w, b=None, site=None):
         """Dense layer, ``w: [in, out]``. Under Gradient*Input a plain linear
-        already implements the epsilon rule. ``site`` names the call site
+        already implements the epsilon rule. int8/int4/nf4
+        :class:`~lxt_tpu_torch.ops.quant.QuantizedTensor` weights go through
+        :func:`~lxt_tpu_torch.ops.quant.quant_matmul` (weights carry no
+        relevance, so the rules are untouched). ``site`` names the call site
         (the parameter leaf name), for the site rules still to be ported."""
+        if isinstance(w, QuantizedTensor):
+            return quant_matmul(x, w, b)
         if not isinstance(w, torch.Tensor):
             raise NotImplementedError(
-                f"weights of type {type(w).__name__} (quantized) are not "
-                f"ported to lxt_tpu_torch yet")
+                f"weights of type {type(w).__name__} are not supported "
+                f"(a torch.Tensor or a QuantizedTensor)")
         y = torch.matmul(x, w)
         return y if b is None else y + b
 

@@ -134,16 +134,24 @@ def _torch_dtype(dtype):
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=None,
-                device=None):
+                device=None, quantize_bits=None):
     """Random parameters (smoke runs and benchmarks), stacked over layers,
-    drawn from ``generator`` (which must live on ``device``)."""
+    drawn from ``generator`` (which must live on ``device``).
+
+    ``quantize_bits`` (8, 4 or "nf4") quantizes each stacked projection
+    right after drawing it, so the full-precision tree never coexists with
+    the quantized one; embed, lm_head and norms stay full precision."""
     dtype = _torch_dtype(dtype or cfg.dtype)
     device = device if device is not None else generator.device
     L, D, I, hd = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.hd
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
 
     def u(*shape):
-        return common.uniform_init(generator, shape, dtype=dtype, device=device)
+        w = common.uniform_init(generator, shape, dtype=dtype, device=device)
+        if quantize_bits and len(shape) >= 3:
+            from lxt_tpu_torch.ops.quant import quantize
+            w = quantize(w, quantize_bits)
+        return w
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)

@@ -1,0 +1,271 @@
+"""One-call user surface: HF Llama-family checkpoint or model ->
+:class:`AttributionModel` (counterpart of ``lxt_tpu/models/registry.py``,
+for the families the port has).
+
+    import lxt_tpu_torch
+    model = lxt_tpu_torch.from_pretrained("/path/to/llama-dir",
+                                          quantize_bits="nf4", device="cuda")
+    value, relevance = model.attribute(input_ids)
+
+``from_pretrained`` reads ``config.json`` with :mod:`json` and the weights
+with the numpy safetensors reader (:mod:`lxt_tpu_torch.io`): it needs
+neither ``transformers`` nor ``safetensors``. bitsandbytes-serialized
+4-bit and 8-bit checkpoints are ingested on the host and re-quantized in
+kind.
+"""
+
+import dataclasses
+import json
+import types
+import warnings
+from pathlib import Path
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from lxt_tpu_torch import composites
+from lxt_tpu_torch.attribution import input_relevance, select_logit
+from lxt_tpu_torch.models import llama
+
+#: the families the port has a model for (all take the Llama forward)
+SUPPORTED_FAMILIES = ("llama", "qwen2", "qwen3", "mistral", "phi3")
+
+_QWEN = dict(vocab_size=151936, hidden_size=4096, intermediate_size=22016,
+             num_hidden_layers=32, num_attention_heads=32,
+             num_key_value_heads=32, rope_theta=10000.0, rms_norm_eps=1e-6,
+             tie_word_embeddings=False, rope_scaling=None,
+             use_sliding_window=False, sliding_window=4096,
+             max_position_embeddings=32768, hidden_act="silu")
+
+#: transformers' defaults, per ``model_type``, for every key that
+#: ``LlamaConfig.from_hf`` reads (and ``hidden_act``): what ``AutoConfig``
+#: gives for a key that ``config.json`` leaves out
+_HF_DEFAULTS = {
+    "llama": dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                  num_hidden_layers=32, num_attention_heads=32,
+                  num_key_value_heads=None, head_dim=None, rope_theta=10000.0,
+                  rms_norm_eps=1e-6, tie_word_embeddings=False,
+                  rope_scaling=None, max_position_embeddings=2048,
+                  hidden_act="silu"),
+    "qwen2": _QWEN,
+    "qwen3": dict(_QWEN, head_dim=128),
+    "mistral": dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    head_dim=None, rope_theta=10000.0, rms_norm_eps=1e-6,
+                    tie_word_embeddings=False, sliding_window=4096,
+                    max_position_embeddings=131072, hidden_act="silu"),
+    "phi3": dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=None, rope_theta=10000.0,
+                 rms_norm_eps=1e-5, tie_word_embeddings=False,
+                 rope_scaling=None, sliding_window=None,
+                 max_position_embeddings=4096,
+                 original_max_position_embeddings=4096, hidden_act="silu"),
+}
+
+
+def read_hf_config(model_dir):
+    """``config.json`` of a checkpoint directory as an attribute namespace,
+    with the keys it leaves out filled as transformers' config class for
+    its ``model_type`` fills them (a ``model_type`` outside the table is
+    taken as written)."""
+    raw = json.loads((Path(model_dir) / "config.json").read_text())
+    mt = raw.get("model_type")
+    if mt not in _HF_DEFAULTS:
+        return types.SimpleNamespace(**raw)
+    cfg = dict(_HF_DEFAULTS[mt])
+    cfg.update(raw)
+    if cfg["num_key_value_heads"] is None:
+        cfg["num_key_value_heads"] = cfg["num_attention_heads"]
+    if mt == "llama" and cfg["head_dim"] is None:
+        cfg["head_dim"] = cfg["hidden_size"] // cfg["num_attention_heads"]
+    if mt in ("qwen2", "qwen3") and not cfg["use_sliding_window"]:
+        cfg["sliding_window"] = None
+    rs = cfg.get("rope_scaling")
+    if mt == "phi3" and rs and rs.get("type") in ("su", "yarn"):
+        cfg["rope_scaling"] = dict(rs, type="longrope")
+    return types.SimpleNamespace(**cfg)
+
+
+def _padding_args(kv_begin, attention_mask, kv_end, device):
+    """Validated padding keywords for a batch of left-padded prompts:
+    ``kv_begin [B]`` (each row's first real index; the flash kernels stay
+    eligible) or an arbitrary ``attention_mask [B, T]`` (an additive bias).
+    ``kv_end`` is the right-padded (BERT) convention, which no ported
+    family takes."""
+    if kv_end is not None:
+        raise ValueError(
+            "kv_end is the BERT (right-padded) convention; causal families "
+            "take kv_begin=[first real index per row] or attention_mask")
+    kw = {}
+    if kv_begin is not None:
+        kw["kv_begin"] = torch.as_tensor(np.asarray(kv_begin), dtype=torch.int32,
+                                         device=device)
+    if attention_mask is not None:
+        if kw:
+            raise ValueError("pass attention_mask OR kv_begin, not both")
+        kw["attention_mask"] = torch.as_tensor(np.asarray(attention_mask),
+                                               device=device)
+    return kw
+
+
+@dataclasses.dataclass
+class AttributionModel:
+    """A converted Llama-family model plus its attribution entry points.
+    PyTorch runs eagerly, so there is no program cache."""
+
+    family: str
+    cfg: Any
+    params: Any
+    composite: composites.Composite
+
+    @property
+    def device(self):
+        return self.params["embed"].device
+
+    def embed(self, input_ids):
+        ids = torch.as_tensor(np.asarray(input_ids), device=self.device)
+        return llama.embed(self.params, ids.long())
+
+    def logits(self, input_ids, composite=None):
+        composite = composites.resolve(composite or self.composite)
+        with torch.no_grad():
+            return llama.forward(self.params, self.cfg, self.embed(input_ids),
+                                 composite).logits
+
+    def attribute(self, input_ids, *, target: Optional[Callable] = None,
+                  position: int = -1, token=None, composite=None,
+                  kv_begin=None, attention_mask=None, kv_end=None):
+        """Per-token input relevance, one forward and one backward.
+
+        Default target: the argmax logit at ``position`` (only that row's
+        logits are computed), or the ``token [B]`` ids there; ``target``
+        maps the full ``[B, T, V]`` logits to a scalar instead. Returns
+        ``(target_value, relevance [B, T])``. ``kv_begin`` /
+        ``attention_mask`` mark left padding (see :func:`_padding_args`)."""
+        composite = composites.resolve(composite or self.composite)
+        kw = _padding_args(kv_begin, attention_mask, kv_end, self.device)
+        tok = None if token is None else torch.as_tensor(np.asarray(token),
+                                                         device=self.device)
+        cfg, params = self.cfg, self.params
+
+        def tgt(e):
+            if target is not None:
+                return target(llama.forward(params, cfg, e, composite,
+                                            **kw).logits)
+            logits = llama.forward(params, cfg, e, composite,
+                                   logits_at=position, **kw).logits
+            return select_logit(logits, position=-1, token=tok)
+
+        return input_relevance(tgt, self.embed(input_ids))
+
+
+def _llama_structural_match(hf_config, state_dict) -> bool:
+    """True when an out-of-registry architecture is computationally Llama:
+    the Llama config attributes with a SiLU gated MLP, and exactly the Llama
+    parameter naming (a clone with extra layer-0 computation weights, which
+    the converter would drop, does not match)."""
+    needed_cfg = ("vocab_size", "hidden_size", "intermediate_size",
+                  "num_hidden_layers", "num_attention_heads", "rms_norm_eps")
+    if not all(hasattr(hf_config, a) for a in needed_cfg):
+        return False
+    act = getattr(hf_config, "hidden_act",
+                  getattr(hf_config, "hidden_activation", None))
+    if act not in ("silu", "swish") or state_dict is None:
+        return False
+    needed_keys = ("model.layers.0.self_attn.q_proj.weight",
+                   "model.layers.0.self_attn.o_proj.weight",
+                   "model.layers.0.mlp.gate_proj.weight",
+                   "model.layers.0.mlp.up_proj.weight",
+                   "model.layers.0.mlp.down_proj.weight",
+                   "model.layers.0.input_layernorm.weight",
+                   "model.layers.0.post_attention_layernorm.weight",
+                   "model.embed_tokens.weight", "model.norm.weight")
+    if not all(k in state_dict for k in needed_keys):
+        return False
+    allowed = {"self_attn.q_proj.weight", "self_attn.k_proj.weight",
+               "self_attn.v_proj.weight", "self_attn.o_proj.weight",
+               "mlp.gate_proj.weight", "mlp.up_proj.weight",
+               "mlp.down_proj.weight",
+               # non-computation buffer older HF versions serialize
+               "self_attn.rotary_emb.inv_freq"}
+    prefix = "model.layers.0."
+    return all(k[len(prefix):] in allowed for k in state_dict
+               if k.startswith(prefix + "self_attn.")
+               or k.startswith(prefix + "mlp."))
+
+
+def detect_family(hf_config, state_dict=None) -> str:
+    mt = getattr(hf_config, "model_type", None)
+    if mt in SUPPORTED_FAMILIES:
+        return mt
+    if _llama_structural_match(hf_config, state_dict):
+        warnings.warn(
+            f"model_type {mt!r} is not registered, but its config and "
+            f"parameter naming match the Llama family exactly — converting "
+            f"as 'llama'. Pass family='llama' to silence this, or a "
+            f"different family to override.")
+        return "llama"
+    raise ValueError(
+        f"{mt!r} not yet supported by lxt_tpu_torch. Supported models are: "
+        f"{', '.join(SUPPORTED_FAMILIES)}. If the architecture matches one "
+        f"of these computationally, pass family='<name>' to force it.")
+
+
+def _convert(state_dict, hf_config, composite, dtype, device, family=None):
+    """state dict (torch tensors or numpy arrays) -> AttributionModel."""
+    if family is not None:
+        if family not in SUPPORTED_FAMILIES:
+            raise ValueError(f"family={family!r} is not one of: "
+                             f"{', '.join(SUPPORTED_FAMILIES)}")
+    else:
+        family = detect_family(hf_config, state_dict)
+    cfg = llama.LlamaConfig.from_hf(hf_config)
+    params = llama.params_from_hf(state_dict, cfg, dtype=dtype or torch.float32,
+                                  device=device)
+    composite = composites.resolve(composite or composites.attnlrp)
+    return AttributionModel(family=family, cfg=cfg, params=params,
+                            composite=composite)
+
+
+def from_hf(hf_model, composite: composites.Composite = None, dtype=None,
+            family: str = None, device="cpu"):
+    """Convert a loaded HF Llama-family torch model (``.config`` and
+    ``.state_dict()``) into an :class:`AttributionModel` on ``device``.
+    ``family`` forces a family for an out-of-registry ``model_type`` that
+    is computationally one of :data:`SUPPORTED_FAMILIES`; exact Llama clones
+    are detected. The composite defaults to AttnLRP."""
+    if not hasattr(hf_model, "config"):
+        raise ValueError("from_hf takes an HF model with a .config; the "
+                         "vision layouts are not ported to lxt_tpu_torch yet")
+    return _convert(hf_model.state_dict(), hf_model.config, composite, dtype,
+                    device, family)
+
+
+def from_pretrained(model_dir, composite: composites.Composite = None,
+                    dtype=None, quantize_bits=None, family: str = None,
+                    device="cpu"):
+    """Load an :class:`AttributionModel` straight from an HF checkpoint
+    directory onto ``device``; no torch model is instantiated.
+
+    ``quantize_bits`` (8, 4 or "nf4") quantizes the family's projections
+    after conversion. bitsandbytes-serialized checkpoints (keys ending in
+    ``.quant_state.bitsandbytes__*`` for 4-bit, ``.SCB`` for 8-bit) are
+    dequantized on the host and, unless ``quantize_bits`` says otherwise,
+    re-quantized in kind ("nf4" / 8), which reproduces their values
+    exactly."""
+    from lxt_tpu_torch.io import load_checkpoint_state_dict
+    from lxt_tpu_torch.ops.quant import ingest_bnb_state_dict, quantize_params
+
+    hf_config = read_hf_config(model_dir)
+    state = load_checkpoint_state_dict(model_dir)
+    had_8bit = any(k.endswith(".SCB") for k in state)
+    if ingest_bnb_state_dict(state) and quantize_bits is None:
+        quantize_bits = 8 if had_8bit else "nf4"
+    model = _convert(state, hf_config, composite, dtype, device, family)
+    if quantize_bits:
+        model.params = quantize_params(model.params, bits=quantize_bits,
+                                       family=model.family)
+    return model

@@ -252,7 +252,9 @@ def test_port_imports_no_jax():
     """No module of lxt_tpu_torch, nor chip_smoke.py, imports jax or the
     JAX package (the card's machine has no jax)."""
     files = sorted((REPO / "lxt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 5
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"lxt_tpu_torch/ops/quant.py", "lxt_tpu_torch/io.py",
+            "lxt_tpu_torch/models/registry.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files if _imports_jax(f)]
     assert not offenders, offenders
 

@@ -1,0 +1,256 @@
+"""The port's loading surface (lxt_tpu_torch.models.registry, lxt_tpu_torch.io)
+against lxt_tpu's, on CPU.
+
+Tiny HF Llama checkpoints are written in ``tmp_path`` with transformers and
+safetensors: plain, bitsandbytes-NF4-serialized and bitsandbytes-8-bit.
+``from_pretrained`` of both packages must give the same quantized codes and
+scales, and logits and input relevance (also under ``kv_begin`` and
+``attention_mask`` left padding) within normalized L2 1e-5 in float32. The
+port reads ``config.json`` with json alone: for every key it leaves out it
+must give what transformers' ``AutoConfig`` gives. The numpy safetensors
+reader must match ``lxt_tpu.io.load_safetensors``.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+from safetensors.numpy import save_file
+from safetensors.torch import save_file as save_torch
+from transformers import AutoConfig
+from transformers.models.llama.modeling_llama import LlamaConfig, LlamaForCausalLM
+
+import lxt_tpu
+from lxt_tpu import io as jio
+from lxt_tpu.models import llama as jllama
+from lxt_tpu.models import registry as jreg
+from lxt_tpu.ops import quant as jq
+import lxt_tpu_torch
+from lxt_tpu_torch import io as tio
+from lxt_tpu_torch.models import llama as tllama
+from lxt_tpu_torch.models import registry as treg
+from lxt_tpu_torch.ops import quant as tq
+
+BAR = 1e-5
+VOCAB = 256
+
+
+def _nl2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def _hf_llama(seed):
+    torch.manual_seed(seed)
+    return LlamaForCausalLM(LlamaConfig(
+        hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, vocab_size=VOCAB,
+        max_position_embeddings=128)).eval()
+
+
+def _bnb_nf4(arr):
+    """bitsandbytes' 4-bit serialization of one [out, in] weight: flat
+    blocks of 64, nearest NF4 code, first element in the high nibble."""
+    blocks = arr.reshape(-1, 64)
+    absmax = np.abs(blocks).max(axis=1).astype(np.float32)
+    idx = np.argmin(np.abs((blocks / absmax[:, None])[..., None] - jq.NF4_CODE),
+                    axis=-1).reshape(-1).astype(np.uint8)
+    meta = {"blocksize": 64, "quant_type": "nf4", "dtype": "float32",
+            "shape": list(arr.shape)}
+    return {"": ((idx[0::2] << 4) | idx[1::2]).reshape(-1, 1),
+            ".absmax": absmax, ".quant_map": jq.NF4_CODE.copy(),
+            ".quant_state.bitsandbytes__nf4": np.frombuffer(
+                json.dumps(meta).encode(), np.uint8).copy()}
+
+
+def _bnb_8bit(arr):
+    """bitsandbytes' Linear8bitLt serialization: int8 codes, per-row SCB."""
+    scb = np.abs(arr).max(axis=1).astype(np.float32)
+    cb = np.clip(np.round(arr / scb[:, None] * 127.0), -127, 127).astype(np.int8)
+    return {"": cb, ".SCB": scb}
+
+
+def _write_checkpoint(tmp_path, kind):
+    hf = _hf_llama(seed=5)
+    if kind == "plain":
+        hf.save_pretrained(tmp_path)
+        return
+    hf.config.save_pretrained(tmp_path)
+    state = {}
+    for name, p in hf.state_dict().items():
+        arr = p.detach().numpy().astype(np.float32)
+        if not (name.endswith(".weight") and arr.ndim == 2 and "_proj" in name):
+            state[name] = arr
+            continue
+        entries = _bnb_nf4(arr) if kind == "bnb_nf4" else _bnb_8bit(arr)
+        state.update({name + suffix: v for suffix, v in entries.items()})
+    save_file(state, str(tmp_path / "model.safetensors"))
+
+
+CHECKPOINTS = {"plain_nf4": ("plain", "nf4"), "bnb_nf4": ("bnb_nf4", None),
+               "bnb_8bit": ("bnb_8bit", None), "plain_int4": ("plain", 4)}
+
+
+@pytest.mark.parametrize("case", sorted(CHECKPOINTS))
+def test_from_pretrained_matches_lxt_tpu(tmp_path, case):
+    kind, bits = CHECKPOINTS[case]
+    _write_checkpoint(tmp_path, kind)
+    jm = jreg.from_pretrained(tmp_path, quantize_bits=bits)
+    tm = treg.from_pretrained(tmp_path, quantize_bits=bits)
+    assert (tm.family, tm.composite) == (jm.family, lxt_tpu_torch.attnlrp)
+    assert dataclasses.asdict(tm.cfg) == dataclasses.asdict(jm.cfg)
+    want_bits = {"bnb_8bit": 8}.get(kind, bits or "nf4")
+    for name, jl in jm.params["layers"].items():
+        tl = tm.params["layers"][name]
+        assert isinstance(tl, tq.QuantizedTensor) == isinstance(jl, jq.QuantizedTensor)
+        if isinstance(jl, jq.QuantizedTensor):
+            assert (tl.bits, tl.block) == (jl.bits, jl.block) and tl.bits == want_bits
+            np.testing.assert_array_equal(tl.q.numpy(), np.asarray(jl.q))
+            np.testing.assert_array_equal(tl.scale.numpy(), np.asarray(jl.scale))
+    assert not isinstance(tm.params["lm_head"], tq.QuantizedTensor)
+
+    ids = np.random.RandomState(1).randint(0, VOCAB, (2, 16))
+    assert _nl2(tm.logits(ids).numpy(), jm.logits(ids)) <= BAR
+    mask = np.ones((2, 16), np.int32)
+    mask[0, :3] = 0
+    for kw in ({}, {"kv_begin": np.asarray([3, 0], np.int32)},
+               {"attention_mask": mask}):
+        jv, jrel = jm.attribute(ids, **kw)
+        tv, trel = tm.attribute(ids, **kw)
+        assert _nl2(tv.numpy(), jv) <= BAR, kw
+        assert _nl2(trel.numpy(), jrel) <= BAR, kw
+
+
+def test_attribute_token_and_target_match_lxt_tpu(tmp_path):
+    _write_checkpoint(tmp_path, "plain")
+    jm, tm = jreg.from_pretrained(tmp_path), treg.from_pretrained(tmp_path)
+    ids = np.random.RandomState(2).randint(0, VOCAB, (2, 12))
+    tok = np.asarray([5, 7])
+    _, want = jm.attribute(ids, token=tok, position=4, composite="cp_lrp")
+    _, got = tm.attribute(ids, token=tok, position=4, composite="cp_lrp")
+    assert _nl2(got.numpy(), want) <= BAR
+    _, want = jm.attribute(ids, target=lambda lg: lg[:, -2, 3].sum())
+    _, got = tm.attribute(ids, target=lambda lg: lg[:, -2, 3].sum())
+    assert _nl2(got.numpy(), want) <= BAR
+    with pytest.raises(ValueError, match="BERT"):
+        tm.attribute(ids, kv_end=[12, 12])
+
+
+def test_from_hf_matches_lxt_tpu():
+    hf = _hf_llama(seed=3)
+    jm, tm = lxt_tpu.from_hf(hf), lxt_tpu_torch.from_hf(hf)
+    assert tm.family == "llama"
+    ids = np.random.RandomState(4).randint(0, VOCAB, (1, 10))
+    assert _nl2(tm.logits(ids).numpy(), jm.logits(ids)) <= BAR
+    assert _nl2(tm.attribute(ids)[1].numpy(), jm.attribute(ids)[1]) <= BAR
+
+
+def test_unsupported_family_lists_the_ported_ones(tmp_path):
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gemma3"}))
+    save_file({"x": np.zeros(2, np.float32)}, str(tmp_path / "model.safetensors"))
+    with pytest.raises(ValueError, match="llama, qwen2, qwen3, mistral, phi3"):
+        treg.from_pretrained(tmp_path)
+    with pytest.raises(ValueError, match="family="):
+        treg.from_pretrained(tmp_path, family="gpt2")
+
+
+def test_llama_clone_detected_structurally(tmp_path):
+    hf = _hf_llama(seed=6)
+    hf.save_pretrained(tmp_path)
+    cfg = json.loads((tmp_path / "config.json").read_text())
+    cfg["model_type"] = "llama_clone"
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    with pytest.warns(UserWarning, match="converting as 'llama'"):
+        model = treg.from_pretrained(tmp_path)
+    assert model.family == "llama"
+
+
+_SMALL = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+              num_attention_heads=4, vocab_size=97)
+_FACTORS = [1.0 + 0.1 * i for i in range(8)]
+CONFIGS = {
+    "llama_bare": {"model_type": "llama"},
+    "llama_small": dict(_SMALL, model_type="llama",
+                        rope_scaling={"type": "llama3", "factor": 8.0,
+                                      "low_freq_factor": 1.0,
+                                      "high_freq_factor": 4.0,
+                                      "original_max_position_embeddings": 64}),
+    "qwen2_small": dict(_SMALL, model_type="qwen2"),
+    "qwen2_window_off": dict(_SMALL, model_type="qwen2", sliding_window=64,
+                             use_sliding_window=False),
+    "qwen3_small": dict(_SMALL, model_type="qwen3"),
+    "mistral_bare": {"model_type": "mistral"},
+    "mistral_small": dict(_SMALL, model_type="mistral", num_key_value_heads=2),
+    "phi3_bare": {"model_type": "phi3"},
+    "phi3_su": dict(_SMALL, model_type="phi3", sliding_window=48,
+                    max_position_embeddings=512,
+                    original_max_position_embeddings=64,
+                    rope_scaling={"type": "su", "short_factor": _FACTORS,
+                                  "long_factor": [2 * f for f in _FACTORS]}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_read_hf_config_matches_autoconfig(tmp_path, name):
+    """Keys left out of config.json take transformers' defaults for the
+    model_type (Mistral's sliding_window, Phi-3's rms_norm_eps, Qwen3's
+    head_dim, ...)."""
+    (tmp_path / "config.json").write_text(json.dumps(CONFIGS[name]))
+    want = jllama.LlamaConfig.from_hf(AutoConfig.from_pretrained(tmp_path))
+    got = tllama.LlamaConfig.from_hf(
+        treg.read_hf_config(tmp_path))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+@pytest.fixture
+def st_file(tmp_path):
+    rng = np.random.default_rng(0)
+    path = tmp_path / "mixed.safetensors"
+    save_torch({"f32": torch.from_numpy(rng.standard_normal((7, 5)).astype(np.float32)),
+                "bf16": torch.from_numpy(rng.standard_normal((3, 4, 6)).astype(
+                    np.float32)).bfloat16(),
+                "u8": torch.from_numpy(rng.integers(0, 256, (33,)).astype(np.uint8)),
+                "i8": torch.from_numpy(rng.integers(-128, 128, (2, 9)).astype(np.int8))},
+               str(path))
+    return path
+
+
+def test_load_safetensors_matches_lxt_tpu(st_file):
+    want = jio.load_safetensors(st_file)
+    got = tio.load_safetensors(st_file)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k])
+    assert got["bf16"].dtype == np.float32
+
+
+def test_load_checkpoint_sharded_and_malformed(tmp_path, st_file):
+    save_file({"x": np.arange(4, dtype=np.float32)}, str(tmp_path / "a.safetensors"))
+    save_file({"y": np.ones((2, 2), np.int32)}, str(tmp_path / "b.safetensors"))
+    (tmp_path / "model.safetensors.index.json").write_text(json.dumps(
+        {"weight_map": {"x": "a.safetensors", "y": "b.safetensors"}}))
+    state = tio.load_checkpoint_state_dict(tmp_path)
+    assert sorted(state) == ["x", "y"] and state["y"].dtype == np.int32
+    np.testing.assert_array_equal(state["x"], np.arange(4, dtype=np.float32))
+    raw = st_file.read_bytes()
+    bad = tmp_path / "truncated.safetensors"
+    bad.write_bytes(raw[:-7])
+    with pytest.raises(ValueError, match="outside"):
+        tio.load_safetensors(bad)
+    with pytest.raises(FileNotFoundError):
+        tio.load_checkpoint_state_dict(tmp_path / "nowhere")
+
+
+def test_load_checkpoint_params_matches_from_hf(tmp_path):
+    hf = _hf_llama(seed=8)
+    hf.save_pretrained(tmp_path)
+    cfg = tllama.LlamaConfig.from_hf(hf.config)
+    params = tio.load_checkpoint_params(tmp_path, cfg,
+                                        tllama.params_from_hf)
+    want = lxt_tpu_torch.from_hf(hf).params
+    for name in ("wq", "wd", "ln1"):
+        assert torch.equal(params["layers"][name], want["layers"][name])
+    assert torch.equal(params["embed"], want["embed"])
