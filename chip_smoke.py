@@ -6,14 +6,22 @@ weights from a seed) and the quantized path (NF4 weights at Llama-3-8B width
 and depth, and a bitsandbytes-NF4 checkpoint through from_pretrained)
 through the kernels.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. the kernel build (nvcc, into lxt_tpu_torch/_build/);
-  3. K1 flash_fwd and K2 flash_bwd_dq / flash_bwd_dkv against their plain
-     versions, bf16 and float32, over the mask regimes; times at the main
-     path's shapes;
+  3. K1 flash_fwd, K2 flash_bwd_dq / flash_bwd_dkv and the RoPE rotation
+     pass against their plain versions (the pass bit-exact), bf16 and
+     float32, over the mask regimes, T 320 (a part-full last q tile) and
+     both paths' calls; then at the main path's call (B8 H32/4 T1024 D64)
+     and the NF4 8B path's (B1 H32/8 T4096 D128), bf16, causal, rope: each
+     kernel's device time (CUDA-graph replays) beside its plain version's,
+     its roofline bound (fa.work: FLOPs over 989 TFLOP/s or bytes over
+     3.35 TB/s, the larger) and the library's time for the same attention
+     (scaled_dot_product_attention under its flash and cuDNN backends, the
+     faster kept; its backward against dq + dkv + the delta pass);
   4. K3 nf4_dequant against its plain version, bit-exact, bf16 and float32,
      over the Llama-3-8B projection shapes and ragged ones; times at the
      wg [4096, 14336] and wd [14336, 4096] shapes;
@@ -26,16 +34,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the peak device memory;
   7. the NF4 path at Llama-3-8B width and depth (32 layers, bf16, batch
      1 x 4096, remat): three attributions (heatmaps/s, launches per
-     attribution of K1, K2 and K3 against 64 / 32 / 640, finite relevance,
-     peak memory), then the
+     attribution of K1, K2, the rotation pass and K3 against 64 / 32 / 96 /
+     640, finite relevance, peak memory), then the
      dense control with every projection plainly dequantized to bf16
      (heatmaps/s, normalized L2 of its relevance against the NF4 run <= 1e-3);
   8. from_pretrained on the card: a tiny bitsandbytes-NF4-serialized Llama
      checkpoint written here, loaded with device="cuda" and attributed
      (QuantizedTensor leaves, weights exact against the checkpoint's values,
      finite relevance within 1e-4 of the CPU load, K3 launched).
-The line before the last is a JSON object with each kernel's launches, error
-and times; the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with each kernel's launches, error,
+times, bound and library time at the main path's call (K3: at wg) and, under
+"at_8b", at the NF4 8B path's (K3: at wd); the last line is
+{"ok": true, "device": {...}}.
 """
 
 import itertools
@@ -70,9 +80,20 @@ CASES = {
     "bidirectional": (2, 4, 4, 512, 64, {"causal": False}),
     "multi_tile_T2048": (1, 4, 4, 2048, 64, {}),
     "rope": (2, 4, 2, 512, 64, {"rope": True}),
+    # a half-full last 128-row q tile of K1's Hopper body
+    "odd_tiles_T320_hd64": (2, 4, 2, 320, 64, {"rope": True}),
+    "odd_tiles_T320_hd128": (2, 4, 2, 320, 128, {"rope": True, "kv_begin": [0, 37]}),
+    "gqa_32_8_hd128_window": (1, 32, 8, 512, 128, {"window": 200, "rope": True}),
 }
-# the main path's attention call: B 8, H 32 / Hkv 4, T 1024, D 64, rope
+# the two paths' attention calls, bf16, causal, rope: the main path's
+# (TinyLlama-1.1B widths, B 8 x 1024) and the NF4 8B path's (Llama-3-8B
+# widths, B 1 x 4096)
 MAIN_CASE = (SERVE_BATCH, 32, 4, SEQ, 64, {"rope": True})
+CALLS = {"main": MAIN_CASE, "8b": (1, 32, 8, 4096, 128, {"rope": True})}
+CALL_NAMES = {"main": "B8 H32/4 T1024 D64", "8b": "B1 H32/8 T4096 D128"}
+# peak rates of an H100 SXM (data sheet): bf16 tensor cores, float32 outside
+# them (the rotation pass's elementwise work), device memory
+PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 KERNELS = {
     "flash_fwd": ("lxt_tpu_torch/csrc/flash_fwd.cu",
                   "lxt_tpu/ops/flash_attention.py:184"),
@@ -82,7 +103,10 @@ KERNELS = {
                       "lxt_tpu/ops/flash_attention.py:837"),
     "nf4_dequant": ("lxt_tpu_torch/csrc/nf4_dequant.cu",
                     "lxt_tpu/ops/quant.py:206"),
+    "rope_rotate": ("lxt_tpu_torch/csrc/rope.cu",
+                    "lxt_tpu/ops/flash_attention.py:129"),
 }
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rope_rotate")
 # Meta-Llama-3-8B's config.json widths (bench.py llama3_8b_config), full
 # depth, random weights; bench_8b's setup: bf16, batch 1 x 4096, remat
 LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
@@ -103,7 +127,6 @@ K3_CASES = {
     "ragged_64x40": ((64, 40), 64),
 }
 K3_TIMED = ("wg_wu_4096x14336", "wd_14336x4096")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the tiny bitsandbytes-NF4 checkpoint of phase 8
 TINY = dict(model_type="llama", vocab_size=512, hidden_size=256,
             intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
@@ -130,6 +153,34 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=10):
+    """Mean device time of ``fn`` in ms with the host out of the way:
+    ``iters`` calls captured in one CUDA graph, replayed twice between
+    CUDA events. A wrapper's Python checks and launches cost tens of
+    microseconds a call, which back-to-back eager calls (cuda_ms) would
+    count wherever they exceed the kernel's own time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (2 * iters)
 
 
 def nl2(got, want):
@@ -182,6 +233,10 @@ def compare_kernels(case, dtype, seed):
     want = {"out": ref_out, "lse": torch.where(seen, ref_lse, 0.0),
             "dq": fa.flash_bwd_dq_ref(*bwd)}
     want["dk"], want["dv"] = fa.flash_bwd_dkv_ref(*bwd)
+    cos, sin = extra[:2]
+    if cos is not None:  # the rotation pass, bit-exact: bound 0
+        got["rope"] = fa.rope_rotate(q, cos, sin)
+        want["rope"] = fa.rope_rotate_ref(q, cos, sin)
     torch.cuda.synchronize()
     if not torch.equal(lse <= -1e29, ~seen):
         raise AssertionError("flash_fwd: empty rows differ from the plain version")
@@ -189,7 +244,121 @@ def compare_kernels(case, dtype, seed):
     for name in got:
         w = want[name].float()
         err = (got[name].float() - w).abs().max().item()
-        res[name] = (err, a + r * w.abs().max().item())
+        res[name] = (err, 0.0 if name == "rope" else a + r * w.abs().max().item())
+    return res
+
+
+def bound(name, case):
+    """(bound_ms, bound_by) of one call: the larger of its FLOPs over the
+    peak rate of their type and its bytes over the memory rate."""
+    from lxt_tpu_torch.ops import flash_attention as fa
+    B, H, Hkv, T, D, opt = case
+    flops, moved = fa.work(name, B, H, Hkv, T, D, 2, window=opt.get("window"),
+                           causal=opt.get("causal", True),
+                           rope=bool(opt.get("rope")))
+    t_ops = flops / (PEAK_F32 if name == "rope_rotate" else PEAK_BF16) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_yardstick(q, k, v, do, cos, sin, scale):
+    """The library's time for the same attention: one
+    scaled_dot_product_attention call (causal, GQA) under its flash and its
+    cuDNN backend, forward and backward (torch.autograd.grad with
+    retain_graph) timed apart. q and k are rotated, and k/v repeated where a
+    backend refuses GQA, outside the timed windows. Returns the fastest
+    {"fwd": (ms, backend), "bwd": (ms, backend)} and a line per backend."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from lxt_tpu_torch.models import common
+    from lxt_tpu_torch.ops.attention import repeat_kv
+    qr, kr = common.apply_rope(q, k, cos, sin)
+    n_rep = q.shape[1] // k.shape[1]
+    best, lines = {}, []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        for gqa in (True, False):
+            kk, vv = (kr, v) if gqa else (repeat_kv(kr, n_rep), repeat_kv(v, n_rep))
+            leaves = [t.detach().clone().requires_grad_(True) for t in (qr, kk, vv)]
+
+            def fwd():
+                return F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, scale=scale, enable_gqa=gqa)
+
+            name = backend.name.lower() + ("" if gqa else " (k/v repeated)")
+            try:
+                with sdpa_kernel([backend]):
+                    with torch.no_grad():
+                        f_ms = cuda_ms(fwd)
+                    out = fwd()
+                    b_ms = cuda_ms(lambda: torch.autograd.grad(
+                        out, leaves, do, retain_graph=True))
+                    torch.cuda.synchronize()
+            except RuntimeError as e:
+                lines.append(f"{name}: refused ({str(e).splitlines()[0][:80]})")
+                continue
+            lines.append(f"{name}: forward {f_ms:.4f} ms, backward {b_ms:.4f} ms")
+            for key, ms in (("fwd", f_ms), ("bwd", b_ms)):
+                if key not in best or ms < best[key][0]:
+                    best[key] = (ms, name)
+            del out, leaves
+            break
+    return best, lines
+
+
+def time_call(call, card):
+    """Each flash kernel and the rotation pass at one of the two paths'
+    calls: kernel and plain times (plain, kernel, kernel, plain), bound and
+    the library's time; and the Δ pass of the backward."""
+    import torch
+    from lxt_tpu_torch.ops import flash_attention as fa
+    case = CALLS[call]
+    (q, k, v, do), extra = kernel_inputs(case, torch.bfloat16, seed=99)
+    cos, sin, scale = extra[0], extra[1], extra[5]
+    out, lse = fa.flash_fwd(q, k, v, *extra)
+    delta = (out.float() * do.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, *extra)
+    timed = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *extra),
+                      lambda: fa.flash_fwd_ref(q, k, v, *extra)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd),
+                         lambda: fa.flash_bwd_dq_ref(*bwd)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
+                          lambda: fa.flash_bwd_dkv_ref(*bwd)),
+        "rope_rotate": (lambda: fa.rope_rotate(q, cos, sin),
+                        lambda: fa.rope_rotate_ref(q, cos, sin)),
+    }
+    lib, lib_lines = sdpa_yardstick(q, k, v, do, cos, sin, scale)
+    library = {"flash_fwd": lib.get("fwd"), "flash_bwd_dq": lib.get("bwd"),
+               "flash_bwd_dkv": lib.get("bwd"), "rope_rotate": None}
+    plain_iters = 10 if call == "main" else 3
+    res = {}
+    for name, (kern, plain) in timed.items():
+        # plain, kernel, kernel, plain; the kernel's device time from graph
+        # replays, and its eager back-to-back time beside it
+        p1, k1, k2 = cuda_ms(plain, plain_iters, 1), graph_ms(kern), graph_ms(kern)
+        p2 = cuda_ms(plain, plain_iters, 1)
+        eager = cuda_ms(kern)
+        b_ms, b_by = bound(name, case)
+        lib_ms, lib_name = library[name] or (None, None)
+        res[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "library": lib_name, "eager_ms": eager}
+        r = res[name]
+        print(f"kernel time {name} at {CALL_NAMES[call]} bf16 causal rope: "
+              f"kernel {r['ms']:.4f} ms (eager calls {eager:.4f} ms), plain "
+              f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{b_ms / r['ms']:.1%} of it), library "
+              + (f"{lib_ms:.4f} ms ({lib_name})" if lib_ms else "none")
+              + f" [{card}]", flush=True)
+    delta_ms = graph_ms(lambda: (out.float() * do.float()).sum(-1))
+    pair = res["flash_bwd_dq"]["ms"] + res["flash_bwd_dkv"]["ms"] + delta_ms
+    print(f"library at {CALL_NAMES[call]}: " + "; ".join(lib_lines), flush=True)
+    if "bwd" in lib and "fwd" in lib:
+        print(f"against the library at {CALL_NAMES[call]}: K1 "
+              f"{res['flash_fwd']['ms'] / lib['fwd'][0]:.2f}x its forward; the K2 "
+              f"pair + delta pass ({delta_ms:.4f} ms) {pair:.4f} ms, "
+              f"{pair / lib['bwd'][0]:.2f}x its backward [{card}]", flush=True)
     return res
 
 
@@ -205,40 +374,22 @@ def phase_kernels(card):
             print(f"kernel case {str(dtype)[6:]:8s} {name:22s} " + " ".join(
                 f"{k} {e:.3g}/{b:.3g}" for k, (e, b) in res.items())
                 + (" PASS" if ok else " FAIL"), flush=True)
-    # the main path's shapes: error and times, kernel vs plain
-    res = compare_kernels(MAIN_CASE, torch.bfloat16, seed=99)
-    ok = all(err <= bound for err, bound in res.values())
-    if not ok:
-        failures.append("kernel case main_shape")
-    print("kernel case bfloat16 main_shape_B8_H32/4_T1024_D64_rope " + " ".join(
-        f"{k} {e:.3g}/{b:.3g}" for k, (e, b) in res.items())
-        + (" PASS" if ok else " FAIL"), flush=True)
-    from lxt_tpu_torch.ops import flash_attention as fa
-    (q, k, v, do), extra = kernel_inputs(MAIN_CASE, torch.bfloat16, seed=99)
-    _, lse = fa.flash_fwd_ref(q, k, v, *extra)
-    out = fa.flash_fwd(q, k, v, *extra)[0]
-    delta = (out.float() * do.float()).sum(-1)
-    bwd = (q, k, v, do, lse, delta, *extra)
-    errs = {"flash_fwd": max(res["out"][0], res["lse"][0]),
-            "flash_bwd_dq": res["dq"][0],
-            "flash_bwd_dkv": max(res["dk"][0], res["dv"][0])}
-    timed = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *extra),
-                      lambda: fa.flash_fwd_ref(q, k, v, *extra)),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd),
-                         lambda: fa.flash_bwd_dq_ref(*bwd)),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
-                          lambda: fa.flash_bwd_dkv_ref(*bwd)),
-    }
-    times = {}
-    for name, (kern, plain) in timed.items():
-        # plain, kernel, kernel, plain: the mean of each pair
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"kernel time {name} at B8 H32/4 T1024 D64 bf16 causal rope: "
-              f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
-              f"[{card}]", flush=True)
-    return failures, errs, times
+    errs = {}
+    for call, case in CALLS.items():
+        res = compare_kernels(case, torch.bfloat16, seed=99)
+        ok = all(err <= bound for err, bound in res.values())
+        if not ok:
+            failures.append(f"kernel case {call} call")
+        print(f"kernel case bfloat16 {call} call {CALL_NAMES[call]} rope " + " ".join(
+            f"{k} {e:.3g}/{b:.3g}" for k, (e, b) in res.items())
+            + (" PASS" if ok else " FAIL"), flush=True)
+        if call == "main":
+            errs = {"flash_fwd": max(res["out"][0], res["lse"][0]),
+                    "flash_bwd_dq": res["dq"][0],
+                    "flash_bwd_dkv": max(res["dk"][0], res["dv"][0]),
+                    "rope_rotate": res["rope"][0]}
+    timing = {call: time_call(call, card) for call in CALLS}
+    return failures, errs, timing
 
 
 def attribute(params, cfg, ids, impl, remat):
@@ -256,6 +407,16 @@ def attribute(params, cfg, ids, impl, remat):
 
     _, rel = lxt_tpu_torch.input_relevance(target, llama.embed(params, ids))
     return held["logits"], rel
+
+
+def expected_launches(L, hopper, remat):
+    """Flash launches per attribution: K1 once a layer (twice with remat,
+    whose recompute runs the forward again) and each K2 half once; on the
+    Hopper bodies (bf16, head dim 64 and 128) the rotation pass rotates k
+    before each K1 and q before each flash_bwd_dkv."""
+    fwd = 2 * L if remat else L
+    return {"flash_fwd": fwd, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "rope_rotate": fwd + L if hopper else 0}
 
 
 def phase_parity(card):
@@ -283,7 +444,7 @@ def phase_parity(card):
           f"[{card}]", flush=True)
     if not (finite and d_logits <= PARITY_BAR and d_rel <= PARITY_BAR):
         failures.append("main path float32 parity")
-    if any(n != cfg.num_layers for n in rose.values()):
+    if rose != expected_launches(cfg.num_layers, hopper=False, remat=False):
         failures.append(f"launches per attribution {rose}")
     return failures, params, ids, rel_k
 
@@ -328,7 +489,8 @@ def phase_served(card, params32, ids1, rel32):
           f"memory {peak:.2f} GiB [{card}]", flush=True)
     if not ok:
         failures.append("served relevance not finite or misshapen")
-    if any(n != REQUESTS * cfg.num_layers for n in launches.values()):
+    want = expected_launches(cfg.num_layers, hopper=True, remat=False)
+    if launches != {n: REQUESTS * c for n, c in want.items()}:
         failures.append(f"served launches {launches}")
 
     attribute(params, cfg, request(), "einsum", False)  # warm-up
@@ -341,8 +503,12 @@ def phase_served(card, params32, ids1, rel32):
 
     _, rel16 = attribute(params, cfg, ids1, "auto", False)
     div = nl2(rel16.float(), rel32)
+    # control: the same bf16 model through the einsum attention path
+    _, rel16_e = attribute(params, cfg, ids1, "einsum", False)
+    div_e = nl2(rel16_e.float(), rel32)
     print(f"main path bf16 vs float32 relevance at B1x{SEQ}, kernels: "
-          f"normalized L2 {div:.4g} (bar {DIVERGENCE_BAR})", flush=True)
+          f"normalized L2 {div:.4g} (bar {DIVERGENCE_BAR}; the bf16 einsum "
+          f"path: {div_e:.4g})", flush=True)
     if not (math.isfinite(div) and div <= DIVERGENCE_BAR):
         failures.append("bf16 divergence")
     return failures, launches
@@ -392,13 +558,18 @@ def phase_k3(card):
             quant.nf4_dequant_ref(qt.q, qt.scale, qt.block, torch.bfloat16)
 
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         K, N = shape
         moved = K * N // 2 + K // block * N * 4 + K * N * 2
-        rate = moved / (times[name][0] * 1e-3)
-        print(f"K3 time {name} bf16: kernel {times[name][0]:.4f} ms "
+        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                       "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                       "bound_by": "bytes", "library_ms": None, "library": None}
+        t = times[name]
+        rate = moved / (t["ms"] * 1e-3)
+        print(f"K3 time {name} bf16: kernel {t['ms']:.4f} ms "
               f"({rate / 1e9:.0f} GB/s, {rate / HBM_BYTES_PER_S:.0%} of "
-              f"3.35 TB/s), plain {times[name][1]:.4f} ms [{card}]", flush=True)
+              f"3.35 TB/s; bound {t['bound_ms']:.4f} ms, bytes), plain "
+              f"{t['plain_ms']:.4f} ms; no PyTorch call computes it [{card}]",
+              flush=True)
         del qts
     return failures, err_max, times
 
@@ -448,8 +619,7 @@ def phase_nf4_8b(card):
     # per layer: K1 in the forward and the recompute; K3 for the 7
     # projections in the forward and the backward, and for 6 in the
     # recompute, which stops before wd (its backward needs only codes)
-    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "nf4_dequant": 20 * L}
+    want = dict(expected_launches(L, hopper=True, remat=True), nf4_dequant=20 * L)
     ok = all(r.shape == (1, SEQ_8B) and bool(torch.isfinite(r).all())
              for r in rels)
     print(f"NF4 Llama-3-8B width L{L} B1x{SEQ_8B} bf16 remat: init and "
@@ -559,7 +729,7 @@ def phase_from_pretrained(card):
             json.dump(TINY, f)
         write_safetensors(os.path.join(tmp, "model.safetensors"), state)
         model = lxt_tpu_torch.from_pretrained(tmp, device="cuda")
-        cpu_model = lxt_tpu_torch.from_pretrained(tmp)
+        cpu_model = lxt_tpu_torch.from_pretrained(tmp, device="cpu")
     wq = model.params["layers"]["wq"]
     leaves_ok = all(isinstance(model.params["layers"][n], quant.QuantizedTensor)
                     and model.params["layers"][n].bits == "nf4"
@@ -611,10 +781,13 @@ def main():
           f"{_build.build_seconds:.1f} s) [{card}]", flush=True)
 
     t_start = time.perf_counter()
-    failures, errs, times = phase_kernels(card)
+    failures, errs, timing = phase_kernels(card)
+    if "--kernels" in sys.argv[1:]:
+        print(f"phase 3 took {time.perf_counter() - t_start:.1f} s; "
+              f"failures: {failures}", flush=True)
+        return 1 if failures else 0
     f, errs["nf4_dequant"], k3_times = phase_k3(card)
     failures += f
-    times["nf4_dequant"] = k3_times[K3_TIMED[0]]
     f, params32, ids1, rel32 = phase_parity(card)
     failures += f
     f, launches = phase_served(card, params32, ids1, rel32)
@@ -631,10 +804,17 @@ def main():
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
 
+    # each kernel's numbers at the main path's call (K3: at wg), and at the
+    # NF4 8B path's call (K3: at wd)
+    at = {name: (timing["main"][name], timing["8b"][name]) for name in FLASH}
+    at["nf4_dequant"] = (k3_times[K3_TIMED[0]], k3_times[K3_TIMED[1]])
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         **{key: at[name][0][key] for key in keys},
+         "at_8b": {key: at[name][1][key] for key in keys},
+         "launches_8b": nf4_launches[name]}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ def _is_quantized(leaf):
     return all(hasattr(leaf, a) for a in ("q", "scale", "bits", "block"))
 
 
-def params_from_numpy(tree, device="cpu", dtype=torch.float32):
+def params_from_numpy(tree, device="cuda", dtype=torch.float32):
     """Map a nested dict of numpy arrays (e.g. ``lxt_tpu`` parameters with
     leaves converted by ``np.asarray``) to tensors on ``device`` in
     ``dtype``. Quantized leaves become :class:`QuantizedTensor`s whose codes

@@ -11,15 +11,41 @@
 // applied to dq and dk. Rows with lse <= −5e29 (no visible key) give p = 0.
 //
 // What bounds it on the H100: five products per score (against two in the
-// forward), ~86 GFLOP at the main path's shapes (B 8, H 32 / Hkv 4, T 1024,
-// head dim 64, bf16, causal), again far above the card's ridge: the tensor
-// cores and the elementwise work per score are the roofline bound, not
-// device memory. This first version reaches neither: loads are not
-// overlapped with the products, and flash_bwd_dkv's causal CTAs carry
-// unequal work (PERF.md has the times).
+// forward; flash_bwd_dq recomputes s and dp, so the two kernels do seven),
+// ~120 GFLOP at the main path's call (B 8, H 32 / Hkv 4, T 1024, head dim
+// 64, bf16, causal), again far above the card's ridge: the tensor cores
+// and the elementwise work per score are the roofline bound, not device
+// memory.
 //
-// Design: the usual split into a kv-major and a q-major kernel, so that
-// every output is written once by one CTA — no atomics, deterministic.
+// The split into a kv-major and a q-major kernel makes every output be
+// written once by one CTA — no atomics, deterministic.
+//
+// The Hopper body of flash_bwd_dkv (bf16 at head dim 64 and 128, the two
+// paths' calls):
+// - one CTA per (b, kv head, 64-row kv tile), launched lowest kv tile
+//   first: under the causal mask those see the most q tiles. The CTA's
+//   work items are the visible (q head of the group, 64-row q tile) pairs;
+//   its two consumer warpgroups take the even and the odd items, each
+//   holding a whole dk and dv partial of the kv tile in registers, and sum
+//   them in a fixed order through shared memory at the end: deterministic,
+//   no atomics. A producer warpgroup gives its registers to them
+//   (setmaxnreg), which the two [64, D] partials need at head dim 128.
+// - one producer thread TMA-loads k and v once and keeps a 4-stage ring of
+//   (q, do) tiles with their lse and Δ slices in flight (two stages for
+//   each warpgroup).
+// - per item, in the transposed formulation: sᵀ = k qᵀ and dpᵀ = v doᵀ are
+//   wgmma chains from shared memory; pᵀ and dsᵀ = pᵀ∘(dpᵀ − Δ) are rounded
+//   to bf16 in registers, where they are the A operands of dv += pᵀ do and
+//   dk += dsᵀ q (do and q MN-major from shared memory). exp2 is one
+//   ex2.approx; the mask is two bounds per kv row, applied only on tiles it
+//   cuts.
+// - RoPE: q arrives rotated by the rotation pass (rope.cu), once per
+//   backward call (a [B, H, T, D] scratch copy); k is rotated once, in
+//   shared memory, in the prologue; dk gets the transposed rotation in the
+//   epilogue.
+//
+// The mma.sync bodies (flash_bwd_dq always; flash_bwd_dkv in float32 and
+// bf16 at head dim 256):
 // - flash_bwd_dkv: one CTA per (b, kv head, 64-row kv tile); each warp owns
 //   16 kv rows and accumulates dk and dv in registers while the CTA loops
 //   over the n_rep q heads of the group and over the visible q tiles.
@@ -28,9 +54,9 @@
 // Both recompute p from lse (no probabilities are stored), skip fully
 // masked tiles, and pass p and ds through per-warp shared strips in the
 // activation dtype for the next product, as the TPU kernels cast them.
-// Products use mma.sync (bf16) with fp32 accumulation; wgmma, TMA and
-// pipelined loads are later work.
-#include "flash_common.cuh"
+// Products use mma.sync (bf16) or FMAs (float32) with fp32 accumulation;
+// loads are not pipelined.
+#include "hopper.cuh"
 
 namespace lxt {
 
@@ -243,6 +269,229 @@ cudaError_t launch_bwd_dkv(const FlashArgs& a, cudaStream_t stream) {
                 a);
 }
 
+namespace hopper {
+
+template <int D>
+struct DkvTiles {
+  static constexpr int BM = 64, BN = 64, STAGES = 4, PANELS = D / 64;
+  static constexpr int PANEL = 64 * kPanelBytes;            // 64 rows of a panel
+  static constexpr int TILE_BYTES = PANELS * PANEL;          // a [64, D] tile
+  // a stage: q, do, then lse and Δ (64 floats each), padded to 1024 bytes
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES + 1024;
+  static constexpr int STAGE_OFF = 2 * TILE_BYTES;           // after k and v
+  static constexpr int BAR_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
+  static constexpr size_t smem = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
+  // the second warpgroup's dk and dv partials reuse the ring at the end
+  static_assert(2 * 64 * D * 4 <= STAGES * STAGE_BYTES, "partials must fit the ring");
+};
+
+struct DkvMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Roles<2>::kThreads, 1)
+    flash_bwd_dkv_hopper(const __grid_constant__ FlashArgs a, const __grid_constant__ DkvMaps m) {
+  using C = DkvTiles<D>;
+  using R = Roles<2>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + C::TILE_BYTES;
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.z * C::BM, hk = blockIdx.x, b = blockIdx.y;
+  const int n_rep = a.H / a.Hkv, h_begin = hk * n_rep, h_end = h_begin + n_rep;
+  const Mask mask = make_mask(a, b);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);  // stage s serves warpgroup s % 2 only
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= R::kConsumers / 32) {
+    // producer warpgroup: one thread issues the loads
+    reg_dealloc<R::kProducerRegs>();
+    if (warp == R::kConsumers / 32 && lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * C::TILE_BYTES);
+      for (int p = 0; p < C::PANELS; ++p) {
+        tma_load(sK + p * C::PANEL, &m.k, bar_kv, 64 * p, k0, hk, b);
+        tma_load(sV + p * C::PANEL, &m.v, bar_kv, 64 * p, k0, hk, b);
+      }
+      int it = 0;
+      for (int h = h_begin; h < h_end; ++h) {
+        const long long stat = ((long long)b * a.H + h) * a.T;
+        for (int q0 = 0; q0 < a.T; q0 += C::BN) {
+          if (mask.skip(q0, C::BN, k0, C::BM)) continue;
+          const int s = it % C::STAGES;
+          const uint32_t n = it / C::STAGES;
+          ++it;
+          mbar_wait(&empty[s], (n & 1) ^ 1);
+          unsigned char* st = smem + C::STAGE_OFF + s * C::STAGE_BYTES;
+          mbar_expect_tx(&full[s], 2 * C::TILE_BYTES + 2 * C::BN * 4);
+          for (int p = 0; p < C::PANELS; ++p) {
+            tma_load(st + p * C::PANEL, &m.q, &full[s], 64 * p, q0, h, b);
+            tma_load(st + C::TILE_BYTES + p * C::PANEL, &m.dout, &full[s], 64 * p, q0, h, b);
+          }
+          bulk_load(st + 2 * C::TILE_BYTES, a.lse + stat + q0, C::BN * 4, &full[s]);
+          bulk_load(st + 2 * C::TILE_BYTES + C::BN * 4, a.delta + stat + q0, C::BN * 4,
+                    &full[s]);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg takes the items with index % 2 == wg
+    reg_alloc<R::kConsumerRegs>();
+    const int wg = warp / 4, g = lane / 4, t = lane % 4;
+    mbar_wait(bar_kv, 0);
+    if (a.cos) {
+      rope_swizzled<D, C::BM, R::kConsumers>(sK, C::PANEL, static_cast<const bf16*>(a.cos),
+                                             static_cast<const bf16*>(a.sin), k0,
+                                             threadIdx.x);
+      fence_proxy_async();
+    }
+    named_sync(1, R::kConsumers);
+
+    const int krow0 = k0 + 16 * (warp % 4) + g;  // this lane's kv rows: krow0, krow0 + 8
+    int q_lo[2], q_hi[2];  // the visible query columns of those rows
+    mask.query_span(krow0, q_lo[0], q_hi[0]);
+    mask.query_span(krow0 + 8, q_lo[1], q_hi[1]);
+    float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+    int it = 0;
+    for (int h = h_begin; h < h_end; ++h) {
+      for (int q0 = 0; q0 < a.T; q0 += C::BN) {
+        if (mask.skip(q0, C::BN, k0, C::BM)) continue;
+        const int item = it++;
+        if ((item & 1) != wg) continue;
+        const int s = item % C::STAGES;
+        const uint32_t n = item / C::STAGES;
+        mbar_wait(&full[s], n & 1);
+        const unsigned char* sQ = smem + C::STAGE_OFF + s * C::STAGE_BYTES;
+        const unsigned char* sDO = sQ + C::TILE_BYTES;
+        const float* sLse = reinterpret_cast<const float*>(sQ + 2 * C::TILE_BYTES);
+        const float* sDelta = sLse + C::BN;
+
+        // transposed scores and dp: rows are kv rows, columns q rows
+        float st[8][4] = {}, dpt[8][4] = {};
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk / 4) * C::PANEL + (kk % 4) * 32;
+          wgmma_ss<C::BN>(st, desc(sK + off, 16, 1024), desc(sQ + off, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk / 4) * C::PANEL + (kk % 4) * 32;
+          wgmma_ss<C::BN>(dpt, desc(sV + off, 16, 1024), desc(sDO + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(st);
+        fence_acc(dpt);
+
+        // p = 2^(s·scale·log2e − lse·log2e); a row with no visible key
+        // (lse −1e30) subtracts +inf and gets p = 0
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 lse = *reinterpret_cast<const float2*>(sLse + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lse_c = (e & 1) ? lse.y : lse.x;
+            const float sub = lse_c <= kNegInf / 2 ? __int_as_float(0x7f800000) : lse_c * kLog2e;
+            st[j][e] = exp2_fast(st[j][e] * a.scale_log2 - sub);
+          }
+        }
+        if (!mask.interior(q0, C::BN, k0, C::BM)) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = q0 + 8 * j + 2 * t + (e & 1), r = e / 2;
+              st[j][e] = c >= q_lo[r] && c < q_hi[r] ? st[j][e] : 0.f;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 del = *reinterpret_cast<const float2*>(sDelta + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[j][e] = st[j][e] * (dpt[j][e] - ((e & 1) ? del.y : del.x));
+        }
+        uint32_t pa[4][4], dsa[4][4];
+        to_a_operand(st, pa);
+        to_a_operand(dpt, dsa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::BN / 16; ++kk)
+          wgmma_rs<D>(dv, pa[kk], desc(sDO + kk * 16 * kPanelBytes, C::PANEL, 1024));
+#pragma unroll
+        for (int kk = 0; kk < C::BN / 16; ++kk)
+          wgmma_rs<D>(dk, dsa[kk], desc(sQ + kk * 16 * kPanelBytes, C::PANEL, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dv);
+        fence_acc(dk);
+        mbar_arrive(&empty[s]);
+      }
+    }
+
+    // the two partials, summed in a fixed order (warpgroup 0's + warpgroup
+    // 1's) through the ring, which every item has released by now
+    float* red = reinterpret_cast<float*>(smem + C::STAGE_OFF);
+    const int wt = threadIdx.x % 128;
+    named_sync(1, R::kConsumers);
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          red[(4 * j + e) * 128 + wt] = dk[j][e];
+          red[(D / 2 + 4 * j + e) * 128 + wt] = dv[j][e];
+        }
+    }
+    named_sync(1, R::kConsumers);
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk[j][e] = (dk[j][e] + red[(4 * j + e) * 128 + wt]) * a.scale;
+          dv[j][e] += red[(D / 2 + 4 * j + e) * 128 + wt];
+        }
+      if (a.cos) rope_transpose<bf16, D>(dk, static_cast<const bf16*>(a.cos),
+                                         static_cast<const bf16*>(a.sin), krow0);
+      const int wrow = k0 + 16 * (warp % 4);
+      store_rows<bf16, D>(static_cast<bf16*>(a.out0) + b * a.so0[0] + hk * a.so0[1] +
+                              wrow * a.so0[2], a.so0[2], dk);
+      store_rows<bf16, D>(static_cast<bf16*>(a.out1) + b * a.so1[0] + hk * a.so1[1] +
+                              wrow * a.so1[2], a.so1[2], dv);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_dkv(const FlashArgs& a, cudaStream_t stream) {
+  using C = DkvTiles<D>;
+  DkvMaps m;
+  cudaError_t err = tensor_map(&m.q, a.q, a.sq, a.B, a.H, a.T, D, C::BN);
+  if (err == cudaSuccess) err = tensor_map(&m.dout, a.dout, a.sdo, a.B, a.H, a.T, D, C::BN);
+  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.T, D, C::BM);
+  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.T, D, C::BM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.Hkv, a.B, a.T / C::BM);
+  return launch_hopper(flash_bwd_dkv_hopper<D>, grid, Roles<2>::kThreads, C::smem, stream, a, m);
+}
+
+}  // namespace hopper
+
 }  // namespace lxt
 
 // dtype: 0 float32, 1 bfloat16. Each returns the cudaError_t of its launch.
@@ -269,8 +518,8 @@ extern "C" int lxt_flash_bwd_dkv(const lxt::FlashArgs* a, int dtype, int head_di
     case 64: return launch_bwd_dkv<float, 64>(*a, s);
     case 128: return launch_bwd_dkv<float, 128>(*a, s);
     case 256: return launch_bwd_dkv<float, 256>(*a, s);
-    case 1064: return launch_bwd_dkv<bf16, 64>(*a, s);
-    case 1128: return launch_bwd_dkv<bf16, 128>(*a, s);
+    case 1064: return hopper::launch_bwd_dkv<64>(*a, s);
+    case 1128: return hopper::launch_bwd_dkv<128>(*a, s);
     case 1256: return launch_bwd_dkv<bf16, 256>(*a, s);
     default: return cudaErrorInvalidValue;
   }

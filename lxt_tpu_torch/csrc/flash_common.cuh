@@ -96,6 +96,33 @@ __device__ __forceinline__ void rope_tile(T* s, const T* cos, const T* sin, int 
   }
 }
 
+// The same rotation on 16 bytes of each half of a row: x1 holds columns
+// c.., x2 columns c + D/2.., and (c1, s1), (c2, s2) the tables at those
+// columns. __fmul_rn / __fadd_rn forbid FMA contraction, so float32 rounds
+// as the separate PyTorch products and sum of models/common.apply_rope do.
+template <typename T>
+__device__ __forceinline__ void rope_vec(uint4& x1, uint4& x2, const uint4& c1,
+                                         const uint4& c2, const uint4& s1, const uint4& s2) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* a = reinterpret_cast<const T*>(&x1);
+  const T* b = reinterpret_cast<const T*>(&x2);
+  const T* ca = reinterpret_cast<const T*>(&c1);
+  const T* cb = reinterpret_cast<const T*>(&c2);
+  const T* sa = reinterpret_cast<const T*>(&s1);
+  const T* sb = reinterpret_cast<const T*>(&s2);
+  alignas(16) T o1[kVec], o2[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    const float x = to_f(a[e]), y = to_f(b[e]);
+    o1[e] = from_f<T>(__fadd_rn(to_f(from_f<T>(__fmul_rn(x, to_f(ca[e])))),
+                                to_f(from_f<T>(__fmul_rn(-y, to_f(sa[e]))))));
+    o2[e] = from_f<T>(__fadd_rn(to_f(from_f<T>(__fmul_rn(y, to_f(cb[e])))),
+                                to_f(from_f<T>(__fmul_rn(x, to_f(sb[e]))))));
+  }
+  x1 = *reinterpret_cast<const uint4*>(o1);
+  x2 = *reinterpret_cast<const uint4*>(o2);
+}
+
 // The transpose of the RoPE rotation (its vjp) on fp32 accumulator fragments
 // of a 16 x D strip: column c pairs with c + D/2, which the same lane holds
 // in n-tile nt + D/16. `row0` is the position of the lane's first row.
@@ -131,6 +158,16 @@ struct Mask {
     return k0 + nk - 1 <= q0 - window || k0 + nk - 1 < kv0 || k0 >= kv1 ||
            (causal && k0 > q0 + nq - 1);
   }
+  // the visible keys [lo, hi) of query i, and the visible queries [lo, hi)
+  // of key j: the same test as allowed() as two bounds
+  __device__ __forceinline__ void key_span(int i, int& lo, int& hi) const {
+    lo = max(i - window + 1, kv0);
+    hi = causal ? min(i + 1, kv1) : kv1;
+  }
+  __device__ __forceinline__ void query_span(int j, int& lo, int& hi) const {
+    lo = causal ? j : 0;
+    hi = j >= kv0 && j < kv1 ? j + window : lo;
+  }
   // the tile is entirely visible, so no element needs the mask
   __device__ __forceinline__ bool interior(int q0, int nq, int k0, int nk) const {
     return k0 > q0 + nq - 1 - window && k0 >= kv0 && k0 + nk - 1 < kv1 &&
@@ -138,9 +175,11 @@ struct Mask {
   }
 };
 
+// keys at or past T do not exist: a kv tile may run past T (the Hopper K1
+// body's 128-row kv tiles at T % 128 == 64), and its rows there are masked
 __device__ __forceinline__ Mask make_mask(const FlashArgs& a, int b) {
   return Mask{a.window, a.kv_begin ? a.kv_begin[b] : 0,
-              a.kv_end ? a.kv_end[b] : kNoPad, a.causal != 0};
+              min(a.kv_end ? a.kv_end[b] : kNoPad, a.T), a.causal != 0};
 }
 
 // ---------------------------------------------------------------------------
@@ -256,6 +295,14 @@ __device__ __forceinline__ void store_rows(T* g0, long long row_stride,
     r1[0] = from_f<T>(x[nt][2]);
     r1[1] = from_f<T>(x[nt][3]);
   }
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: relative error ~2^-22,
+// 2^-inf and 2^-1e30 give +0), one instruction
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // max / sum over the four lanes that share a fragment row

@@ -7,26 +7,48 @@
 // the natural-log logsumexp of each row, by online softmax in the exp2
 // domain. Rows with no visible key give out 0 and lse -1e30.
 //
-// What bounds it on the H100: at the main path's shapes (B 8, H 32 / Hkv 4,
-// T 1024, head dim 64, bf16, causal) it does ~34 GFLOP of products on ~0.1
-// GB of q/k/v/out, far above the card's ~295 FLOP/byte ridge, so the
-// roofline bound is the tensor cores and, at head dim 64, the exp2 and
-// max/sum work per score on the FP32 and special-function units. This
-// first version reaches neither: its loads are not overlapped with the
-// products, so it is bound by load latency (PERF.md has the times).
+// What bounds it on the H100: at the two paths' calls (B 8, H 32 / Hkv 4,
+// T 1024, head dim 64; B 1, H 32 / Hkv 8, T 4096, head dim 128; bf16,
+// causal) it does 34 and 137 GFLOP of products on 76-100 MB of
+// q/k/v/out, far above the card's ~295 FLOP/byte ridge: the tensor cores
+// (989 TFLOP/s) are the roofline bound, and beside them the exp2 and
+// max/sum work per score on the FP32 and special-function units, which at
+// head dim 64 costs as much as the products.
 //
-// Design: one CTA per (b, h, 64-row q tile); the 4 warps own 16 q rows each
-// and loop over the kv tiles (a loop in the block replaces the TPU's
-// sequential kv grid axis; blocks run in any order and share nothing).
-// Fully masked kv tiles are skipped and fully visible ones skip the
-// per-element mask, so a causal row pays for about half the kv span. GQA
-// reads kv head h / n_rep in place; k/v are never repeated. RoPE rotates
-// the q and k tiles in shared memory after the load. Products use
-// mma.sync (bf16) with fp32 accumulation; p goes through shared memory in
-// bf16 for the p·v product, as the TPU kernel casts p to v's dtype. Loads
-// are plain 16-byte vectors with no pipelining: cp.async/TMA double
-// buffering, wgmma and warp specialisation are the next steps for speed.
-#include "flash_common.cuh"
+// Two bodies; the switch at the end picks one by (dtype, head dim) only.
+//
+// The Hopper body (bf16 at head dim 64 and 128, the two paths' calls):
+// - one CTA per (b, h, q tile of 64 rows per consumer warpgroup): three
+//   warpgroups (192 rows) at head dim 64, two (128 rows) at 128, whose
+//   accumulators are twice as wide, and one producer warpgroup that gives
+//   its registers to them (setmaxnreg). The grid runs the q tiles
+//   last-first, so under the causal mask the CTAs with the most kv tiles
+//   start first.
+// - one producer thread TMA-loads the q tile once and keeps a ring of 4
+//   (k, v) tile pairs of 64 rows in flight (128-byte swizzled, one
+//   mbarrier pair per stage); rows past T read as zeros and are not stored.
+// - s = q kᵀ is a wgmma m64n64k16 chain per warpgroup from shared memory;
+//   p is rescaled, rounded to bf16 and kept in registers as the A operand
+//   of the p·v chain (v MN-major from shared memory). The p·v chain of one
+//   tile runs while the next tile's scores become probabilities.
+// - the softmax is branch-free: masks are two bounds per row, applied only
+//   on tiles the mask cuts, and exp2 is one ex2.approx each; empty rows give
+//   out 0 and lse -1e30 as in the body below.
+// - RoPE: q is rotated once, in shared memory, in the prologue; k arrives
+//   rotated by the rotation pass (rope.cu), once per call. This body never
+//   rotates k.
+//
+// The mma.sync body (float32, and bf16 at head dim 256): one CTA per (b,
+// h, 64-row q tile); the 4 warps own 16 q rows each and loop over the kv tiles
+// (a loop in the block replaces the TPU's sequential kv grid axis; blocks
+// run in any order and share nothing). Fully masked kv tiles are skipped
+// and fully visible ones skip the per-element mask. GQA reads kv head
+// h / n_rep in place; k/v are never repeated. RoPE rotates the q and k
+// tiles in shared memory after the load. Products use mma.sync (bf16) or
+// FMAs (float32) with fp32 accumulation; p goes through shared memory for
+// the p·v product, as the TPU kernel casts p to v's dtype. Loads are plain
+// 16-byte vectors with no pipelining.
+#include "hopper.cuh"
 
 namespace lxt {
 
@@ -156,7 +178,264 @@ cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
   return launch(flash_fwd_kernel<T, D>, dim3(a.T / C::BQ, a.H, a.B), C::smem, stream, a);
 }
 
+namespace hopper {
+
+template <int D>
+struct FwdTiles {
+  // three consumer warpgroups at head dim 64, two at 128 (its accumulators
+  // are twice as wide)
+  static constexpr int NWG = D == 64 ? 3 : 2;
+  // kv rows per step: 128 at head dim 64 (the softmax's fixed costs per step
+  // weigh most there), 64 at 128 (shared memory)
+  static constexpr int BK = D == 64 ? 128 : 64;
+  static constexpr int BQ = 64 * NWG, STAGES = 4, PANELS = D / 64;
+  static constexpr int Q_PANEL = BQ * kPanelBytes, KV_PANEL = BK * kPanelBytes;
+  static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // k, then v
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  // barriers: q, then full and empty of each stage; 1024 bytes of slack
+  // for aligning the dynamic shared memory
+  static constexpr size_t smem = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
+};
+
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Roles<FwdTiles<D>::NWG>::kThreads, 1)
+    flash_fwd_hopper(const __grid_constant__ FlashArgs a, const __grid_constant__ FwdMaps m) {
+  using C = FwdTiles<D>;
+  using R = Roles<C::NWG>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* sQ = smem;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BQ, h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (a.H / a.Hkv);
+  const int nq = min(C::BQ, a.T - q0);  // rows of this tile inside [0, T)
+  const Mask mask = make_mask(a, b);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], R::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= R::kConsumers / 32) {
+    // producer warpgroup: one thread issues the loads
+    reg_dealloc<R::kProducerRegs>();
+    if (warp == R::kConsumers / 32 && lane == 0) {
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+      for (int p = 0; p < C::PANELS; ++p)
+        tma_load(sQ + p * C::Q_PANEL, &m.q, bar_q, 64 * p, q0, h, b);
+      int it = 0;
+      for (int k0 = 0; k0 < a.T; k0 += C::BK) {
+        if (mask.skip(q0, nq, k0, C::BK)) continue;
+        const int s = it % C::STAGES;
+        const uint32_t n = it / C::STAGES;
+        ++it;
+        mbar_wait(&empty[s], (n & 1) ^ 1);
+        unsigned char* sK = smem + C::Q_BYTES + s * C::STAGE_BYTES;
+        mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        for (int p = 0; p < C::PANELS; ++p) {
+          tma_load(sK + p * C::KV_PANEL, &m.k, &full[s], 64 * p, k0, hk, b);
+          tma_load(sK + C::KV_BYTES + p * C::KV_PANEL, &m.v, &full[s], 64 * p, k0, hk, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns q rows [q0w, q0w + 64)
+    reg_alloc<R::kConsumerRegs>();
+    const int wg = warp / 4, g = lane / 4, t = lane % 4;
+    const int q0w = q0 + 64 * wg;
+    const bool active = q0w < a.T;  // T % 64 == 0: a warpgroup is all in or all out
+    unsigned char* sQw = sQ + 64 * wg * kPanelBytes;
+    mbar_wait(bar_q, 0);
+    if (active && a.cos) {
+      rope_swizzled<D, 64, 128>(sQw, C::Q_PANEL, static_cast<const bf16*>(a.cos),
+                                static_cast<const bf16*>(a.sin), q0w, threadIdx.x % 128);
+      fence_proxy_async();
+    }
+    named_sync(1 + wg, 128);
+
+    const int row0 = q0w + 16 * (warp % 4) + g;  // this lane's rows: row0, row0 + 8
+    float m_[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float acc[D / 8][4] = {};
+    constexpr int NB = C::BK / 8;  // 8-column blocks of a score tile
+
+    // the next kv tile this warpgroup computes on: the CTA's visible tiles
+    // in the producer's order, releasing at once those all masked here
+    int k0 = -C::BK, it = 0, s = 0;
+    auto next_tile = [&]() -> bool {
+      for (k0 += C::BK; k0 < a.T; k0 += C::BK) {
+        if (mask.skip(q0, nq, k0, C::BK)) continue;
+        s = it % C::STAGES;
+        const uint32_t n = it / C::STAGES;
+        ++it;
+        mbar_wait(&full[s], n & 1);
+        if (active && !mask.skip(q0w, 64, k0, C::BK)) return true;
+        mbar_arrive(&empty[s]);
+      }
+      return false;
+    };
+    auto scores = [&](float (&sc)[NB][4]) {
+      const unsigned char* sK = smem + C::Q_BYTES + s * C::STAGE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 4) * 32;  // the 16 columns inside a 64-column panel
+        wgmma_ss<C::BK>(sc, desc(sQw + (kk / 4) * C::Q_PANEL + off, 16, 1024),
+                        desc(sK + (kk / 4) * C::KV_PANEL + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto pv = [&](const uint32_t (&pa)[NB / 2][4], int stage) {
+      const unsigned char* sV = smem + C::Q_BYTES + stage * C::STAGE_BYTES + C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < C::BK / 16; ++kk)
+        wgmma_rs<D>(acc, pa[kk], desc(sV + kk * 16 * kPanelBytes, C::KV_PANEL, 1024));
+      wgmma_commit();
+    };
+    // the visible key columns of this lane's two rows
+    int key_lo[2], key_hi[2];
+    mask.key_span(row0, key_lo[0], key_hi[0]);
+    mask.key_span(row0 + 8, key_lo[1], key_hi[1]);
+    // scores -> probabilities in place (the exp2 domain, masked entries to
+    // -1e30); updates m and l and returns each row's rescale of acc
+    auto softmax = [&](float (&sc)[NB][4], float (&alpha)[2]) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= a.scale_log2;
+      if (!mask.interior(q0w, 64, k0, C::BK)) {
+        const int c0 = k0 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + 8 * j + (e & 1), r = e / 2;
+            sc[j][e] = c >= key_lo[r] && c < key_hi[r] ? sc[j][e] : kNegInf;
+          }
+      }
+      float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f}, base[2];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[j][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_[r], row_max(mx[r]));
+        alpha[r] = exp2_fast(m_[r] - m_new);
+        m_[r] = m_new;
+        // a row fully masked so far has m = -1e30: subtracting 0 instead
+        // sends its masked entries' probabilities to 2^-1e30 = 0, not 1
+        base[r] = m_new <= kNegInf / 2 ? 0.f : m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = exp2_fast(sc[j][e] - base[e / 2]);
+          sum[e / 2] += sc[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + row_sum(sum[r]);
+    };
+
+    if (next_tile()) {
+      // p of the previous tile: its p·v product runs while the next tile's
+      // scores become probabilities
+      uint32_t pa[NB / 2][4];
+      float alpha[2];
+      {
+        float sc[NB][4] = {};
+        wgmma_fence();
+        scores(sc);
+        wgmma_wait<0>();
+        fence_acc(sc);
+        softmax(sc, alpha);
+        to_a_operand(sc, pa);
+      }
+      int s_prev = s;
+      while (next_tile()) {
+        float sc[NB][4] = {};
+        wgmma_fence();
+        scores(sc);
+        pv(pa, s_prev);
+        wgmma_wait<1>();  // the scores; the previous p·v may still run
+        fence_acc(sc);
+        softmax(sc, alpha);
+        wgmma_wait<0>();
+        fence_acc(acc);
+        fence_regs(pa);
+        mbar_arrive(&empty[s_prev]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[j][0] *= alpha[0];
+          acc[j][1] *= alpha[0];
+          acc[j][2] *= alpha[1];
+          acc[j][3] *= alpha[1];
+        }
+        to_a_operand(sc, pa);
+        s_prev = s;
+      }
+      wgmma_fence();
+      pv(pa, s_prev);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(&empty[s_prev]);
+    }
+
+    if (active) {
+      bf16* og = static_cast<bf16*>(a.out0) + b * a.so0[0] + h * a.so0[1];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = row0 + 8 * r;
+        const bool empty_row = l[r] <= 0.f;
+        const float inv = empty_row ? 0.f : 1.f / l[r];
+        bf16* orow = og + qi * a.so0[2];
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+              __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+        if (t == 0)
+          a.lse_out[((long long)b * a.H + h) * a.T + qi] =
+              empty_row ? kNegInf : (m_[r] + log2f(l[r])) * kLn2;
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
+  using C = FwdTiles<D>;
+  FwdMaps m;
+  cudaError_t err = tensor_map(&m.q, a.q, a.sq, a.B, a.H, a.T, D, C::BQ);
+  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.T, D, C::BK);
+  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.T, D, C::BK);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.H, a.B, (a.T + C::BQ - 1) / C::BQ);
+  return launch_hopper(flash_fwd_hopper<D>, grid, Roles<C::NWG>::kThreads, C::smem, stream,
+                       a, m);
+}
+
+}  // namespace hopper
+
 }  // namespace lxt
+
+// 1 when (dtype, head_dim) runs a Hopper body: K1 then reads k rotated by
+// the rotation pass, and flash_bwd_dkv reads q rotated by it.
+extern "C" int lxt_flash_hopper(int dtype, int head_dim) {
+  return dtype == 1 && (head_dim == 64 || head_dim == 128);
+}
 
 // dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch.
 extern "C" int lxt_flash_fwd(const lxt::FlashArgs* a, int dtype, int head_dim,
@@ -167,8 +446,8 @@ extern "C" int lxt_flash_fwd(const lxt::FlashArgs* a, int dtype, int head_dim,
     case 64: return launch_fwd<float, 64>(*a, s);
     case 128: return launch_fwd<float, 128>(*a, s);
     case 256: return launch_fwd<float, 256>(*a, s);
-    case 1064: return launch_fwd<bf16, 64>(*a, s);
-    case 1128: return launch_fwd<bf16, 128>(*a, s);
+    case 1064: return hopper::launch_fwd<64>(*a, s);
+    case 1128: return hopper::launch_fwd<128>(*a, s);
     case 1256: return launch_fwd<bf16, 256>(*a, s);
     default: return cudaErrorInvalidValue;
   }

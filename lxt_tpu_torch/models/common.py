@@ -112,14 +112,22 @@ def rotate_half(x):
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def _rope_factors(cos, sin, dt):
+    if cos.dim() == 3:
+        return cos[:, None].to(dt), sin[:, None].to(dt)
+    return cos[None, None].to(dt), sin[None, None].to(dt)
+
+
+def rotate(x, cos, sin):
+    """One tensor's rotation as :func:`apply_rope` does it, in x's dtype."""
+    c, s = _rope_factors(cos, sin, x.dtype)
+    return x * c + rotate_half(x) * s
+
+
 def apply_rope(q, k, cos, sin):
     """q,k: [B, H, T, D]; cos/sin: [T, D] or [B, T, D] (padded batches).
     The rotation runs in the activation dtype (HF semantics)."""
-    dt = q.dtype
-    if cos.dim() == 3:
-        c, s = cos[:, None].to(dt), sin[:, None].to(dt)
-    else:
-        c, s = cos[None, None].to(dt), sin[None, None].to(dt)
+    c, s = _rope_factors(cos, sin, q.dtype)
     return q * c + rotate_half(q) * s, k * c + rotate_half(k) * s
 
 

@@ -274,7 +274,7 @@ def forward_head(params, cfg, h, composite=composites.attnlrp, *,
 # ---------------------------------------------------------------------------
 
 def params_from_hf(state_dict, cfg: LlamaConfig, dtype=torch.float32,
-                   device="cpu"):
+                   device="cuda"):
     """Convert an HF Llama/Qwen2/Qwen3/Mistral/Phi-3 ``state_dict`` (torch
     tensors or numpy arrays) to the stacked parameter dict. Linear weights
     are transposed to ``[in, out]``; Phi-3's fused ``qkv_proj`` and

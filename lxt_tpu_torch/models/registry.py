@@ -231,7 +231,7 @@ def _convert(state_dict, hf_config, composite, dtype, device, family=None):
 
 
 def from_hf(hf_model, composite: composites.Composite = None, dtype=None,
-            family: str = None, device="cpu"):
+            family: str = None, device="cuda"):
     """Convert a loaded HF Llama-family torch model (``.config`` and
     ``.state_dict()``) into an :class:`AttributionModel` on ``device``.
     ``family`` forces a family for an out-of-registry ``model_type`` that
@@ -246,7 +246,7 @@ def from_hf(hf_model, composite: composites.Composite = None, dtype=None,
 
 def from_pretrained(model_dir, composite: composites.Composite = None,
                     dtype=None, quantize_bits=None, family: str = None,
-                    device="cpu"):
+                    device="cuda"):
     """Load an :class:`AttributionModel` straight from an HF checkpoint
     directory onto ``device``; no torch model is instantiated.
 

@@ -7,7 +7,12 @@ kernels compute standard flash attention and its standard backward:
 - K1 ``flash_fwd`` (``csrc/flash_fwd.cu``): out = softmax(q kᵀ·scale + mask) v
   by online softmax, plus the natural-log logsumexp of each row;
 - K2 ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``): the
-  gradients from p = exp(s − lse) and Δ = rowsum(out∘do).
+  gradients from p = exp(s − lse) and Δ = rowsum(out∘do);
+- ``rope_rotate`` (``csrc/rope.cu``): the RoPE rotation pass of one tensor.
+
+K1 and ``flash_bwd_dkv`` have a Hopper body (wgmma, TMA, warp-specialised)
+for bf16 at head dim 64 and 128; float32, head dim 256 and ``flash_bwd_dq``
+run the mma.sync body. The body is picked by (dtype, head dim) alone.
 
 Layout: q ``[B, H, T, D]``, k/v ``[B, Hkv, T, D]`` with ``Hkv`` dividing
 ``H``; the kernels read the batch, head and time strides (the last dim must
@@ -15,8 +20,10 @@ be contiguous), so head-split views of a projection need no copy. Masks are
 in global positions: ``causal``, a sliding ``window`` (``k > q − window``),
 and per-example ``kv_begin``/``kv_end`` [B] valid-key spans. Query rows with
 no visible key give out 0 and lse −1e30. Optional ``rope`` ``(cos, sin)``
-[T, D] tables rotate q and k inside the kernels (HF rotate-half, in the
-activation dtype), and the transposed rotation is applied to dq and dk.
+[T, D] tables rotate q and k (HF rotate-half, in the activation dtype):
+inside the kernels, except that the Hopper bodies read k (K1) and q
+(``flash_bwd_dkv``) rotated once per call by ``rope_rotate``; the
+transposed rotation is applied to dq and dk.
 
 Every kernel wrapper takes its plain version for CPU tensors (the tests);
 for a CUDA tensor it launches the kernel or raises. ``launches`` counts the
@@ -35,7 +42,8 @@ from lxt_tpu_torch.ops.attention import NATIVE_HEAD_DIMS, repeat_kv
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 #: launch count of each kernel wrapper; the wrappers add one per launch
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "rope_rotate": 0}
 #: rows per tile in every kernel: CUDA calls need T % TILE == 0
 TILE = 64
 
@@ -98,6 +106,56 @@ def _allowed(q, k, kv_begin, kv_end, window, causal):
     if kv_end is not None:
         ok = ok & (kj < kv_end.long()[:, None, None, None])
     return ok
+
+
+# ---------------------------------------------------------------------------
+# work counts: what a call must compute and move, for roofline bounds
+# ---------------------------------------------------------------------------
+
+#: matrix products over the visible (query, key) pairs each kernel computes:
+#: K1 s = q kᵀ and p v; dq recomputes s and dp = do vᵀ, then ds k; dkv
+#: recomputes s and dp, then pᵀ do and dsᵀ q
+PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+
+
+def visible_pairs(T, window=None, causal=True, kv_begin=None, kv_end=None):
+    """Number of visible (query, key) pairs of a [T, T] attention, summed
+    over the batch rows of ``kv_begin``/``kv_end`` ([B] or None; None is one
+    unpadded row). Query i sees key j when j > i − window,
+    kv_begin ≤ j < kv_end and, if causal, j ≤ i (the mask of the kernels)."""
+    i = torch.arange(T, dtype=torch.int64)
+    lo = i - window + 1 if window is not None else torch.zeros_like(i)
+    hi = i if causal else torch.full_like(i, T - 1)
+    begins = [0] if kv_begin is None else [int(x) for x in kv_begin]
+    ends = [T] * len(begins) if kv_end is None else [int(x) for x in kv_end]
+    if len(begins) == 1 and len(ends) > 1:
+        begins = begins * len(ends)
+    return sum(int((torch.minimum(hi, torch.tensor(e - 1))
+                    - torch.maximum(lo.clamp(min=0), torch.tensor(b)) + 1)
+                   .clamp(min=0).sum())
+               for b, e in zip(begins, ends))
+
+
+def work(name, B, H, Hkv, T, D, itemsize=2, *, window=None, causal=True,
+         kv_begin=None, kv_end=None, rope=False):
+    """(FLOPs, bytes) one call of kernel ``name`` must spend: each product
+    over the visible pairs costs 2·D FLOPs a pair and head, and each input
+    is read once and each output written once. ``rope_rotate`` is the
+    rotation pass over a [B, H, T, D] tensor (three FLOPs an element)."""
+    act = B * H * T * D * itemsize          # q, do, out, dq
+    kv = B * Hkv * T * D * itemsize         # k, v, dk, dv
+    stat = B * H * T * 4                    # lse, delta (float32)
+    tables = 2 * T * D * itemsize if rope else 0
+    if name == "rope_rotate":
+        return 3 * B * H * T * D, 2 * act + tables
+    pairs = visible_pairs(T, window, causal, kv_begin, kv_end)
+    if kv_begin is None and kv_end is None:
+        pairs *= B
+    flops = PRODUCTS[name] * pairs * H * 2 * D
+    moved = {"flash_fwd": 2 * act + 2 * kv + stat,
+             "flash_bwd_dq": 3 * act + 2 * kv + 2 * stat,
+             "flash_bwd_dkv": 2 * act + 4 * kv + 2 * stat}[name]
+    return flops, moved + tables
 
 
 def _rope_qk(q, k, cos, sin):
@@ -207,6 +265,12 @@ def _library():
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.lxt_flash_hopper.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.lxt_flash_hopper.restype = ctypes.c_int
+        lib.lxt_rope_rotate.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.lxt_rope_rotate.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -221,6 +285,22 @@ def _aligned(t):
 
 def _prepared(t):
     return t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _stat(t):
+    """lse / Δ as the kernels read them: contiguous, 16-byte aligned (the
+    Hopper body copies 64-row slices of them in bulk)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _hopper(q):
+    """Whether a CUDA call of this dtype and head dim runs the Hopper bodies
+    of K1 and ``flash_bwd_dkv`` (``lxt_flash_hopper`` in csrc/flash_fwd.cu
+    decides): they read k (K1) and q (``flash_bwd_dkv``) rotated by the
+    rotation pass instead of rotating them in the kernel."""
+    code = _DTYPE_CODE.get(q.dtype)
+    return code is not None and bool(_library().lxt_flash_hopper(code, q.shape[-1]))
 
 
 def _launch(name, q, k, v, *, dout=None, lse=None, delta=None, cos=None,
@@ -282,12 +362,54 @@ def _launch(name, q, k, v, *, dout=None, lse=None, delta=None, cos=None,
     launches[name] += 1
 
 
+def rope_rotate_ref(x, cos, sin):
+    """Plain version of the rotation pass: ``models.common.apply_rope``'s
+    rotation of one [B, H, T, D] tensor by [T, D] tables."""
+    return _mcommon.rotate(x, cos, sin)
+
+
+def rope_rotate(x, cos, sin):
+    """The RoPE rotation pass (``csrc/rope.cu``): x rotated by the [T, D]
+    tables in x's dtype, into a new contiguous tensor, bit-identical to
+    :func:`rope_rotate_ref`. The Hopper bodies of K1 and ``flash_bwd_dkv``
+    read k (K1) and q (``flash_bwd_dkv``) rotated once per call by it."""
+    if x.device.type == "cpu":
+        return rope_rotate_ref(x, cos, sin)
+    if not x.is_cuda:
+        raise ValueError(f"rope_rotate: expected a CUDA tensor, got {x.device}")
+    B, H, T, D = x.shape
+    if x.dtype not in _DTYPE_CODE or D not in NATIVE_HEAD_DIMS:
+        raise ValueError(f"rope_rotate: {x.dtype} with head dim {D} not "
+                         f"supported (bfloat16 or float32, {NATIVE_HEAD_DIMS})")
+    x = _prepared(x)
+    for t in (cos, sin):
+        if (t.device != x.device or t.dtype != x.dtype
+                or tuple(t.shape) != (T, D) or not t.is_contiguous()):
+            raise ValueError(f"rope_rotate: tables must be contiguous {x.dtype} "
+                             f"[{T}, {D}] on {x.device}")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.lxt_rope_rotate(x.data_ptr(), *x.stride()[:3], cos.data_ptr(),
+                                  sin.data_ptr(), out.data_ptr(), B, H, T, D,
+                                  _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"rope_rotate: CUDA launch failed with error {err}")
+    launches["rope_rotate"] += 1
+    return out
+
+
 def flash_fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal):
-    """K1. Returns (out like q, lse float32 [B, H, T])."""
+    """K1. Returns (out like q, lse float32 [B, H, T]). On the Hopper body
+    (bf16, head dim 64 or 128) with rope, k is rotated first by
+    :func:`rope_rotate`; q is rotated inside the kernel."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, cos, sin, kv_begin, kv_end, window,
                              scale, causal)
     q, k, v = _prepared(q), _prepared(k), _prepared(v)
+    if cos is not None and _hopper(q):
+        k = rope_rotate(k, cos, sin)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, k, v, cos=cos, sin=sin, kv_begin=kv_begin,
@@ -314,14 +436,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
 def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
                   scale, causal):
     """K2, dk/dv half: one CTA per (b, kv head, kv tile), looping over the
-    GQA group's q heads and the visible q tiles."""
+    GQA group's q heads and the visible q tiles. On the Hopper body (bf16,
+    head dim 64 or 128) with rope, q is rotated first by
+    :func:`rope_rotate` (a [B, H, T, D] scratch copy for the call); k is
+    rotated inside the kernel."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, cos, sin, kv_begin,
                                  kv_end, window, scale, causal)
     q, k, v, do = (_prepared(t) for t in (q, k, v, do))
+    if cos is not None and _hopper(q):
+        q = rope_rotate(q, cos, sin)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", q, k, v, dout=do, lse=lse.contiguous(),
-            delta=delta.contiguous(), cos=cos, sin=sin, kv_begin=kv_begin,
+    _launch("flash_bwd_dkv", q, k, v, dout=do, lse=_stat(lse),
+            delta=_stat(delta), cos=cos, sin=sin, kv_begin=kv_begin,
             kv_end=kv_end, outs=(dk, dv), window=window, scale=scale,
             causal=causal)
     return dk, dv

@@ -1,0 +1,78 @@
+"""The work counts behind each flash kernel's roofline bound
+(``lxt_tpu_torch.ops.flash_attention.visible_pairs`` and ``work``), on CPU.
+
+The visible pairs must equal a count of the mask the plain versions use
+(``_allowed``) under every mask regime, and the closed form T(T+1)/2 of a
+causal call that ``bench.py``'s ``attribution_flops`` uses; the FLOPs and
+bytes must follow from the products and tensors each kernel touches.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lxt_tpu_torch.ops import flash_attention as tfa
+
+# (B, T, window, causal, kv_begin, kv_end)
+MASKS = {
+    "causal": (2, 64, None, True, None, None),
+    "bidirectional": (2, 48, None, False, None, None),
+    "window": (1, 96, 17, True, None, None),
+    "window_bidirectional": (1, 40, 9, False, None, None),
+    "kv_begin": (3, 64, None, True, [0, 5, 63], None),
+    "kv_end_bidirectional": (2, 64, None, False, None, [64, 21]),
+    "window_kv_begin_kv_end": (2, 80, 30, True, [3, 40], [70, 80]),
+    "empty_rows": (1, 32, None, True, [40], None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MASKS))
+def test_visible_pairs_count_the_mask(name):
+    B, T, window, causal, kv_begin, kv_end = MASKS[name]
+    q = torch.zeros(B, 1, T, 8)
+    w, _ = tfa._canon(q, q, window, None)
+    span = lambda x: None if x is None else torch.tensor(x)  # noqa: E731
+    ok = tfa._allowed(q, q, span(kv_begin), span(kv_end), w, causal)
+    want = int(ok.expand(B, 1, T, T).sum())
+    got = tfa.visible_pairs(T, window, causal, kv_begin, kv_end)
+    if kv_begin is None and kv_end is None:
+        got *= B
+    assert got == want
+
+
+@pytest.mark.parametrize("T", [64, 320, 1024, 4096])
+def test_causal_pairs_closed_form(T):
+    """bench.py's attribution_flops counts T(T+1)/2 pairs a causal head."""
+    assert tfa.visible_pairs(T) == T * (T + 1) // 2
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                  "rope_rotate"])
+def test_work_counts_products_and_tensors(name):
+    B, H, Hkv, T, D = 2, 8, 2, 128, 64
+    flops, moved = tfa.work(name, B, H, Hkv, T, D, 2, rope=True)
+    q_bytes, kv_bytes, stat = B * H * T * D * 2, B * Hkv * T * D * 2, B * H * T * 4
+    tables = 2 * T * D * 2
+    if name == "rope_rotate":
+        assert (flops, moved) == (3 * B * H * T * D, 2 * q_bytes + tables)
+        return
+    products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[name]
+    assert flops == products * B * H * (T * (T + 1) // 2) * 2 * D
+    # inputs read once, outputs written once
+    tensors = {"flash_fwd": [q_bytes, kv_bytes, kv_bytes, q_bytes, stat],
+               "flash_bwd_dq": [q_bytes, kv_bytes, kv_bytes, q_bytes, stat, stat,
+                                q_bytes],
+               "flash_bwd_dkv": [q_bytes, kv_bytes, kv_bytes, q_bytes, stat, stat,
+                                 kv_bytes, kv_bytes]}[name]
+    assert moved == sum(tensors) + tables
+
+
+def test_work_at_the_two_paths_calls():
+    """The main path's and the 8B path's K1 calls: one product over the
+    causal pairs is 17.2 and 68.7 GFLOP, and K1 is bound by the tensor
+    cores (989 TFLOP/s bf16) rather than by its bytes (3.35 TB/s)."""
+    for (B, H, Hkv, T, D), gflop in (((8, 32, 4, 1024, 64), 17.2),
+                                     ((1, 32, 8, 4096, 128), 68.7)):
+        flops, moved = tfa.work("flash_fwd", B, H, Hkv, T, D, 2, rope=True)
+        assert np.isclose(flops / 2 / 1e9, gflop, rtol=2e-3)
+        assert flops / 989e12 > moved / 3.35e12

@@ -1,4 +1,5 @@
-"""K1/K2 and K3 against their plain PyTorch versions on the card.
+"""K1/K2, the rotation pass and K3 against their plain PyTorch versions on
+the card.
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. The machine
 with the card has no JAX, which tests/conftest.py imports, so run them
@@ -53,6 +54,146 @@ def test_kernels_match_plain_versions(D, dtype):
     for name, (got, want) in pairs.items():
         err = (got.float() - want.float()).abs().max().item()
         assert err <= _bound(want, dtype), (name, err)
+
+
+# the Hopper bodies of K1 and flash_bwd_dkv (bf16, head dim 64 and 128):
+# name -> (B, H, Hkv, T, D, options)
+HOPPER_CASES = {
+    # T 320: K1's last 128- (D 128) or 192-row (D 64) q tile is part full
+    "odd_tiles_T320_hd64": (2, 4, 2, 320, 64, {"rope": True}),
+    "odd_tiles_T320_hd128": (2, 4, 2, 320, 128, {"rope": True}),
+    "gqa_32_8_hd128_rope": (1, 32, 8, 256, 128, {"rope": True}),
+    # a window narrower than a tile, so it cuts across tiles
+    "window_across_tiles_hd64": (1, 4, 2, 512, 64, {"window": 40, "rope": True}),
+    "window_across_tiles_hd128": (1, 8, 2, 384, 128, {"window": 150}),
+    "kv_end_bidirectional_hd128": (2, 4, 2, 256, 128, {"kv_end": [256, 77],
+                                                       "causal": False}),
+    "kv_begin_hd64": (2, 8, 8, 256, 64, {"kv_begin": [0, 130], "rope": True}),
+}
+
+
+def _hopper_inputs(case, seed):
+    B, H, Hkv, T, D, opt = case
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = r(B, H, T, D), r(B, Hkv, T, D), r(B, Hkv, T, D), r(B, H, T, D)
+    cos = sin = None
+    if opt.get("rope"):
+        cos, sin = (t.cuda().to(torch.bfloat16).contiguous()
+                    for t in tcommon.rope_tables(torch.arange(T), D))
+
+    def span(key):
+        return None if key not in opt else torch.tensor(opt[key], dtype=torch.int32,
+                                                        device="cuda")
+
+    args = (cos, sin, span("kv_begin"), span("kv_end"), opt.get("window", T + 2**20),
+            D ** -0.5, opt.get("causal", True))
+    return q, k, v, do, args
+
+
+@pytest.mark.parametrize("name", sorted(HOPPER_CASES))
+def test_hopper_bodies_match_plain_versions(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, args = _hopper_inputs(HOPPER_CASES[name], seed=len(name))
+    out, lse = tfa.flash_fwd(q, k, v, *args)
+    ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, *args)
+    delta = (ref_out.float() * do.float()).sum(-1)
+    bwd = (q, k, v, do, ref_lse, delta, *args)
+    seen = ref_lse > -1e29
+    pairs = {"out": (out, ref_out),
+             "lse": (torch.where(seen, lse, 0.0), torch.where(seen, ref_lse, 0.0))}
+    pairs.update(zip(("dk", "dv"), zip(tfa.flash_bwd_dkv(*bwd),
+                                       tfa.flash_bwd_dkv_ref(*bwd))))
+    torch.cuda.synchronize()
+    assert torch.equal(lse <= -1e29, ~seen)
+    for key, (got, want) in pairs.items():
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _bound(want, torch.bfloat16), (key, err)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_hopper_bodies_read_strided_views(D):
+    """Head-split views of [B, T, heads * D] projections, as the model hands
+    them over (the tensor maps read their strides), give the same bits as
+    contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, H, Hkv, T = 2, 8, 2, 320
+    gen = torch.Generator("cuda").manual_seed(D + 1)
+
+    def proj(heads):
+        x = torch.randn(B, T, heads * D, generator=gen, device="cuda").to(torch.bfloat16)
+        return tcommon.split_heads(x, heads, D)
+
+    q, k, v, do = proj(H), proj(Hkv), proj(Hkv), proj(H)
+    cos, sin = (t.cuda().to(torch.bfloat16).contiguous()
+                for t in tcommon.rope_tables(torch.arange(T), D))
+    args = (cos, sin, None, None, T + 2**20, D ** -0.5, True)
+    dense = [t.contiguous() for t in (q, k, v, do)]
+    out, lse = tfa.flash_fwd(q, k, v, *args)
+    out_c, lse_c = tfa.flash_fwd(*dense[:3], *args)
+    delta = (out.float() * do.float()).sum(-1)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    dk_c, dv_c = tfa.flash_bwd_dkv(*dense, lse, delta, *args)
+    torch.cuda.synchronize()
+    assert not q.is_contiguous()
+    for got, want in ((out, out_c), (lse, lse_c), (dk, dk_c), (dv, dv_c)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_dkv_is_deterministic(D):
+    """The GQA sum runs inside one CTA in a fixed order: two launches give
+    bit-equal dk and dv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do, args = _hopper_inputs((2, 16, 2, 512, D, {"rope": True}), seed=D)
+    _, lse = tfa.flash_fwd_ref(q, k, v, *args)
+    delta = torch.randn(lse.shape, generator=torch.Generator("cuda").manual_seed(1),
+                        device="cuda")
+    bwd = (q, k, v, do, lse, delta, *args)
+    dk1, dv1 = tfa.flash_bwd_dkv(*bwd)
+    dk2, dv2 = tfa.flash_bwd_dkv(*bwd)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_rotation_pass_bit_equal_to_apply_rope(D, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(D)
+    T = 320
+    # a head-split view of a projection, as the model hands it over
+    x = torch.randn(2, T, 4 * D, generator=gen, device="cuda").to(dtype)
+    x = tcommon.split_heads(x, 4, D)
+    cos, sin = (t.cuda().to(dtype).contiguous()
+                for t in tcommon.rope_tables(torch.arange(T), D, theta=500000.0))
+    before = tfa.launches["rope_rotate"]
+    got = tfa.rope_rotate(x, cos, sin)
+    want = tcommon.apply_rope(x, x, cos, sin)[0]
+    torch.cuda.synchronize()
+    assert tfa.launches["rope_rotate"] == before + 1
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+def test_hopper_calls_rotate_once_per_call():
+    """K1 rotates k, and flash_bwd_dkv q, through one rotation pass each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do, args = _hopper_inputs((1, 8, 2, 256, 64, {"rope": True}), seed=3)
+    tfa.reset_launches()
+    out, lse = tfa.flash_fwd(q, k, v, *args)
+    tfa.flash_bwd_dkv(q, k, v, do, lse, (out.float() * do.float()).sum(-1), *args)
+    torch.cuda.synchronize()
+    assert tfa.launches == {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 1,
+                            "rope_rotate": 2}
 
 
 # K3 nf4 dequantization: the five Llama-3-8B projection shapes [K, N], a

@@ -112,12 +112,12 @@ def _setup(family):
         jcfg = jllama.LlamaConfig.from_hf(hf_cfg)
         tcfg = tllama.LlamaConfig.from_hf(hf_cfg)
         jparams = jllama.params_from_hf(sd, jcfg)
-        tparams = tllama.params_from_hf(sd, tcfg)
+        tparams = tllama.params_from_hf(sd, tcfg, device="cpu")
         return jcfg, jparams, tcfg, tparams
     jcfg = CONFIGS[family]
     jparams = _numpy_params(jcfg, sorted(CONFIGS).index(family))
     tcfg = tllama.LlamaConfig(**dataclasses.asdict(jcfg))
-    return jcfg, jparams, tcfg, params_from_numpy(jparams)
+    return jcfg, jparams, tcfg, params_from_numpy(jparams, device="cpu")
 
 
 def _jax_run(jcfg, jparams, ids, composite, **kw):

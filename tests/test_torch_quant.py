@@ -204,7 +204,7 @@ def test_quantize_params_selects_same_leaves(bits, family):
     params = _np_params(cfg, 0)
     want = jq.quantize_params(jax.tree.map(jnp.asarray, params), bits=bits,
                               family=family)
-    got = tq.quantize_params(params_from_numpy(params), bits=bits,
+    got = tq.quantize_params(params_from_numpy(params, device="cpu"), bits=bits,
                              family=family)
     assert _kinds(got) == _kinds(want)
     assert isinstance(got["layers"]["wq"], tq.QuantizedTensor)
@@ -287,7 +287,7 @@ def test_quantized_llama_attribution_matches_lxt_tpu(bits, remat):
         del params["layers"][k]
     jparams = jq.quantize_params(jax.tree.map(jnp.asarray, params), bits=bits,
                                  family="llama")
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     twq, jwq = tparams["layers"]["wq"], jparams["layers"]["wq"]
     assert isinstance(twq, tq.QuantizedTensor) and twq.bits == jwq.bits
     assert twq.q.dtype == {8: torch.int8}.get(bits, torch.uint8)

@@ -12,6 +12,7 @@ reader must match ``lxt_tpu.io.load_safetensors``.
 """
 
 import dataclasses
+import inspect
 import json
 
 import numpy as np
@@ -29,6 +30,7 @@ from lxt_tpu.models import registry as jreg
 from lxt_tpu.ops import quant as jq
 import lxt_tpu_torch
 from lxt_tpu_torch import io as tio
+from lxt_tpu_torch.convert import params_from_numpy
 from lxt_tpu_torch.models import llama as tllama
 from lxt_tpu_torch.models import registry as treg
 from lxt_tpu_torch.ops import quant as tq
@@ -98,7 +100,7 @@ def test_from_pretrained_matches_lxt_tpu(tmp_path, case):
     kind, bits = CHECKPOINTS[case]
     _write_checkpoint(tmp_path, kind)
     jm = jreg.from_pretrained(tmp_path, quantize_bits=bits)
-    tm = treg.from_pretrained(tmp_path, quantize_bits=bits)
+    tm = treg.from_pretrained(tmp_path, quantize_bits=bits, device="cpu")
     assert (tm.family, tm.composite) == (jm.family, lxt_tpu_torch.attnlrp)
     assert dataclasses.asdict(tm.cfg) == dataclasses.asdict(jm.cfg)
     want_bits = {"bnb_8bit": 8}.get(kind, bits or "nf4")
@@ -125,7 +127,7 @@ def test_from_pretrained_matches_lxt_tpu(tmp_path, case):
 
 def test_attribute_token_and_target_match_lxt_tpu(tmp_path):
     _write_checkpoint(tmp_path, "plain")
-    jm, tm = jreg.from_pretrained(tmp_path), treg.from_pretrained(tmp_path)
+    jm, tm = jreg.from_pretrained(tmp_path), treg.from_pretrained(tmp_path, device="cpu")
     ids = np.random.RandomState(2).randint(0, VOCAB, (2, 12))
     tok = np.asarray([5, 7])
     _, want = jm.attribute(ids, token=tok, position=4, composite="cp_lrp")
@@ -140,7 +142,7 @@ def test_attribute_token_and_target_match_lxt_tpu(tmp_path):
 
 def test_from_hf_matches_lxt_tpu():
     hf = _hf_llama(seed=3)
-    jm, tm = lxt_tpu.from_hf(hf), lxt_tpu_torch.from_hf(hf)
+    jm, tm = lxt_tpu.from_hf(hf), lxt_tpu_torch.from_hf(hf, device="cpu")
     assert tm.family == "llama"
     ids = np.random.RandomState(4).randint(0, VOCAB, (1, 10))
     assert _nl2(tm.logits(ids).numpy(), jm.logits(ids)) <= BAR
@@ -151,9 +153,9 @@ def test_unsupported_family_lists_the_ported_ones(tmp_path):
     (tmp_path / "config.json").write_text(json.dumps({"model_type": "gemma3"}))
     save_file({"x": np.zeros(2, np.float32)}, str(tmp_path / "model.safetensors"))
     with pytest.raises(ValueError, match="llama, qwen2, qwen3, mistral, phi3"):
-        treg.from_pretrained(tmp_path)
+        treg.from_pretrained(tmp_path, device="cpu")
     with pytest.raises(ValueError, match="family="):
-        treg.from_pretrained(tmp_path, family="gpt2")
+        treg.from_pretrained(tmp_path, family="gpt2", device="cpu")
 
 
 def test_llama_clone_detected_structurally(tmp_path):
@@ -163,7 +165,7 @@ def test_llama_clone_detected_structurally(tmp_path):
     cfg["model_type"] = "llama_clone"
     (tmp_path / "config.json").write_text(json.dumps(cfg))
     with pytest.warns(UserWarning, match="converting as 'llama'"):
-        model = treg.from_pretrained(tmp_path)
+        model = treg.from_pretrained(tmp_path, device="cpu")
     assert model.family == "llama"
 
 
@@ -250,7 +252,34 @@ def test_load_checkpoint_params_matches_from_hf(tmp_path):
     cfg = tllama.LlamaConfig.from_hf(hf.config)
     params = tio.load_checkpoint_params(tmp_path, cfg,
                                         tllama.params_from_hf)
-    want = lxt_tpu_torch.from_hf(hf).params
+    want = lxt_tpu_torch.from_hf(hf, device="cpu").params
     for name in ("wq", "wd", "ln1"):
         assert torch.equal(params["layers"][name], want["layers"][name])
     assert torch.equal(params["embed"], want["embed"])
+
+
+@pytest.mark.parametrize("name", ["from_pretrained", "from_hf", "params_from_hf",
+                                  "params_from_numpy"])
+def test_entry_points_default_to_the_card(tmp_path, name):
+    """The port's four loading entry points put parameters on the card
+    unless the caller asks for the CPU: without a card a default call
+    raises rather than returning CPU tensors."""
+    fn = {"from_pretrained": treg.from_pretrained, "from_hf": treg.from_hf,
+          "params_from_hf": tllama.params_from_hf,
+          "params_from_numpy": params_from_numpy}[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    hf = _hf_llama(seed=9)
+    if name == "from_pretrained":
+        hf.save_pretrained(tmp_path)
+        call = lambda: fn(tmp_path).params  # noqa: E731
+    elif name == "from_hf":
+        call = lambda: fn(hf).params  # noqa: E731
+    elif name == "params_from_hf":
+        call = lambda: fn(hf.state_dict(), tllama.LlamaConfig.from_hf(hf.config))  # noqa: E731
+    else:
+        call = lambda: fn({"embed": np.ones((2, 3), np.float32)})  # noqa: E731
+    if torch.cuda.is_available():
+        assert call()["embed"].is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
