@@ -12,8 +12,9 @@ through the kernels.
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
   2. the kernel build (nvcc, into lxt_tpu_torch/_build/);
-  3. K1 flash_fwd, K2 flash_bwd_dq / flash_bwd_dkv and the RoPE rotation
-     pass against their plain versions (the pass bit-exact), bf16 and
+  3. K1 flash_fwd, K2 flash_bwd_dq (dq and the delta it computes inside) /
+     flash_bwd_dkv and the RoPE rotation pass against their plain versions
+     (the pass bit-exact, delta within 1e-5 normalized L2), bf16 and
      float32, over the mask regimes, T 320 (a part-full last q tile) and
      both paths' calls; then at the main path's call (B8 H32/4 T1024 D64)
      and the NF4 8B path's (B1 H32/8 T4096 D128), bf16, causal, rope: each
@@ -21,7 +22,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      its roofline bound (fa.work: FLOPs over 989 TFLOP/s or bytes over
      3.35 TB/s, the larger) and the library's time for the same attention
      (scaled_dot_product_attention under its flash and cuDNN backends, the
-     faster kept; its backward against dq + dkv + the delta pass);
+     faster kept; its backward against dq (delta inside) + dkv); as
+     controls, flash_bwd_dq's mma.sync body and the separate delta pass
+     that the backward no longer runs;
   4. K3 nf4_dequant against its plain version, bit-exact, bf16 and float32,
      over the Llama-3-8B projection shapes and ragged ones; times at the
      wg [4096, 14336] and wd [14336, 4096] shapes;
@@ -34,7 +37,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the peak device memory;
   7. the NF4 path at Llama-3-8B width and depth (32 layers, bf16, batch
      1 x 4096, remat): three attributions (heatmaps/s, launches per
-     attribution of K1, K2, the rotation pass and K3 against 64 / 32 / 96 /
+     attribution of K1, K2, the rotation pass and K3 against 64 / 32 / 128 /
      640, finite relevance, peak memory), then the
      dense control with every projection plainly dequantized to bf16
      (heatmaps/s, normalized L2 of its relevance against the NF4 run <= 1e-3);
@@ -63,6 +66,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEQ, SERVE_BATCH, REQUESTS = 1024, 8, 3
 PARITY_BAR, DIVERGENCE_BAR = 1e-4, 0.1
+# flash_bwd_dq's delta against the plain version's, normalized L2: the same
+# float32 products summed in another order
+DELTA_BAR = 1e-5
 # TinyLlama-1.1B geometry, full depth
 MODEL = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
              num_layers=22, num_heads=32, num_kv_heads=4, rms_eps=1e-5)
@@ -216,22 +222,25 @@ def kernel_inputs(case, dtype, seed):
 
 def compare_kernels(case, dtype, seed):
     """Each kernel and its plain version on the same inputs: returns
-    {output: (max_abs_err, bound)}; the backward kernels get the plain
-    forward's lse and delta, so each is held alone."""
+    {output: (error, bound, max_abs_err)}, the error being the max abs
+    error except for delta (normalized L2); the backward kernels get the
+    plain forward's out and lse and flash_bwd_dkv the plain delta, so each
+    is held alone."""
     import torch
     from lxt_tpu_torch.ops import flash_attention as fa
     a, r = (0.01, 0.01171875) if dtype == torch.bfloat16 else (1e-4, 1e-4)
     (q, k, v, do), extra = kernel_inputs(case, dtype, seed)
     out, lse = fa.flash_fwd(q, k, v, *extra)
     ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, *extra)
-    delta = (ref_out.float() * do.float()).sum(-1)
-    bwd = (q, k, v, do, ref_lse, delta, *extra)
+    dq_args = (q, k, v, do, ref_out, ref_lse, *extra)
+    want_dq, want_delta = fa.flash_bwd_dq_ref(*dq_args)
+    bwd = (q, k, v, do, ref_lse, want_delta, *extra)
     seen = ref_lse > -1e29
-    got = {"out": out, "lse": torch.where(seen, lse, 0.0),
-           "dq": fa.flash_bwd_dq(*bwd)}
+    got = {"out": out, "lse": torch.where(seen, lse, 0.0)}
+    got["dq"], got["delta"] = fa.flash_bwd_dq(*dq_args)
     got["dk"], got["dv"] = fa.flash_bwd_dkv(*bwd)
     want = {"out": ref_out, "lse": torch.where(seen, ref_lse, 0.0),
-            "dq": fa.flash_bwd_dq_ref(*bwd)}
+            "dq": want_dq, "delta": want_delta}
     want["dk"], want["dv"] = fa.flash_bwd_dkv_ref(*bwd)
     cos, sin = extra[:2]
     if cos is not None:  # the rotation pass, bit-exact: bound 0
@@ -244,7 +253,11 @@ def compare_kernels(case, dtype, seed):
     for name in got:
         w = want[name].float()
         err = (got[name].float() - w).abs().max().item()
-        res[name] = (err, 0.0 if name == "rope" else a + r * w.abs().max().item())
+        if name == "delta":
+            res[name] = (nl2(got[name], w), DELTA_BAR, err)
+        else:
+            res[name] = (err, 0.0 if name == "rope" else a + r * w.abs().max().item(),
+                         err)
     return res
 
 
@@ -309,20 +322,22 @@ def sdpa_yardstick(q, k, v, do, cos, sin, scale):
 def time_call(call, card):
     """Each flash kernel and the rotation pass at one of the two paths'
     calls: kernel and plain times (plain, kernel, kernel, plain), bound and
-    the library's time; and the Δ pass of the backward."""
+    the library's time; and two controls: flash_bwd_dq's mma.sync body and
+    the separate delta pass, which the backward no longer runs."""
     import torch
     from lxt_tpu_torch.ops import flash_attention as fa
     case = CALLS[call]
     (q, k, v, do), extra = kernel_inputs(case, torch.bfloat16, seed=99)
     cos, sin, scale = extra[0], extra[1], extra[5]
     out, lse = fa.flash_fwd(q, k, v, *extra)
-    delta = (out.float() * do.float()).sum(-1)
+    dq_args = (q, k, v, do, out, lse, *extra)
+    _, delta = fa.flash_bwd_dq(*dq_args)
     bwd = (q, k, v, do, lse, delta, *extra)
     timed = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *extra),
                       lambda: fa.flash_fwd_ref(q, k, v, *extra)),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*bwd),
-                         lambda: fa.flash_bwd_dq_ref(*bwd)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*dq_args),
+                         lambda: fa.flash_bwd_dq_ref(*dq_args)),
         "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
                           lambda: fa.flash_bwd_dkv_ref(*bwd)),
         "rope_rotate": (lambda: fa.rope_rotate(q, cos, sin),
@@ -351,13 +366,20 @@ def time_call(call, card):
               f"{b_ms / r['ms']:.1%} of it), library "
               + (f"{lib_ms:.4f} ms ({lib_name})" if lib_ms else "none")
               + f" [{card}]", flush=True)
+    mma_ms = graph_ms(lambda: fa.flash_bwd_dq_mma(*dq_args))
     delta_ms = graph_ms(lambda: (out.float() * do.float()).sum(-1))
-    pair = res["flash_bwd_dq"]["ms"] + res["flash_bwd_dkv"]["ms"] + delta_ms
+    dq_ms = res["flash_bwd_dq"]["ms"]
+    print(f"controls at {CALL_NAMES[call]}: flash_bwd_dq's mma.sync body "
+          f"(q and k rotated in the kernel, delta inside) {mma_ms:.4f} ms "
+          f"against its Hopper body {dq_ms:.4f} ms ({mma_ms / dq_ms:.2f}x); "
+          f"the separate delta pass the backward no longer runs "
+          f"{delta_ms:.4f} ms [{card}]", flush=True)
+    pair = dq_ms + res["flash_bwd_dkv"]["ms"]
     print(f"library at {CALL_NAMES[call]}: " + "; ".join(lib_lines), flush=True)
     if "bwd" in lib and "fwd" in lib:
         print(f"against the library at {CALL_NAMES[call]}: K1 "
               f"{res['flash_fwd']['ms'] / lib['fwd'][0]:.2f}x its forward; the K2 "
-              f"pair + delta pass ({delta_ms:.4f} ms) {pair:.4f} ms, "
+              f"pair (delta inside flash_bwd_dq) {pair:.4f} ms, "
               f"{pair / lib['bwd'][0]:.2f}x its backward [{card}]", flush=True)
     return res
 
@@ -368,26 +390,27 @@ def phase_kernels(card):
     for dtype in (torch.bfloat16, torch.float32):
         for i, (name, case) in enumerate(CASES.items()):
             res = compare_kernels(case, dtype, seed=i)
-            ok = all(err <= bound for err, bound in res.values())
+            ok = all(err <= bound for err, bound, _ in res.values())
             if not ok:
                 failures.append(f"kernel case {name} {dtype}")
             print(f"kernel case {str(dtype)[6:]:8s} {name:22s} " + " ".join(
-                f"{k} {e:.3g}/{b:.3g}" for k, (e, b) in res.items())
+                f"{k} {e:.3g}/{b:.3g}" for k, (e, b, _) in res.items())
                 + (" PASS" if ok else " FAIL"), flush=True)
     errs = {}
     for call, case in CALLS.items():
         res = compare_kernels(case, torch.bfloat16, seed=99)
-        ok = all(err <= bound for err, bound in res.values())
+        ok = all(err <= bound for err, bound, _ in res.values())
         if not ok:
             failures.append(f"kernel case {call} call")
         print(f"kernel case bfloat16 {call} call {CALL_NAMES[call]} rope " + " ".join(
-            f"{k} {e:.3g}/{b:.3g}" for k, (e, b) in res.items())
+            f"{k} {e:.3g}/{b:.3g}" for k, (e, b, _) in res.items())
             + (" PASS" if ok else " FAIL"), flush=True)
         if call == "main":
-            errs = {"flash_fwd": max(res["out"][0], res["lse"][0]),
-                    "flash_bwd_dq": res["dq"][0],
-                    "flash_bwd_dkv": max(res["dk"][0], res["dv"][0]),
-                    "rope_rotate": res["rope"][0]}
+            abs_err = {k: m for k, (_, _, m) in res.items()}
+            errs = {"flash_fwd": max(abs_err["out"], abs_err["lse"]),
+                    "flash_bwd_dq": max(abs_err["dq"], abs_err["delta"]),
+                    "flash_bwd_dkv": max(abs_err["dk"], abs_err["dv"]),
+                    "rope_rotate": abs_err["rope"]}
     timing = {call: time_call(call, card) for call in CALLS}
     return failures, errs, timing
 
@@ -413,10 +436,10 @@ def expected_launches(L, hopper, remat):
     """Flash launches per attribution: K1 once a layer (twice with remat,
     whose recompute runs the forward again) and each K2 half once; on the
     Hopper bodies (bf16, head dim 64 and 128) the rotation pass rotates k
-    before each K1 and q before each flash_bwd_dkv."""
+    before each K1 and each flash_bwd_dq, and q before each flash_bwd_dkv."""
     fwd = 2 * L if remat else L
     return {"flash_fwd": fwd, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "rope_rotate": fwd + L if hopper else 0}
+            "rope_rotate": fwd + 2 * L if hopper else 0}
 
 
 def phase_parity(card):

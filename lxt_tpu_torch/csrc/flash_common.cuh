@@ -34,16 +34,17 @@ struct FlashArgs {
   const void* k;
   const void* v;
   const void* dout;
+  const void* out;       // the forward's out (bwd_dq reads it for Δ)
   const float* lse;
-  const float* delta;
+  const float* delta;    // Δ = rowsum(out∘do) (bwd_dkv)
   const void* cos;       // [T, D] rope tables in the activation dtype
   const void* sin;
   const int* kv_begin;   // [B] or null
   const int* kv_end;     // [B] or null
   void* out0;            // out (fwd), dq (bwd_dq), dk (bwd_dkv)
   void* out1;            // dv (bwd_dkv)
-  float* lse_out;        // [B, H, T] (fwd)
-  long long sq[3], sk[3], sv[3], sdo[3], so0[3], so1[3];
+  float* lse_out;        // [B, H, T]: lse (fwd), Δ (bwd_dq)
+  long long sq[3], sk[3], sv[3], sdo[3], sout[3], so0[3], so1[3];
   int B, H, Hkv, T, window, causal;
   float scale, scale_log2;  // scale, and scale * log2(e)
 };
@@ -313,6 +314,36 @@ __device__ __forceinline__ float row_max(float x) {
 __device__ __forceinline__ float row_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float2 to_f2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 to_f2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Δ = rowsum(out∘do) of the two rows a lane's accumulator fragments hold
+// (r0 and r0 + 8), as lxt_tpu's inline_delta computes it in the backward
+// kernel: each lane multiplies out and do in fp32 at its own columns
+// (8j + 2t and + 1) and the quad sums. `out` and `dout` point at row 0 of
+// the head; row strides in elements. All lanes of the warp take part.
+template <typename T, int D>
+__device__ __forceinline__ void row_delta(const T* out, long long so, const T* dout,
+                                          long long sdo, int r0, float (&delta)[2]) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const T* o = out + (long long)(r0 + 8 * r) * so + 2 * t;
+    const T* d = dout + (long long)(r0 + 8 * r) * sdo + 2 * t;
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float2 x = to_f2(o + 8 * j), y = to_f2(d + 8 * j);
+      acc += x.x * y.x + x.y * y.y;
+    }
+    delta[r] = row_sum(acc);
+  }
 }
 
 // Set the kernel's dynamic shared memory and launch it on `stream`;

@@ -431,8 +431,9 @@ cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
 
 }  // namespace lxt
 
-// 1 when (dtype, head_dim) runs a Hopper body: K1 then reads k rotated by
-// the rotation pass, and flash_bwd_dkv reads q rotated by it.
+// 1 when (dtype, head_dim) runs the Hopper bodies of K1 and of both K2
+// kernels: K1 and flash_bwd_dq then read k rotated by the rotation pass,
+// and flash_bwd_dkv reads q rotated by it.
 extern "C" int lxt_flash_hopper(int dtype, int head_dim) {
   return dtype == 1 && (head_dim == 64 || head_dim == 128);
 }

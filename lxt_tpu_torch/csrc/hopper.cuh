@@ -1,7 +1,8 @@
-// Hopper building blocks of the redesigned K1 and flash_bwd_dkv bodies
-// (flash_fwd.cu, flash_bwd.cu), as inline PTX for sm_90a: mbarriers, TMA
-// tensor loads into 128-byte swizzled tiles, the wgmma warpgroup product
-// with its shared-memory descriptors, and the host-side tensor maps.
+// Hopper building blocks of the redesigned K1, flash_bwd_dq and
+// flash_bwd_dkv bodies (flash_fwd.cu, flash_bwd.cu), as inline PTX for
+// sm_90a: mbarriers, TMA tensor loads into 128-byte swizzled tiles, the
+// wgmma warpgroup product with its shared-memory descriptors, and the
+// host-side tensor maps.
 //
 // Tile layout in shared memory: a [rows, D] bf16 tile is stored as D / 64
 // panels of [rows, 64], one 128-byte row per token, each panel swizzled as
@@ -250,38 +251,90 @@ __device__ __forceinline__ int swizzled(int r, int c, int panel_bytes) {
 
 // RoPE on ROWS rows of a swizzled bf16 tile in place, row r at position
 // pos0 + r, shared by NTHREADS threads (tid). The rounding of rope_tile and
-// the rotation pass (rope_vec), so the result is identical. Every table
-// load of the thread is issued before the first rotation, so the tile pays
-// one global-memory latency, not one per row it rotates.
+// the rotation pass (rope_vec), so the result is identical. load() issues
+// every table load of the thread before apply() rotates, so the tile pays
+// one global-memory latency, not one per row it rotates; a caller may
+// load() before its tile has arrived.
+template <int D, int ROWS, int NTHREADS>
+struct RopeChunks {
+  static constexpr int kHalf = D / 2, kChunks = kHalf / 8;
+  static constexpr int kIters = ROWS * kChunks / NTHREADS;
+  static_assert(ROWS * kChunks % NTHREADS == 0, "whole chunks per thread");
+  uint4 c1[kIters], c2[kIters], s1[kIters], s2[kIters];
+
+  __device__ __forceinline__ void load(const bf16* cos, const bf16* sin, int pos0, int tid) {
+#pragma unroll
+    for (int k = 0; k < kIters; ++k) {
+      const int i = tid + k * NTHREADS, r = i / kChunks, c = (i % kChunks) * 8;
+      const uint4* cr = reinterpret_cast<const uint4*>(cos + (long long)(pos0 + r) * D);
+      const uint4* sr = reinterpret_cast<const uint4*>(sin + (long long)(pos0 + r) * D);
+      c1[k] = __ldg(cr + c / 8);
+      c2[k] = __ldg(cr + (c + kHalf) / 8);
+      s1[k] = __ldg(sr + c / 8);
+      s2[k] = __ldg(sr + (c + kHalf) / 8);
+    }
+  }
+  __device__ __forceinline__ void apply(unsigned char* tile, int panel_bytes, int tid) const {
+#pragma unroll
+    for (int k = 0; k < kIters; ++k) {
+      const int i = tid + k * NTHREADS, r = i / kChunks, c = (i % kChunks) * 8;
+      uint4* p1 = reinterpret_cast<uint4*>(tile + swizzled(r, c, panel_bytes));
+      uint4* p2 = reinterpret_cast<uint4*>(tile + swizzled(r, c + kHalf, panel_bytes));
+      uint4 x1 = *p1, x2 = *p2;
+      rope_vec<bf16>(x1, x2, c1[k], c2[k], s1[k], s2[k]);
+      *p1 = x1;
+      *p2 = x2;
+    }
+  }
+};
+
 template <int D, int ROWS, int NTHREADS>
 __device__ __forceinline__ void rope_swizzled(unsigned char* tile, int panel_bytes,
                                               const bf16* cos, const bf16* sin, int pos0,
                                               int tid) {
-  constexpr int kHalf = D / 2, kChunks = kHalf / 8;
-  constexpr int kIters = ROWS * kChunks / NTHREADS;
-  static_assert(ROWS * kChunks % NTHREADS == 0, "whole chunks per thread");
-  uint4 c1[kIters], c2[kIters], s1[kIters], s2[kIters];
-#pragma unroll
-  for (int k = 0; k < kIters; ++k) {
-    const int i = tid + k * NTHREADS, r = i / kChunks, c = (i % kChunks) * 8;
-    const uint4* cr = reinterpret_cast<const uint4*>(cos + (long long)(pos0 + r) * D);
-    const uint4* sr = reinterpret_cast<const uint4*>(sin + (long long)(pos0 + r) * D);
-    c1[k] = __ldg(cr + c / 8);
-    c2[k] = __ldg(cr + (c + kHalf) / 8);
-    s1[k] = __ldg(sr + c / 8);
-    s2[k] = __ldg(sr + (c + kHalf) / 8);
-  }
-#pragma unroll
-  for (int k = 0; k < kIters; ++k) {
-    const int i = tid + k * NTHREADS, r = i / kChunks, c = (i % kChunks) * 8;
-    uint4* p1 = reinterpret_cast<uint4*>(tile + swizzled(r, c, panel_bytes));
-    uint4* p2 = reinterpret_cast<uint4*>(tile + swizzled(r, c + kHalf, panel_bytes));
-    uint4 x1 = *p1, x2 = *p2;
-    rope_vec<bf16>(x1, x2, c1[k], c2[k], s1[k], s2[k]);
-    *p1 = x1;
-    *p2 = x2;
-  }
+  RopeChunks<D, ROWS, NTHREADS> tab;
+  tab.load(cos, sin, pos0, tid);
+  tab.apply(tile, panel_bytes, tid);
 }
+
+// The tables of rope_transpose (flash_common.cuh) at a lane's accumulator
+// fragments of a 16 x D strip (rows row0 and row0 + 8, columns 8j + 2t and
+// + 1 of each half), held in registers: load<0>() and load<1>() them ahead
+// so that their latency overlaps a product, then apply() the transposed
+// rotation. The same arithmetic as rope_transpose.
+template <int D>
+struct RopeFrags {
+  __nv_bfloat162 c1[2][D / 16], c2[2][D / 16], s1[2][D / 16], s2[2][D / 16];
+
+  // the tables at the first (HALF 0) or the second half's columns
+  template <int HALF>
+  __device__ __forceinline__ void load(const bf16* cos, const bf16* sin, int row0) {
+    const int t = threadIdx.x % 4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int nt = 0; nt < D / 16; ++nt) {
+        const long long at = (long long)(row0 + 8 * r) * D + nt * 8 + 2 * t + HALF * D / 2;
+        (HALF ? c2 : c1)[r][nt] = *reinterpret_cast<const __nv_bfloat162*>(cos + at);
+        (HALF ? s2 : s1)[r][nt] = *reinterpret_cast<const __nv_bfloat162*>(sin + at);
+      }
+  }
+  __device__ __forceinline__ void apply(float (&acc)[D / 8][4]) const {
+#pragma unroll
+    for (int nt = 0; nt < D / 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const float2 ca = __bfloat1622float2(c1[r][nt]), cb = __bfloat1622float2(c2[r][nt]);
+        const float2 sa = __bfloat1622float2(s1[r][nt]), sb = __bfloat1622float2(s2[r][nt]);
+        const float cos1 = e & 1 ? ca.y : ca.x, cos2 = e & 1 ? cb.y : cb.x;
+        const float sin1 = e & 1 ? sa.y : sa.x, sin2 = e & 1 ? sb.y : sb.x;
+        const float x1 = acc[nt][e], x2 = acc[nt + D / 16][e];
+        acc[nt][e] = x1 * cos1 + x2 * sin2;
+        acc[nt + D / 16][e] = x2 * cos2 - x1 * sin1;
+      }
+  }
+};
 
 // ---- host: tensor maps --------------------------------------------------------
 

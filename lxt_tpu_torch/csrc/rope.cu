@@ -7,7 +7,8 @@
 // models/common.apply_rope do, so the result is bit-identical to both.
 // K1's Hopper body reads k rotated once per call from this pass instead of
 // rotating every k tile in each of the up to H/Hkv * T/128 CTAs that read
-// it; flash_bwd_dkv's Hopper body reads q rotated by it.
+// it; flash_bwd_dq's Hopper body reads k, and flash_bwd_dkv's q, rotated
+// by it.
 //
 // What bounds it: it moves 2 bytes in and out per element plus the tables
 // and does three FLOPs an element, so device memory (3.35 TB/s) is the

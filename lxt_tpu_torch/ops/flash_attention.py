@@ -10,9 +10,11 @@ kernels compute standard flash attention and its standard backward:
   gradients from p = exp(s − lse) and Δ = rowsum(out∘do);
 - ``rope_rotate`` (``csrc/rope.cu``): the RoPE rotation pass of one tensor.
 
-K1 and ``flash_bwd_dkv`` have a Hopper body (wgmma, TMA, warp-specialised)
-for bf16 at head dim 64 and 128; float32, head dim 256 and ``flash_bwd_dq``
-run the mma.sync body. The body is picked by (dtype, head dim) alone.
+K1, ``flash_bwd_dq`` and ``flash_bwd_dkv`` have a Hopper body (wgmma, TMA,
+warp-specialised) for bf16 at head dim 64 and 128; float32 and head dim 256
+run the mma.sync bodies. The body is picked by (dtype, head dim) alone.
+``flash_bwd_dq`` also computes Δ of its rows from the forward's out and
+writes it out for ``flash_bwd_dkv``: the backward runs no separate Δ pass.
 
 Layout: q ``[B, H, T, D]``, k/v ``[B, Hkv, T, D]`` with ``Hkv`` dividing
 ``H``; the kernels read the batch, head and time strides (the last dim must
@@ -21,9 +23,9 @@ in global positions: ``causal``, a sliding ``window`` (``k > q − window``),
 and per-example ``kv_begin``/``kv_end`` [B] valid-key spans. Query rows with
 no visible key give out 0 and lse −1e30. Optional ``rope`` ``(cos, sin)``
 [T, D] tables rotate q and k (HF rotate-half, in the activation dtype):
-inside the kernels, except that the Hopper bodies read k (K1) and q
-(``flash_bwd_dkv``) rotated once per call by ``rope_rotate``; the
-transposed rotation is applied to dq and dk.
+inside the kernels, except that the Hopper bodies read k (K1,
+``flash_bwd_dq``) and q (``flash_bwd_dkv``) rotated once per call by
+``rope_rotate``; the transposed rotation is applied to dq and dk.
 
 Every kernel wrapper takes its plain version for CPU tensors (the tests);
 for a CUDA tensor it launches the kernel or raises. ``launches`` counts the
@@ -153,7 +155,7 @@ def work(name, B, H, Hkv, T, D, itemsize=2, *, window=None, causal=True,
         pairs *= B
     flops = PRODUCTS[name] * pairs * H * 2 * D
     moved = {"flash_fwd": 2 * act + 2 * kv + stat,
-             "flash_bwd_dq": 3 * act + 2 * kv + 2 * stat,
+             "flash_bwd_dq": 4 * act + 2 * kv + 2 * stat,
              "flash_bwd_dkv": 2 * act + 4 * kv + 2 * stat}[name]
     return flops, moved + tables
 
@@ -204,15 +206,17 @@ def _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale, causal):
     return qf, kf, p
 
 
-def flash_bwd_dq_ref(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
+def flash_bwd_dq_ref(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end,
                      window, scale, causal):
-    """Plain version of ``flash_bwd_dq``: dq = (p∘(do vᵀ − Δ)) k · scale."""
+    """Plain version of ``flash_bwd_dq``: Δ = rowsum(out∘do) and dq =
+    (p∘(do vᵀ − Δ)) k · scale; returns (dq, Δ float32 [B, H, T])."""
+    delta = (out.float() * do.float()).sum(-1)
     _, kf, p = _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale,
                       causal)
     vf = repeat_kv(v.float(), q.shape[1] // k.shape[1])
     ds = p * (torch.matmul(do.float(), vf.transpose(-1, -2)) - delta[..., None])
     dq = torch.matmul(ds, kf) * scale
-    return _rope_transpose(dq, cos, sin).to(q.dtype)
+    return _rope_transpose(dq, cos, sin).to(q.dtype), delta
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
@@ -241,9 +245,9 @@ class _FlashArgs(ctypes.Structure):
     """Mirror of ``struct FlashArgs`` in ``csrc/flash_common.cuh``."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
-            "q", "k", "v", "dout", "lse", "delta", "cos", "sin",
+            "q", "k", "v", "dout", "out", "lse", "delta", "cos", "sin",
             "kv_begin", "kv_end", "out0", "out1", "lse_out")]
-        + [(f"stride{i}", ctypes.c_longlong) for i in range(18)]
+        + [(f"stride{i}", ctypes.c_longlong) for i in range(21)]
         + [(n, ctypes.c_int) for n in (
             "B", "H", "Hkv", "T", "window", "causal")]
         + [(n, ctypes.c_float) for n in ("scale", "scale_log2")])
@@ -260,7 +264,7 @@ def _library():
     if _lib is None:
         from lxt_tpu_torch.ops import _build
         lib = _build.library()
-        for sym in _ENTRY.values():
+        for sym in (*_ENTRY.values(), "lxt_flash_bwd_dq_mma"):
             fn = getattr(lib, sym)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
@@ -296,17 +300,19 @@ def _stat(t):
 
 def _hopper(q):
     """Whether a CUDA call of this dtype and head dim runs the Hopper bodies
-    of K1 and ``flash_bwd_dkv`` (``lxt_flash_hopper`` in csrc/flash_fwd.cu
-    decides): they read k (K1) and q (``flash_bwd_dkv``) rotated by the
-    rotation pass instead of rotating them in the kernel."""
+    of K1, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``lxt_flash_hopper`` in
+    csrc/flash_fwd.cu decides): they read k (K1, ``flash_bwd_dq``) and q
+    (``flash_bwd_dkv``) rotated by the rotation pass instead of rotating
+    them in the kernel."""
     code = _DTYPE_CODE.get(q.dtype)
     return code is not None and bool(_library().lxt_flash_hopper(code, q.shape[-1]))
 
 
-def _launch(name, q, k, v, *, dout=None, lse=None, delta=None, cos=None,
-            sin=None, kv_begin=None, kv_end=None, outs=(), lse_out=None,
-            window, scale, causal):
-    """Check the arguments and launch kernel ``name`` on the current stream."""
+def _launch(name, q, k, v, *, dout=None, fwd_out=None, lse=None, delta=None,
+            cos=None, sin=None, kv_begin=None, kv_end=None, outs=(),
+            lse_out=None, window, scale, causal, entry=None):
+    """Check the arguments and launch kernel ``name`` on the current stream
+    (through the library's ``entry``, by default the kernel's own)."""
     if not q.is_cuda:
         raise ValueError(f"{name}: expected CUDA tensors, got {q.device}")
     B, H, T, D = q.shape
@@ -316,12 +322,13 @@ def _launch(name, q, k, v, *, dout=None, lse=None, delta=None, cos=None,
                          f"(bfloat16 or float32)")
     if D not in NATIVE_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not in {NATIVE_HEAD_DIMS}")
+    acts = [t for t in (q, k, v, dout, fwd_out) if t is not None]
     if (T % TILE or H % Hkv or tuple(k.shape) != (B, Hkv, T, D)
-            or v.shape != k.shape or (dout is not None and dout.shape != q.shape)):
+            or v.shape != k.shape
+            or any(t.shape != q.shape for t in acts[3:])):
         raise ValueError(f"{name}: needs k, v [B, Hkv, T, D] with Hkv dividing "
                          f"H and T % {TILE} == 0; got q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    acts = [q, k, v] + ([dout] if dout is not None else [])
     # (tensor, dtype, shape) of every other input the kernel reads densely
     dense = [(lse, torch.float32, (B, H, T)), (delta, torch.float32, (B, H, T)),
              (cos, q.dtype, (T, D)), (sin, q.dtype, (T, D)),
@@ -342,21 +349,21 @@ def _launch(name, q, k, v, *, dout=None, lse=None, delta=None, cos=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    strided = acts + [None] * (4 - len(acts)) + list(outs) + [None] * (2 - len(outs))
+    strided = [q, k, v, dout, fwd_out, *outs] + [None] * (2 - len(outs))
     strides = []
     for t in strided:
         strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
     args = _FlashArgs(
-        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta), ptr(cos),
-        ptr(sin), ptr(kv_begin), ptr(kv_end),
+        ptr(q), ptr(k), ptr(v), ptr(dout), ptr(fwd_out), ptr(lse), ptr(delta),
+        ptr(cos), ptr(sin), ptr(kv_begin), ptr(kv_end),
         ptr(outs[0]) if outs else None, ptr(outs[1]) if len(outs) > 1 else None,
         ptr(lse_out), *strides, B, H, Hkv, T, window, int(causal), scale,
         scale * LOG2E)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, _ENTRY[name])(ctypes.addressof(args),
-                                         _DTYPE_CODE[q.dtype], D, stream)
+        err = getattr(lib, entry or _ENTRY[name])(
+            ctypes.addressof(args), _DTYPE_CODE[q.dtype], D, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launches[name] += 1
@@ -371,8 +378,9 @@ def rope_rotate_ref(x, cos, sin):
 def rope_rotate(x, cos, sin):
     """The RoPE rotation pass (``csrc/rope.cu``): x rotated by the [T, D]
     tables in x's dtype, into a new contiguous tensor, bit-identical to
-    :func:`rope_rotate_ref`. The Hopper bodies of K1 and ``flash_bwd_dkv``
-    read k (K1) and q (``flash_bwd_dkv``) rotated once per call by it."""
+    :func:`rope_rotate_ref`. The Hopper bodies read k (K1,
+    ``flash_bwd_dq``) and q (``flash_bwd_dkv``) rotated once per call by
+    it."""
     if x.device.type == "cpu":
         return rope_rotate_ref(x, cos, sin)
     if not x.is_cuda:
@@ -418,19 +426,43 @@ def flash_fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal):
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
+def flash_bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
                  scale, causal):
-    """K2, dq half: one CTA per (b, h, q tile), looping over kv tiles."""
+    """K2, dq half: one CTA per (b, h, q tile), looping over kv tiles. Also
+    computes Δ = rowsum(out∘do) of its rows from the forward's ``out``;
+    returns (dq, Δ float32 [B, H, T]). On the Hopper body (bf16, head dim
+    64 or 128) with rope, k is rotated first by :func:`rope_rotate`; q is
+    rotated inside the kernel."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_ref(q, k, v, do, lse, delta, cos, sin, kv_begin,
+        return flash_bwd_dq_ref(q, k, v, do, out, lse, cos, sin, kv_begin,
                                 kv_end, window, scale, causal)
-    q, k, v, do = (_prepared(t) for t in (q, k, v, do))
+    q, k, v, do, out = (_prepared(t) for t in (q, k, v, do, out))
+    if cos is not None and _hopper(q):
+        k = rope_rotate(k, cos, sin)
+    return _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
+                   scale, causal)
+
+
+def _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window, scale,
+            causal, entry=None):
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", q, k, v, dout=do, lse=lse.contiguous(),
-            delta=delta.contiguous(), cos=cos, sin=sin, kv_begin=kv_begin,
-            kv_end=kv_end, outs=(dq,), window=window, scale=scale,
-            causal=causal)
-    return dq
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dq", q, k, v, dout=do, fwd_out=out, lse=_stat(lse),
+            cos=cos, sin=sin, kv_begin=kv_begin, kv_end=kv_end, outs=(dq,),
+            lse_out=delta, window=window, scale=scale, causal=causal,
+            entry=entry)
+    return dq, delta
+
+
+def flash_bwd_dq_mma(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end,
+                     window, scale, causal):
+    """``flash_bwd_dq`` through its mma.sync body at any dtype and head dim,
+    q and k rotated inside the kernel: the body that bf16 at head dim 64
+    and 128 ran before its Hopper body, which ``chip_smoke.py`` times beside
+    it. The model path never calls it."""
+    q, k, v, do, out = (_prepared(t) for t in (q, k, v, do, out))
+    return _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
+                   scale, causal, entry="lxt_flash_bwd_dq_mma")
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
@@ -460,7 +492,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
 
 def _attention_function(fwd, bwd_dq, bwd_dkv):
     """An autograd Function whose forward is ``fwd`` and whose backward runs
-    ``bwd_dq`` and ``bwd_dkv`` on Δ = rowsum(out∘do)."""
+    ``bwd_dq``, which also returns Δ = rowsum(out∘do), then ``bwd_dkv`` on
+    that Δ."""
 
     class _Attention(torch.autograd.Function):
         @staticmethod
@@ -475,11 +508,9 @@ def _attention_function(fwd, bwd_dq, bwd_dkv):
         @staticmethod
         def backward(ctx, do):
             q, k, v, out, lse, cos, sin, kv_begin, kv_end = ctx.saved_tensors
-            delta = (out.float() * do.float()).sum(-1)
-            args = (q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
-                    *ctx.static)
-            dq = bwd_dq(*args)
-            dk, dv = bwd_dkv(*args)
+            rest = (cos, sin, kv_begin, kv_end, *ctx.static)
+            dq, delta = bwd_dq(q, k, v, do, out, lse, *rest)
+            dk, dv = bwd_dkv(q, k, v, do, lse, delta, *rest)
             return dq, dk, dv, None, None, None, None, None, None, None
 
     return _Attention

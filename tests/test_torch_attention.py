@@ -6,7 +6,9 @@ CPU tensors) and its einsum path are held against
 CPU, as tests/test_flash_attention.py runs it): forward and the q, k, v
 gradients, from the same numpy inputs. Tolerances are those of
 tests/test_flash_attention.py: atol 2e-5 forward, 5e-5 gradients (float32,
-sums taken in another order).
+sums taken in another order). The port's backward takes Δ = rowsum(out∘do)
+from ``flash_bwd_dq``, as ``lxt_tpu``'s ``inline_delta`` option computes it
+inside its backward kernel; a few regimes hold it against that option.
 """
 
 import jax
@@ -18,6 +20,7 @@ import torch
 import lxt_tpu
 import lxt_tpu_torch
 from lxt_tpu.ops.attention import attention as jattention
+from lxt_tpu.ops.flash_attention import _make_delta
 from lxt_tpu.ops.flash_attention import flash_attention as jflash
 from lxt_tpu_torch.models import common as tcommon
 from lxt_tpu_torch.ops import flash_attention as tfa
@@ -36,6 +39,9 @@ REGIMES = {
     "rope": (1, 2, 1, 128, 64, {"rope": True}),
     "multi_block": (1, 2, 1, 256, 64, {"block": 128}),
 }
+# regimes also run with lxt_tpu's inline_delta (its fused backward, one kv
+# block): causal with rope, GQA, kv_begin with dead rows, a window
+INLINE_DELTA_REGIMES = ("rope", "gqa", "kv_begin", "window")
 _JAX_CACHE = {}
 
 
@@ -58,8 +64,9 @@ def _inputs(regime):
     return q, k, v, ct, rope, kw
 
 
-def _jax_flash(regime):
-    if regime not in _JAX_CACHE:
+def _jax_flash(regime, inline_delta=False):
+    key = (regime, inline_delta)
+    if key not in _JAX_CACHE:
         q, k, v, ct, rope, kw = _inputs(regime)
         blk = kw.get("block", 1024)
 
@@ -70,12 +77,12 @@ def _jax_flash(regime):
                           kv_end=None if "kv_end" not in kw
                           else jnp.asarray(kw["kv_end"], jnp.int32),
                           rope=None if rope is None else tuple(map(jnp.asarray, rope)),
-                          block_q=blk, block_k=blk)
+                          block_q=blk, block_k=blk, inline_delta=inline_delta)
 
         out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-        _JAX_CACHE[regime] = (np.asarray(out),
-                              [np.asarray(g) for g in vjp(jnp.asarray(ct))])
-    return _JAX_CACHE[regime]
+        _JAX_CACHE[key] = (np.asarray(out),
+                           [np.asarray(g) for g in vjp(jnp.asarray(ct))])
+    return _JAX_CACHE[key]
 
 
 def _torch_run(regime, path):
@@ -96,15 +103,43 @@ def _torch_run(regime, path):
     return out.detach().numpy(), [g.numpy() for g in grads]
 
 
-@pytest.mark.parametrize("path", ["flash", "einsum"])
-@pytest.mark.parametrize("regime", sorted(REGIMES))
-def test_attention_matches_lxt_tpu_flash(regime, path):
-    want_out, want_grads = _jax_flash(regime)
+def _check_against(regime, path, inline_delta):
+    want_out, want_grads = _jax_flash(regime, inline_delta)
     out, grads = _torch_run(regime, path)
     mask = _inputs(regime)[3] != 0  # rows the comparison covers
     np.testing.assert_allclose(out * mask, want_out * mask, rtol=0, atol=ATOL_FWD)
     for g, w, name in zip(grads, want_grads, "qkv"):
         np.testing.assert_allclose(g, w, rtol=0, atol=ATOL_GRAD, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("path", ["flash", "einsum"])
+@pytest.mark.parametrize("regime", sorted(REGIMES))
+def test_attention_matches_lxt_tpu_flash(regime, path):
+    _check_against(regime, path, inline_delta=False)
+
+
+@pytest.mark.parametrize("regime", INLINE_DELTA_REGIMES)
+def test_flash_matches_lxt_tpu_inline_delta(regime):
+    """The port's gradients, whose Δ comes from flash_bwd_dq, against
+    lxt_tpu's flash_attention(..., inline_delta=True)."""
+    _check_against(regime, "flash", inline_delta=True)
+
+
+@pytest.mark.parametrize("regime", ["causal", "gqa", "kv_begin", "rope"])
+def test_flash_bwd_dq_delta_matches_make_delta(regime):
+    """flash_bwd_dq_ref's Δ against lxt_tpu's _make_delta on the same numpy
+    out and do, float32: within 1e-6 of the largest |Δ|, since the same 64
+    products are summed in another order (|Δ| reaches ~20 here, where one
+    float32 ulp is 1.9e-6)."""
+    q, k, v, ct, _, _ = _inputs(regime)
+    out = np.random.default_rng(3).standard_normal(q.shape, dtype=np.float32)
+    want = np.asarray(_make_delta(jnp.asarray(out), jnp.asarray(ct), None))[..., 0]
+    _, got = tfa.flash_bwd_dq_ref(
+        *(torch.tensor(a) for a in (q, k, v, ct, out)),
+        torch.zeros(q.shape[:3]), None, None, None, None, 10**6, 0.125, True)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
 
 
 def test_flash_empty_rows_give_zero_out_and_lse_floor():

@@ -60,8 +60,9 @@ def test_work_counts_products_and_tensors(name):
     assert flops == products * B * H * (T * (T + 1) // 2) * 2 * D
     # inputs read once, outputs written once
     tensors = {"flash_fwd": [q_bytes, kv_bytes, kv_bytes, q_bytes, stat],
-               "flash_bwd_dq": [q_bytes, kv_bytes, kv_bytes, q_bytes, stat, stat,
-                                q_bytes],
+               # q, k, v, do, out, lse read; delta and dq written
+               "flash_bwd_dq": [q_bytes, kv_bytes, kv_bytes, q_bytes, q_bytes, stat,
+                                stat, q_bytes],
                "flash_bwd_dkv": [q_bytes, kv_bytes, kv_bytes, q_bytes, stat, stat,
                                  kv_bytes, kv_bytes]}[name]
     assert moved == sum(tensors) + tables

@@ -41,12 +41,12 @@ def test_kernels_match_plain_versions(D, dtype):
     args = (cos, sin, kv_begin, None, 100, D ** -0.5, True)
     out, lse = tfa.flash_fwd(q, k, v, *args)
     ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, *args)
-    delta = (ref_out.float() * do.float()).sum(-1)
+    ref_dq, delta = tfa.flash_bwd_dq_ref(q, k, v, do, ref_out, ref_lse, *args)
     bwd = (q, k, v, do, ref_lse, delta, *args)
     seen = ref_lse > -1e29  # rows with a visible key (others: -1e30 both)
     pairs = {"out": (out, ref_out),
              "lse": (torch.where(seen, lse, 0.0), torch.where(seen, ref_lse, 0.0)),
-             "dq": (tfa.flash_bwd_dq(*bwd), tfa.flash_bwd_dq_ref(*bwd))}
+             "dq": (tfa.flash_bwd_dq(q, k, v, do, ref_out, ref_lse, *args)[0], ref_dq)}
     pairs.update(zip(("dk", "dv"), zip(tfa.flash_bwd_dkv(*bwd),
                                        tfa.flash_bwd_dkv_ref(*bwd))))
     torch.cuda.synchronize()
@@ -56,8 +56,8 @@ def test_kernels_match_plain_versions(D, dtype):
         assert err <= _bound(want, dtype), (name, err)
 
 
-# the Hopper bodies of K1 and flash_bwd_dkv (bf16, head dim 64 and 128):
-# name -> (B, H, Hkv, T, D, options)
+# the Hopper bodies of K1, flash_bwd_dq and flash_bwd_dkv (bf16, head dim 64
+# and 128): name -> (B, H, Hkv, T, D, options)
 HOPPER_CASES = {
     # T 320: K1's last 128- (D 128) or 192-row (D 64) q tile is part full
     "odd_tiles_T320_hd64": (2, 4, 2, 320, 64, {"rope": True}),
@@ -102,11 +102,12 @@ def test_hopper_bodies_match_plain_versions(name):
     q, k, v, do, args = _hopper_inputs(HOPPER_CASES[name], seed=len(name))
     out, lse = tfa.flash_fwd(q, k, v, *args)
     ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, *args)
-    delta = (ref_out.float() * do.float()).sum(-1)
+    ref_dq, delta = tfa.flash_bwd_dq_ref(q, k, v, do, ref_out, ref_lse, *args)
     bwd = (q, k, v, do, ref_lse, delta, *args)
     seen = ref_lse > -1e29
     pairs = {"out": (out, ref_out),
-             "lse": (torch.where(seen, lse, 0.0), torch.where(seen, ref_lse, 0.0))}
+             "lse": (torch.where(seen, lse, 0.0), torch.where(seen, ref_lse, 0.0)),
+             "dq": (tfa.flash_bwd_dq(q, k, v, do, ref_out, ref_lse, *args)[0], ref_dq)}
     pairs.update(zip(("dk", "dv"), zip(tfa.flash_bwd_dkv(*bwd),
                                        tfa.flash_bwd_dkv_ref(*bwd))))
     torch.cuda.synchronize()
@@ -137,13 +138,60 @@ def test_hopper_bodies_read_strided_views(D):
     dense = [t.contiguous() for t in (q, k, v, do)]
     out, lse = tfa.flash_fwd(q, k, v, *args)
     out_c, lse_c = tfa.flash_fwd(*dense[:3], *args)
-    delta = (out.float() * do.float()).sum(-1)
+    # out as a head-split view too, as the model's attention output is not
+    out_v = tcommon.split_heads(tcommon.merge_heads(out), H, D)
+    dq, delta = tfa.flash_bwd_dq(q, k, v, do, out_v, lse, *args)
+    dq_c, delta_c = tfa.flash_bwd_dq(*dense, out, lse, *args)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
     dk_c, dv_c = tfa.flash_bwd_dkv(*dense, lse, delta, *args)
     torch.cuda.synchronize()
-    assert not q.is_contiguous()
-    for got, want in ((out, out_c), (lse, lse_c), (dk, dk_c), (dv, dv_c)):
+    assert not q.is_contiguous() and not out_v.is_contiguous()
+    for got, want in ((out, out_c), (lse, lse_c), (dq, dq_c), (delta, delta_c),
+                      (dk, dk_c), (dv, dv_c)):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_dq_is_deterministic(D):
+    """Every dq row has one writer and Δ one lane: two launches give
+    bit-equal dq and Δ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do, args = _hopper_inputs((2, 16, 2, 512, D, {"rope": True}), seed=D)
+    out, lse = tfa.flash_fwd_ref(q, k, v, *args)
+    bwd = (q, k, v, do, out, lse, *args)
+    dq1, delta1 = tfa.flash_bwd_dq(*bwd)
+    dq2, delta2 = tfa.flash_bwd_dq(*bwd)
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2) and torch.equal(delta1, delta2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_bwd_dq_delta_matches_plain(D, dtype):
+    """Δ from flash_bwd_dq (Hopper body for bf16 at D 64/128, mma.sync
+    otherwise) against rowsum(out∘do) of the plain version: the same float32
+    products summed in another order, normalized L2 <= 1e-5; rows with no
+    visible key (out 0) give Δ 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, H, Hkv, T = 2, 4, 2, 320
+    gen = torch.Generator("cuda").manual_seed(D + 7)
+
+    def r(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = r(B, H, T, D), r(B, Hkv, T, D), r(B, Hkv, T, D), r(B, H, T, D)
+    args = (None, None, torch.tensor([0, 100], dtype=torch.int32, device="cuda"),
+            None, T + 2**20, D ** -0.5, True)
+    out, lse = tfa.flash_fwd_ref(q, k, v, *args)
+    _, got = tfa.flash_bwd_dq(q, k, v, do, out, lse, *args)
+    _, want = tfa.flash_bwd_dq_ref(q, k, v, do, out, lse, *args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, H, T)
+    assert torch.all(got[1, :, :100] == 0)
+    err = ((got.double() - want.double()).norm() / want.double().norm()).item()
+    assert err <= 1e-5, err
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -184,16 +232,18 @@ def test_rotation_pass_bit_equal_to_apply_rope(D, dtype):
 
 
 def test_hopper_calls_rotate_once_per_call():
-    """K1 rotates k, and flash_bwd_dkv q, through one rotation pass each."""
+    """K1 and flash_bwd_dq rotate k, and flash_bwd_dkv q, through one
+    rotation pass each: three per forward and backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, do, args = _hopper_inputs((1, 8, 2, 256, 64, {"rope": True}), seed=3)
     tfa.reset_launches()
     out, lse = tfa.flash_fwd(q, k, v, *args)
-    tfa.flash_bwd_dkv(q, k, v, do, lse, (out.float() * do.float()).sum(-1), *args)
+    _, delta = tfa.flash_bwd_dq(q, k, v, do, out, lse, *args)
+    tfa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
     torch.cuda.synchronize()
-    assert tfa.launches == {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 1,
-                            "rope_rotate": 2}
+    assert tfa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                            "rope_rotate": 3}
 
 
 # K3 nf4 dequantization: the five Llama-3-8B projection shapes [K, N], a
