@@ -2,9 +2,9 @@
 """Smoke run of lxt_tpu_torch on one NVIDIA GPU: builds the kernels, holds
 each against its plain PyTorch version, and drives the AttnLRP main path
 (input relevance of a Llama-family LM with TinyLlama-1.1B widths, random
-weights from a seed) and the quantized path (NF4 weights at Llama-3-8B width
-and depth, and a bitsandbytes-NF4 checkpoint through from_pretrained)
-through the kernels.
+weights from a seed), the quantized path (NF4 weights at Llama-3-8B width
+and depth, and a bitsandbytes-NF4 checkpoint through from_pretrained) and
+Gemma-3-4B's text model at full width and depth through the kernels.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
@@ -14,17 +14,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. the kernel build (nvcc, into lxt_tpu_torch/_build/);
   3. K1 flash_fwd, K2 flash_bwd_dq (dq and the delta it computes inside) /
      flash_bwd_dkv and the RoPE rotation pass against their plain versions
-     (the pass bit-exact, delta within 1e-5 normalized L2), bf16 and
-     float32, over the mask regimes, T 320 (a part-full last q tile) and
-     both paths' calls; then at the main path's call (B8 H32/4 T1024 D64)
-     and the NF4 8B path's (B1 H32/8 T4096 D128), bf16, causal, rope: each
-     kernel's device time (CUDA-graph replays) beside its plain version's,
-     its roofline bound (fa.work: FLOPs over 989 TFLOP/s or bytes over
-     3.35 TB/s, the larger) and the library's time for the same attention
-     (scaled_dot_product_attention under its flash and cuDNN backends, the
-     faster kept; its backward against dq (delta inside) + dkv); as
-     controls, flash_bwd_dq's mma.sync body and the separate delta pass
-     that the backward no longer runs;
+     (the pass bit-exact on contiguous tensors and head-split views, delta
+     within 1e-5 normalized L2), bf16 and float32, over the mask regimes,
+     T 320 (a part-full last q tile), Gemma-3-4B's local and global calls
+     (head dim 256, T 4096, window 1024 or none) and both paths' calls;
+     then at the main path's call (B8 H32/4 T1024 D64), the NF4 8B path's
+     (B1 H32/8 T4096 D128) and Gemma-3-4B's two (B1 H8/4 T4096 D256), bf16,
+     causal, rope: each kernel's device time (CUDA-graph replays) beside
+     its plain version's, its roofline bound (fa.work: FLOPs over 989
+     TFLOP/s or bytes over 3.35 TB/s, the larger) and the library's time
+     for the same attention (scaled_dot_product_attention under its flash
+     and cuDNN backends, and the memory-efficient one where a window needs
+     a mask, the fastest kept; its backward against dq (delta inside) +
+     dkv); as controls on the Hopper bodies, flash_bwd_dq's mma.sync body
+     and the separate delta pass that the backward no longer runs;
   4. K3 nf4_dequant against its plain version, bit-exact, bf16 and float32,
      over the Llama-3-8B projection shapes and ragged ones; times at the
      wg [4096, 14336] and wd [14336, 4096] shapes;
@@ -44,11 +47,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
   8. from_pretrained on the card: a tiny bitsandbytes-NF4-serialized Llama
      checkpoint written here, loaded with device="cuda" and attributed
      (QuantizedTensor leaves, weights exact against the checkpoint's values,
-     finite relevance within 1e-4 of the CPU load, K3 launched).
+     finite relevance within 1e-4 of the CPU load, K3 launched);
+  9. Gemma-3-4B's text model (google/gemma-3-4b-it text_config widths):
+     float32 at 6 layers (one global), batch 1 x 2048, the kernel path
+     against the einsum path (normalized L2 <= 1e-4) and bf16 against it
+     (relevance <= 0.1); then bf16 at full width and depth (34 layers),
+     batch 1 x 4096, remat off: three attributions (heatmaps/s, flash
+     launches per attribution against 34 each, finite relevance, peak
+     memory).
 The line before the last is a JSON object with each kernel's launches, error,
-times, bound and library time at the main path's call (K3: at wg) and, under
-"at_8b", at the NF4 8B path's (K3: at wd); the last line is
-{"ok": true, "device": {...}}.
+times, bound and library time at the main path's call (K3: at wg), under
+"at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
+"at_gemma_local" / "at_gemma_global" at Gemma-3-4B's calls (the Gemma path
+runs no rotation pass). "launches", "launches_8b" and "launches_gemma" are
+each the count over its path's three timed attributions ("launches" of K3:
+the NF4 8B path's); the last line is {"ok": true, "device": {...}}.
 """
 
 import itertools
@@ -90,13 +103,20 @@ CASES = {
     "odd_tiles_T320_hd64": (2, 4, 2, 320, 64, {"rope": True}),
     "odd_tiles_T320_hd128": (2, 4, 2, 320, 128, {"rope": True, "kv_begin": [0, 37]}),
     "gqa_32_8_hd128_window": (1, 32, 8, 512, 128, {"window": 200, "rope": True}),
+    # Gemma-3-4B's calls (the mma.sync bodies at head dim 256): local layers
+    # with the 1024 window, global layers without one
+    "gemma_local": (1, 8, 4, 4096, 256, {"window": 1024, "rope": True}),
+    "gemma_global": (1, 8, 4, 4096, 256, {"rope": True}),
 }
-# the two paths' attention calls, bf16, causal, rope: the main path's
-# (TinyLlama-1.1B widths, B 8 x 1024) and the NF4 8B path's (Llama-3-8B
-# widths, B 1 x 4096)
+# the paths' attention calls, bf16, causal, rope: the main path's
+# (TinyLlama-1.1B widths, B 8 x 1024), the NF4 8B path's (Llama-3-8B
+# widths, B 1 x 4096) and Gemma-3-4B's local and global layers' (B 1 x 4096)
 MAIN_CASE = (SERVE_BATCH, 32, 4, SEQ, 64, {"rope": True})
-CALLS = {"main": MAIN_CASE, "8b": (1, 32, 8, 4096, 128, {"rope": True})}
-CALL_NAMES = {"main": "B8 H32/4 T1024 D64", "8b": "B1 H32/8 T4096 D128"}
+CALLS = {"main": MAIN_CASE, "8b": (1, 32, 8, 4096, 128, {"rope": True}),
+         "gemma_local": CASES["gemma_local"], "gemma_global": CASES["gemma_global"]}
+CALL_NAMES = {"main": "B8 H32/4 T1024 D64", "8b": "B1 H32/8 T4096 D128",
+              "gemma_local": "B1 H8/4 T4096 D256 window 1024",
+              "gemma_global": "B1 H8/4 T4096 D256"}
 # peak rates of an H100 SXM (data sheet): bf16 tensor cores, float32 outside
 # them (the rotation pass's elementwise work), device memory
 PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
@@ -137,6 +157,15 @@ K3_TIMED = ("wg_wu_4096x14336", "wd_14336x4096")
 TINY = dict(model_type="llama", vocab_size=512, hidden_size=256,
             intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
             num_key_value_heads=2, rms_norm_eps=1e-5, tie_word_embeddings=False)
+# Gemma-3-4B's text model: google/gemma-3-4b-it config.json text_config,
+# the rest from transformers' Gemma3TextConfig defaults (every 6th layer
+# global); full depth, random weights; bf16, batch 1 x 4096, remat off. The
+# float32 gates run 6 layers (layer 6 global) at 1 x 2048.
+GEMMA3_4B = dict(vocab_size=262208, hidden_size=2560, intermediate_size=10240,
+                 num_layers=34, num_heads=8, num_kv_heads=4, head_dim=256,
+                 rope_theta=1e6, rope_local_theta=1e4, rope_global_scaling=8.0,
+                 rms_eps=1e-6, query_pre_attn_scalar=256.0, sliding_window=1024)
+SEQ_GEMMA, GEMMA_PARITY_LAYERS, SEQ_GEMMA_PARITY = 4096, 6, 2048
 
 
 def card_line():
@@ -246,6 +275,10 @@ def compare_kernels(case, dtype, seed):
     if cos is not None:  # the rotation pass, bit-exact: bound 0
         got["rope"] = fa.rope_rotate(q, cos, sin)
         want["rope"] = fa.rope_rotate_ref(q, cos, sin)
+        # a head-split view, as the model hands q and k over
+        view = q.transpose(1, 2).contiguous().transpose(1, 2)
+        got["rope_view"] = fa.rope_rotate(view, cos, sin)
+        want["rope_view"] = fa.rope_rotate_ref(view, cos, sin)
     torch.cuda.synchronize()
     if not torch.equal(lse <= -1e29, ~seen):
         raise AssertionError("flash_fwd: empty rows differ from the plain version")
@@ -256,8 +289,8 @@ def compare_kernels(case, dtype, seed):
         if name == "delta":
             res[name] = (nl2(got[name], w), DELTA_BAR, err)
         else:
-            res[name] = (err, 0.0 if name == "rope" else a + r * w.abs().max().item(),
-                         err)
+            res[name] = (err, 0.0 if name.startswith("rope")
+                         else a + r * w.abs().max().item(), err)
     return res
 
 
@@ -274,13 +307,15 @@ def bound(name, case):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sdpa_yardstick(q, k, v, do, cos, sin, scale):
+def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None):
     """The library's time for the same attention: one
     scaled_dot_product_attention call (causal, GQA) under its flash and its
     cuDNN backend, forward and backward (torch.autograd.grad with
-    retain_graph) timed apart. q and k are rotated, and k/v repeated where a
-    backend refuses GQA, outside the timed windows. Returns the fastest
-    {"fwd": (ms, backend), "bwd": (ms, backend)} and a line per backend."""
+    retain_graph) timed apart; with a window, whose mask only a boolean
+    attn_mask can give, under the memory-efficient backend too. q and k are
+    rotated, and k/v repeated where a backend refuses GQA, outside the
+    timed windows. Returns the fastest {"fwd": (ms, backend), "bwd": (ms,
+    backend)} and a line per backend."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -289,14 +324,20 @@ def sdpa_yardstick(q, k, v, do, cos, sin, scale):
     qr, kr = common.apply_rope(q, k, cos, sin)
     n_rep = q.shape[1] // k.shape[1]
     best, lines = {}, []
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+    mask = {"is_causal": True}
+    if window is not None:
+        i = torch.arange(q.shape[2], device=q.device)
+        mask = {"attn_mask": (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)}
+        backends.append(SDPBackend.EFFICIENT_ATTENTION)
+    for backend in backends:
         for gqa in (True, False):
             kk, vv = (kr, v) if gqa else (repeat_kv(kr, n_rep), repeat_kv(v, n_rep))
             leaves = [t.detach().clone().requires_grad_(True) for t in (qr, kk, vv)]
 
             def fwd():
                 return F.scaled_dot_product_attention(
-                    *leaves, is_causal=True, scale=scale, enable_gqa=gqa)
+                    *leaves, scale=scale, enable_gqa=gqa, **mask)
 
             name = backend.name.lower() + ("" if gqa else " (k/v repeated)")
             try:
@@ -320,15 +361,17 @@ def sdpa_yardstick(q, k, v, do, cos, sin, scale):
 
 
 def time_call(call, card):
-    """Each flash kernel and the rotation pass at one of the two paths'
-    calls: kernel and plain times (plain, kernel, kernel, plain), bound and
-    the library's time; and two controls: flash_bwd_dq's mma.sync body and
-    the separate delta pass, which the backward no longer runs."""
+    """Each flash kernel at one of the paths' calls, and the rotation pass
+    where the call's path runs it (the Hopper bodies): kernel and plain
+    times (plain, kernel, kernel, plain), bound and the library's time; and
+    on the Hopper bodies two controls: flash_bwd_dq's mma.sync body and the
+    separate delta pass, which the backward no longer runs."""
     import torch
     from lxt_tpu_torch.ops import flash_attention as fa
     case = CALLS[call]
     (q, k, v, do), extra = kernel_inputs(case, torch.bfloat16, seed=99)
     cos, sin, scale = extra[0], extra[1], extra[5]
+    window = case[5].get("window")
     out, lse = fa.flash_fwd(q, k, v, *extra)
     dq_args = (q, k, v, do, out, lse, *extra)
     _, delta = fa.flash_bwd_dq(*dq_args)
@@ -343,10 +386,13 @@ def time_call(call, card):
         "rope_rotate": (lambda: fa.rope_rotate(q, cos, sin),
                         lambda: fa.rope_rotate_ref(q, cos, sin)),
     }
-    lib, lib_lines = sdpa_yardstick(q, k, v, do, cos, sin, scale)
+    lib, lib_lines = sdpa_yardstick(q, k, v, do, cos, sin, scale, window)
     library = {"flash_fwd": lib.get("fwd"), "flash_bwd_dq": lib.get("bwd"),
                "flash_bwd_dkv": lib.get("bwd"), "rope_rotate": None}
     plain_iters = 10 if call == "main" else 3
+    hopper = fa._hopper(q)
+    if not hopper:  # the mma.sync bodies rotate inside the kernel
+        del timed["rope_rotate"]
     res = {}
     for name, (kern, plain) in timed.items():
         # plain, kernel, kernel, plain; the kernel's device time from graph
@@ -360,20 +406,23 @@ def time_call(call, card):
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                      "library": lib_name, "eager_ms": eager}
         r = res[name]
-        print(f"kernel time {name} at {CALL_NAMES[call]} bf16 causal rope: "
+        body = "" if name == "rope_rotate" else (
+            f" ({'Hopper' if hopper else 'mma.sync'} body)")
+        print(f"kernel time {name} at {CALL_NAMES[call]} bf16 causal rope{body}: "
               f"kernel {r['ms']:.4f} ms (eager calls {eager:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
               f"{b_ms / r['ms']:.1%} of it), library "
               + (f"{lib_ms:.4f} ms ({lib_name})" if lib_ms else "none")
               + f" [{card}]", flush=True)
-    mma_ms = graph_ms(lambda: fa.flash_bwd_dq_mma(*dq_args))
-    delta_ms = graph_ms(lambda: (out.float() * do.float()).sum(-1))
     dq_ms = res["flash_bwd_dq"]["ms"]
-    print(f"controls at {CALL_NAMES[call]}: flash_bwd_dq's mma.sync body "
-          f"(q and k rotated in the kernel, delta inside) {mma_ms:.4f} ms "
-          f"against its Hopper body {dq_ms:.4f} ms ({mma_ms / dq_ms:.2f}x); "
-          f"the separate delta pass the backward no longer runs "
-          f"{delta_ms:.4f} ms [{card}]", flush=True)
+    if hopper:
+        mma_ms = graph_ms(lambda: fa.flash_bwd_dq_mma(*dq_args))
+        delta_ms = graph_ms(lambda: (out.float() * do.float()).sum(-1))
+        print(f"controls at {CALL_NAMES[call]}: flash_bwd_dq's mma.sync body "
+              f"(q and k rotated in the kernel, delta inside) {mma_ms:.4f} ms "
+              f"against its Hopper body {dq_ms:.4f} ms ({mma_ms / dq_ms:.2f}x); "
+              f"the separate delta pass the backward no longer runs "
+              f"{delta_ms:.4f} ms [{card}]", flush=True)
     pair = dq_ms + res["flash_bwd_dkv"]["ms"]
     print(f"library at {CALL_NAMES[call]}: " + "; ".join(lib_lines), flush=True)
     if "bwd" in lib and "fwd" in lib:
@@ -410,25 +459,27 @@ def phase_kernels(card):
             errs = {"flash_fwd": max(abs_err["out"], abs_err["lse"]),
                     "flash_bwd_dq": max(abs_err["dq"], abs_err["delta"]),
                     "flash_bwd_dkv": max(abs_err["dk"], abs_err["dv"]),
-                    "rope_rotate": abs_err["rope"]}
+                    "rope_rotate": max(abs_err["rope"], abs_err["rope_view"])}
     timing = {call: time_call(call, card) for call in CALLS}
     return failures, errs, timing
 
 
-def attribute(params, cfg, ids, impl, remat):
-    """One heatmap per example: (logits at the last position, relevance)."""
+def attribute(params, cfg, ids, impl, remat, family="llama"):
+    """One heatmap per example: (logits at the last position, relevance),
+    through the family's embedding and forward."""
     import lxt_tpu_torch
-    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models.registry import FAMILIES
+    fns = FAMILIES[family]
     held = {}
 
     def target(x):
-        logits = llama.forward(params, cfg, x, lxt_tpu_torch.attnlrp,
-                               remat=remat, logits_at=-1,
-                               attn_impl=impl).logits
+        logits = fns["forward"](params, cfg, x, lxt_tpu_torch.attnlrp,
+                                remat=remat, logits_at=-1,
+                                attn_impl=impl).logits
         held["logits"] = logits.detach()
         return lxt_tpu_torch.select_logit(logits)
 
-    _, rel = lxt_tpu_torch.input_relevance(target, llama.embed(params, ids))
+    _, rel = lxt_tpu_torch.input_relevance(target, fns["embed"](params, ids, cfg))
     return held["logits"], rel
 
 
@@ -681,6 +732,85 @@ def phase_nf4_8b(card):
     return failures, launches
 
 
+def phase_gemma(card):
+    """Gemma-3-4B's text model: the float32 gates at reduced depth, then
+    bf16 at full width and depth."""
+    import torch
+    from lxt_tpu_torch.models import gemma3
+    from lxt_tpu_torch.ops import flash_attention as fa
+    failures = []
+    fam = "gemma3_text"
+    cfg = gemma3.Gemma3Config(**dict(GEMMA3_4B, num_layers=GEMMA_PARITY_LAYERS))
+    gen = torch.Generator("cuda").manual_seed(12)
+    params = gemma3.init_params(cfg, gen)
+    ids = torch.randint(0, cfg.vocab_size, (1, SEQ_GEMMA_PARITY), generator=gen,
+                        device="cuda")
+    fa.reset_launches()
+    logits_k, rel_k = attribute(params, cfg, ids, "auto", False, fam)
+    torch.cuda.synchronize()
+    rose = dict(fa.launches)
+    logits_e, rel_e = attribute(params, cfg, ids, "einsum", False, fam)
+    d_logits, d_rel = nl2(logits_k, logits_e), nl2(rel_k, rel_e)
+    finite = bool(torch.isfinite(rel_k).all() and torch.isfinite(logits_k).all())
+    want = expected_launches(cfg.num_layers, hopper=False, remat=False)
+    print(f"Gemma-3-4B width float32 L{cfg.num_layers} (layer types "
+          f"{''.join('L' if s else 'G' for s in gemma3.layer_sliding_flags(cfg))}) "
+          f"B1x{SEQ_GEMMA_PARITY}: kernels vs einsum normalized L2 logits "
+          f"{d_logits:.3g}, relevance {d_rel:.3g} (bar {PARITY_BAR}); launches "
+          f"per attribution {rose} (expected {want}) [{card}]", flush=True)
+    if not (finite and d_logits <= PARITY_BAR and d_rel <= PARITY_BAR):
+        failures.append("Gemma float32 parity")
+    if rose != want:
+        failures.append(f"Gemma float32 launches {rose}")
+    del logits_e, rel_e
+    params16 = {k: ({n: t.to(torch.bfloat16) for n, t in v.items()}
+                    if isinstance(v, dict) else v.to(torch.bfloat16))
+                for k, v in params.items()}
+    del params
+    _, rel16 = attribute(params16, cfg, ids, "auto", False, fam)
+    div = nl2(rel16.float(), rel_k)
+    print(f"Gemma-3-4B width bf16 vs float32 relevance L{cfg.num_layers} "
+          f"B1x{SEQ_GEMMA_PARITY}, kernels: normalized L2 {div:.4g} (bar "
+          f"{DIVERGENCE_BAR}) [{card}]", flush=True)
+    if not (math.isfinite(div) and div <= DIVERGENCE_BAR):
+        failures.append("Gemma bf16 divergence")
+    del params16
+    torch.cuda.empty_cache()
+
+    cfg = gemma3.Gemma3Config(**GEMMA3_4B)
+    t0 = time.perf_counter()
+    params = gemma3.init_params(cfg, gen, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params["layers"].values()) + params["embed"].numel()
+    requests = [torch.randint(0, cfg.vocab_size, (1, SEQ_GEMMA), generator=gen,
+                              device="cuda") for _ in range(REQUESTS)]
+
+    def run(ids):
+        return attribute(params, cfg, ids, "auto", False, fam)[1]
+
+    run(requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    rate, rels = serve_rate(run, requests)
+    launches = dict(fa.launches)
+    per = {n: c / REQUESTS for n, c in launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expected_launches(cfg.num_layers, hopper=False, remat=False)
+    ok = all(r.shape == (1, SEQ_GEMMA) and bool(torch.isfinite(r).all()) for r in rels)
+    print(f"Gemma-3-4B L{cfg.num_layers} B1x{SEQ_GEMMA} bf16 remat off: "
+          f"{n_params / 1e9:.3f} B parameters, init {t_init:.1f} s; {REQUESTS} "
+          f"attributions, {rate:.4f} heatmaps/s ({1 / rate:.4f} s each), "
+          f"launches per attribution {per} (expected {want}), relevance "
+          f"finite and [1, {SEQ_GEMMA}]: {ok}, peak device memory {peak:.2f} "
+          f"GiB [{card}]", flush=True)
+    if not ok:
+        failures.append("Gemma relevance not finite or misshapen")
+    if per != want:
+        failures.append(f"Gemma launches per attribution {per}")
+    return failures, launches
+
+
 def write_safetensors(path, tensors):
     """A minimal safetensors writer (the card's machine has no safetensors
     package): 8-byte header length, JSON header, raw little-endian data."""
@@ -822,22 +952,28 @@ def main():
     launches["nf4_dequant"] = nf4_launches["nf4_dequant"]
     torch.cuda.empty_cache()
     failures += phase_from_pretrained(card)
-    print(f"phases 3-8 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    f, gemma_launches = phase_gemma(card)
+    failures += f
+    print(f"phases 3-9 took {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
 
-    # each kernel's numbers at the main path's call (K3: at wg), and at the
-    # NF4 8B path's call (K3: at wd)
-    at = {name: (timing["main"][name], timing["8b"][name]) for name in FLASH}
-    at["nf4_dequant"] = (k3_times[K3_TIMED[0]], k3_times[K3_TIMED[1]])
+    # each kernel's numbers at the main path's call (K3: at wg), at the NF4
+    # 8B path's call (K3: at wd) and at Gemma-3-4B's two (not K3)
+    at = {name: {call: timing[call][name] for call in CALLS if name in timing[call]}
+          for name in FLASH}
+    at["nf4_dequant"] = {"main": k3_times[K3_TIMED[0]], "8b": k3_times[K3_TIMED[1]]}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
-         **{key: at[name][0][key] for key in keys},
-         "at_8b": {key: at[name][1][key] for key in keys},
-         "launches_8b": nf4_launches[name]}
+         **{key: at[name]["main"][key] for key in keys},
+         **{f"at_{call}": {key: at[name][call][key] for key in keys}
+            for call in CALLS if call != "main" and call in at[name]},
+         "launches_8b": nf4_launches[name],
+         "launches_gemma": gemma_launches.get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@
 
     state = load_checkpoint_state_dict("/path/to/llama-dir")
     params = load_checkpoint_params("/path/to/llama-dir", cfg,
-                                    llama.params_from_hf, device="cuda")
+                                    llama.params_from_hf)  # on the card
 """
 
 import json
@@ -93,9 +93,10 @@ def load_checkpoint_state_dict(model_dir):
 
 
 def load_checkpoint_params(model_dir, cfg, converter, dtype=torch.float32,
-                           device="cpu"):
+                           device="cuda"):
     """Checkpoint directory -> parameter dict through a family converter
     (e.g. ``lxt_tpu_torch.models.llama.params_from_hf``), in ``dtype`` on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU, like the other
+    loading entry points)."""
     state = load_checkpoint_state_dict(model_dir)
     return converter(state, cfg, dtype=dtype, device=device)

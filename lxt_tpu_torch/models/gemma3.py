@@ -1,0 +1,247 @@
+"""Gemma 3 (text) with LRP-aware forward — the counterpart of the text half
+of ``lxt_tpu/models/gemma3.py``.
+
+Gemma-3 specifics (HF ``modeling_gemma3``):
+- embeddings scaled by sqrt(hidden_size), the scale rounded to the
+  embedding dtype first;
+- RMSNorm in float32 throughout, multiplied by ``(1 + weight)`` in float32
+  before the cast (identity rule: stop-grad rsqrt);
+- per-head q/k RMSNorm, attention scale ``query_pre_attn_scalar ** -0.5``;
+- sandwich norms: the post-attention and post-feedforward norms apply to
+  each block's output before the residual add;
+- local layers (sliding window, ``rope_local_base_freq``) and global layers
+  (no window, ``rope_theta`` with linear rope scaling), chosen per layer by
+  ``layer_types``. The layer loop is Python, so each layer passes its own
+  window and tables to the attention (in-kernel rope on the flash path).
+
+The multimodal half (SigLIP tower and projector) is not ported yet.
+"""
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from lxt_tpu_torch import composites
+from lxt_tpu_torch.models import common
+from lxt_tpu_torch.models.common import ACTIVATIONS, ModelOutputs
+from lxt_tpu_torch.ops.attention import attention
+from lxt_tpu_torch.ops.rules import stop_gradient
+
+
+@dataclasses.dataclass(frozen=True)
+class Gemma3Config:
+    vocab_size: int = 262144
+    hidden_size: int = 2560
+    intermediate_size: int = 10240
+    num_layers: int = 34
+    num_heads: int = 8
+    num_kv_heads: int = 4
+    head_dim: int = 256
+    rope_theta: float = 1_000_000.0
+    rope_local_theta: float = 10_000.0
+    rope_global_scaling: float = 1.0   # linear rope_scaling factor (e.g. 8.0)
+    rms_eps: float = 1e-6
+    act: str = "gelu"                  # gelu_pytorch_tanh
+    query_pre_attn_scalar: float = 256.0
+    sliding_window: int = 1024
+    layer_types: Tuple[str, ...] = ()  # 'sliding_attention' | 'full_attention'
+    tie_embeddings: bool = True
+
+    @classmethod
+    def from_hf(cls, hf_config):
+        """Build from a transformers ``Gemma3TextConfig`` (or a namespace
+        with its attributes)."""
+        rs = getattr(hf_config, "rope_scaling", None) or {}
+        linear = rs.get("rope_type", rs.get("type")) == "linear"
+        return cls(
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            intermediate_size=hf_config.intermediate_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            head_dim=hf_config.head_dim,
+            rope_theta=hf_config.rope_theta,
+            rope_local_theta=getattr(hf_config, "rope_local_base_freq", 10_000.0),
+            rope_global_scaling=float(rs.get("factor", 1.0)) if linear else 1.0,
+            rms_eps=hf_config.rms_norm_eps,
+            query_pre_attn_scalar=hf_config.query_pre_attn_scalar,
+            sliding_window=hf_config.sliding_window,
+            layer_types=tuple(getattr(hf_config, "layer_types", None) or ()),
+            tie_embeddings=getattr(hf_config, "tie_word_embeddings", True),
+        )
+
+
+def gemma_rms_norm(x, weight, eps, composite):
+    """Gemma RMSNorm: float32 throughout, the ``(1 + w)`` multiplier applied
+    before the cast; identity rule via stop-grad rsqrt. (Not
+    ``Composite.rms_norm(offset=1)``, which multiplies in x's dtype.)"""
+    x32 = x.float()
+    rs = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    if composite.norm == "identity":
+        rs = stop_gradient(rs)
+    return (x32 * rs * (1.0 + weight.float())).to(x.dtype)
+
+
+def init_params(cfg: Gemma3Config, generator: torch.Generator,
+                dtype=torch.float32, device=None):
+    """Random parameters (smoke runs and benchmarks), stacked over layers,
+    drawn from ``generator`` (which must live on ``device``); norm weights
+    are 0, i.e. a multiplier of 1. The head is the tied embedding."""
+    device = device if device is not None else generator.device
+    L, D, I, hd = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+
+    def u(*shape):
+        return common.uniform_init(generator, shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    layers = {
+        "ln_in": zeros(L, D), "ln_post_attn": zeros(L, D),
+        "ln_pre_ff": zeros(L, D), "ln_post_ff": zeros(L, D),
+        "wq": u(L, D, H * hd), "wk": u(L, D, Hkv * hd), "wv": u(L, D, Hkv * hd),
+        "wo": u(L, H * hd, D), "q_norm": zeros(L, hd), "k_norm": zeros(L, hd),
+        "wg": u(L, D, I), "wu": u(L, D, I), "wd": u(L, I, D),
+    }
+    return {"embed": u(cfg.vocab_size, D), "final_norm": zeros(D),
+            "layers": layers}
+
+
+def embed(params, input_ids, cfg: Gemma3Config):
+    """Scaled word embedding (``Gemma3TextScaledWordEmbedding``): sqrt(D)
+    rounded to the embedding dtype, then the product."""
+    table = params["embed"]
+    scale = torch.tensor(cfg.hidden_size ** 0.5, dtype=table.dtype,
+                         device=table.device)
+    return table[input_ids] * scale
+
+
+def layer_sliding_flags(cfg: Gemma3Config):
+    """Whether each layer is a local (sliding-window) layer; without
+    ``layer_types``, HF's default pattern: every 6th layer is global."""
+    layer_types = cfg.layer_types or tuple(
+        "sliding_attention" if (i + 1) % 6 else "full_attention"
+        for i in range(cfg.num_layers))
+    return [t == "sliding_attention" for t in layer_types]
+
+
+def rope_table_pair(positions, cfg: Gemma3Config):
+    """(global, local) rotary tables: global uses ``rope_theta`` with the
+    linear scaling factor, local ``rope_local_base_freq`` unscaled."""
+    glob = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta,
+                              scaling=cfg.rope_global_scaling)
+    local = common.rope_tables(positions, cfg.head_dim, cfg.rope_local_theta)
+    return glob, local
+
+
+def forward(
+    params,
+    cfg: Gemma3Config,
+    inputs_embeds,
+    composite: composites.Composite = composites.attnlrp,
+    *,
+    probes=None,
+    output_hidden_states: bool = False,
+    remat: bool = True,
+    positions=None,
+    attention_mask=None,
+    kv_begin=None,
+    attn_impl: str = "auto",
+    logits_at=None,
+):
+    """Causal-LM forward; the keywords are those of ``llama.forward``.
+    Returns :class:`ModelOutputs`."""
+    T = inputs_embeds.shape[1]
+    positions, bias, kv_begin = common.padding_setup(
+        attention_mask, kv_begin, positions, T, inputs_embeds.device)
+    rope_global, rope_local = rope_table_pair(positions, cfg)
+    scale = cfg.query_pre_attn_scalar ** -0.5
+    H, Hkv, hd, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_eps
+    act_fn = ACTIVATIONS[cfg.act]
+    sliding = layer_sliding_flags(cfg)
+    lp, comp = params["layers"], composite
+
+    def layer(h, i):
+        x = gemma_rms_norm(h, lp["ln_in"][i], eps, comp)
+        q = common.split_heads(comp.linear(x, lp["wq"][i], site="wq"), H, hd)
+        k = common.split_heads(comp.linear(x, lp["wk"][i], site="wk"), Hkv, hd)
+        v = common.split_heads(comp.linear(x, lp["wv"][i], site="wv"), Hkv, hd)
+        q = gemma_rms_norm(q, lp["q_norm"][i], eps, comp)
+        k = gemma_rms_norm(k, lp["k_norm"][i], eps, comp)
+        # global layers: no window at all (lxt_tpu's 2**30 sentinel)
+        attn = attention(q, k, v, causal=True,
+                         window=cfg.sliding_window if sliding[i] else None,
+                         bias=bias, composite=comp, scale=scale,
+                         rope=rope_local if sliding[i] else rope_global,
+                         impl=attn_impl, kv_begin=kv_begin)
+        out = comp.linear(common.merge_heads(attn), lp["wo"][i], site="wo")
+        h = h + gemma_rms_norm(out, lp["ln_post_attn"][i], eps, comp)
+        x = gemma_rms_norm(h, lp["ln_pre_ff"][i], eps, comp)
+        g = comp.gated_mul(act_fn, comp.linear(x, lp["wg"][i], site="wg"),
+                           comp.linear(x, lp["wu"][i], site="wu"))
+        out = comp.linear(g, lp["wd"][i], site="wd")
+        h = h + gemma_rms_norm(out, lp["ln_post_ff"][i], eps, comp)
+        if probes is not None:
+            h = h + probes[i]
+        return h
+
+    h, hiddens = common.run_layers(layer, inputs_embeds, cfg.num_layers, remat,
+                                   keep_hidden=output_hidden_states)
+    h = gemma_rms_norm(h, params["final_norm"], eps, composite)
+    if logits_at is not None:
+        h = common.take_frontier(h, logits_at)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    logits = composite.linear(h, head)
+    if output_hidden_states:
+        hiddens = torch.cat([inputs_embeds[None], hiddens], dim=0)
+    return ModelOutputs(logits=logits, hidden_states=hiddens)
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint conversion
+# ---------------------------------------------------------------------------
+
+def params_from_hf(state_dict, cfg: Gemma3Config, dtype=torch.float32,
+                   device="cuda"):
+    """Convert HF ``Gemma3ForCausalLM`` (text) weights (torch tensors or
+    numpy arrays) to the stacked parameter dict; linear weights are
+    transposed to ``[in, out]``."""
+
+    def t(name):
+        w = state_dict[name]
+        if isinstance(w, torch.Tensor):
+            w = w.detach().to("cpu").float().numpy()
+        return np.asarray(w, dtype=np.float32)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                            dtype=dtype)
+
+    def stack(fmt, transpose=False):
+        ws = [t("model.layers." + fmt.format(i)) for i in range(cfg.num_layers)]
+        return tensor(np.stack([w.T if transpose else w for w in ws]))
+
+    layers = {
+        "ln_in": stack("{}.input_layernorm.weight"),
+        "ln_post_attn": stack("{}.post_attention_layernorm.weight"),
+        "ln_pre_ff": stack("{}.pre_feedforward_layernorm.weight"),
+        "ln_post_ff": stack("{}.post_feedforward_layernorm.weight"),
+        "q_norm": stack("{}.self_attn.q_norm.weight"),
+        "k_norm": stack("{}.self_attn.k_norm.weight"),
+    }
+    for ours, hf in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                     ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                     ("wg", "mlp.gate_proj"), ("wu", "mlp.up_proj"),
+                     ("wd", "mlp.down_proj")):
+        layers[ours] = stack("{}." + hf + ".weight", transpose=True)
+    params = {"embed": tensor(t("model.embed_tokens.weight")),
+              "final_norm": tensor(t("model.norm.weight")), "layers": layers}
+    if not cfg.tie_embeddings and "lm_head.weight" in state_dict:
+        params["lm_head"] = tensor(t("lm_head.weight").T)
+    return params

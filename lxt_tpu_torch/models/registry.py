@@ -1,6 +1,6 @@
-"""One-call user surface: HF Llama-family checkpoint or model ->
-:class:`AttributionModel` (counterpart of ``lxt_tpu/models/registry.py``,
-for the families the port has).
+"""One-call user surface: HF checkpoint or model of a Llama-family or
+Gemma-3 text model -> :class:`AttributionModel` (counterpart of
+``lxt_tpu/models/registry.py``, for the families the port has).
 
     import lxt_tpu_torch
     model = lxt_tpu_torch.from_pretrained("/path/to/llama-dir",
@@ -26,10 +26,19 @@ import torch
 
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.attribution import input_relevance, select_logit
-from lxt_tpu_torch.models import llama
+from lxt_tpu_torch.models import gemma3, llama
 
-#: the families the port has a model for (all take the Llama forward)
-SUPPORTED_FAMILIES = ("llama", "qwen2", "qwen3", "mistral", "phi3")
+_LLAMA = {"config": llama.LlamaConfig, "from_hf": llama.params_from_hf,
+          "forward": llama.forward,
+          "embed": lambda params, ids, cfg: llama.embed(params, ids)}
+_GEMMA3 = {"config": gemma3.Gemma3Config, "from_hf": gemma3.params_from_hf,
+           "forward": gemma3.forward, "embed": gemma3.embed}
+#: the families the port has a model for: family -> config class, HF
+#: converter, forward and embedding (``embed(params, ids, cfg)``)
+FAMILIES = {"llama": _LLAMA, "qwen2": _LLAMA, "qwen3": _LLAMA,
+            "mistral": _LLAMA, "phi3": _LLAMA, "gemma3": _GEMMA3,
+            "gemma3_text": _GEMMA3}
+SUPPORTED_FAMILIES = tuple(FAMILIES)
 
 _QWEN = dict(vocab_size=151936, hidden_size=4096, intermediate_size=22016,
              num_hidden_layers=32, num_attention_heads=32,
@@ -63,6 +72,15 @@ _HF_DEFAULTS = {
                  rope_scaling=None, sliding_window=None,
                  max_position_embeddings=4096,
                  original_max_position_embeddings=4096, hidden_act="silu"),
+    "gemma3_text": dict(vocab_size=262208, hidden_size=2304,
+                        intermediate_size=9216, num_hidden_layers=26,
+                        num_attention_heads=8, num_key_value_heads=4,
+                        head_dim=256, hidden_activation="gelu_pytorch_tanh",
+                        rms_norm_eps=1e-6,
+                        tie_word_embeddings=True, rope_theta=1e6,
+                        query_pre_attn_scalar=256, sliding_window=4096,
+                        layer_types=None, rope_scaling=None,
+                        rope_local_base_freq=10000.0),
 }
 
 
@@ -70,9 +88,16 @@ def read_hf_config(model_dir):
     """``config.json`` of a checkpoint directory as an attribute namespace,
     with the keys it leaves out filled as transformers' config class for
     its ``model_type`` fills them (a ``model_type`` outside the table is
-    taken as written)."""
-    raw = json.loads((Path(model_dir) / "config.json").read_text())
+    taken as written). A ``gemma3`` (image + text) config keeps its
+    ``text_config``, filled the same way, as a nested namespace."""
+    return _filled(json.loads((Path(model_dir) / "config.json").read_text()))
+
+
+def _filled(raw):
     mt = raw.get("model_type")
+    if mt == "gemma3":
+        text = dict(raw.get("text_config") or {}, model_type="gemma3_text")
+        return types.SimpleNamespace(**dict(raw, text_config=_filled(text)))
     if mt not in _HF_DEFAULTS:
         return types.SimpleNamespace(**raw)
     cfg = dict(_HF_DEFAULTS[mt])
@@ -86,6 +111,12 @@ def read_hf_config(model_dir):
     rs = cfg.get("rope_scaling")
     if mt == "phi3" and rs and rs.get("type") in ("su", "yarn"):
         cfg["rope_scaling"] = dict(rs, type="longrope")
+    if mt == "gemma3_text" and cfg["layer_types"] is None:
+        # configs on the Hub may carry only the older integer pattern
+        pattern = cfg.get("sliding_window_pattern", 6)
+        cfg["layer_types"] = [
+            "sliding_attention" if (i + 1) % pattern else "full_attention"
+            for i in range(cfg["num_hidden_layers"])]
     return types.SimpleNamespace(**cfg)
 
 
@@ -113,8 +144,8 @@ def _padding_args(kv_begin, attention_mask, kv_end, device):
 
 @dataclasses.dataclass
 class AttributionModel:
-    """A converted Llama-family model plus its attribution entry points.
-    PyTorch runs eagerly, so there is no program cache."""
+    """A converted model of one of :data:`FAMILIES` plus its attribution
+    entry points. PyTorch runs eagerly, so there is no program cache."""
 
     family: str
     cfg: Any
@@ -127,13 +158,14 @@ class AttributionModel:
 
     def embed(self, input_ids):
         ids = torch.as_tensor(np.asarray(input_ids), device=self.device)
-        return llama.embed(self.params, ids.long())
+        return FAMILIES[self.family]["embed"](self.params, ids.long(), self.cfg)
 
     def logits(self, input_ids, composite=None):
         composite = composites.resolve(composite or self.composite)
+        forward = FAMILIES[self.family]["forward"]
         with torch.no_grad():
-            return llama.forward(self.params, self.cfg, self.embed(input_ids),
-                                 composite).logits
+            return forward(self.params, self.cfg, self.embed(input_ids),
+                           composite).logits
 
     def attribute(self, input_ids, *, target: Optional[Callable] = None,
                   position: int = -1, token=None, composite=None,
@@ -150,13 +182,13 @@ class AttributionModel:
         tok = None if token is None else torch.as_tensor(np.asarray(token),
                                                          device=self.device)
         cfg, params = self.cfg, self.params
+        forward = FAMILIES[self.family]["forward"]
 
         def tgt(e):
             if target is not None:
-                return target(llama.forward(params, cfg, e, composite,
-                                            **kw).logits)
-            logits = llama.forward(params, cfg, e, composite,
-                                   logits_at=position, **kw).logits
+                return target(forward(params, cfg, e, composite, **kw).logits)
+            logits = forward(params, cfg, e, composite, logits_at=position,
+                             **kw).logits
             return select_logit(logits, position=-1, token=tok)
 
         return input_relevance(tgt, self.embed(input_ids))
@@ -214,17 +246,46 @@ def detect_family(hf_config, state_dict=None) -> str:
         f"of these computationally, pass family='<name>' to force it.")
 
 
+def _text_model(state_dict, hf_config):
+    """A ``gemma3`` (image + text) config and state dict -> its language
+    model's (``text_config``, ``model.language_model.*`` weights renamed
+    to ``model.*``). A checkpoint that holds vision weights is refused: the
+    port has no SigLIP tower yet, and dropping it would explain a different
+    model."""
+    vision = [k for k in state_dict if k.startswith(
+        ("model.vision_tower.", "model.multi_modal_projector.",
+         "vision_tower.", "multi_modal_projector."))]
+    if vision:
+        raise ValueError(
+            f"this gemma3 checkpoint holds vision weights ({vision[0]}, ...): "
+            f"the image + text model is not ported to lxt_tpu_torch yet "
+            f"(it needs the SigLIP tower); save the language model alone "
+            f"(Gemma3ForCausalLM) to attribute its text")
+    prefix = "model.language_model."
+    if any(k.startswith(prefix) for k in state_dict):
+        text = {"model." + k[len(prefix):]: v for k, v in state_dict.items()
+                if k.startswith(prefix)}
+        if "lm_head.weight" in state_dict:
+            text["lm_head.weight"] = state_dict["lm_head.weight"]
+        state_dict = text
+    return state_dict, hf_config.text_config
+
+
 def _convert(state_dict, hf_config, composite, dtype, device, family=None):
     """state dict (torch tensors or numpy arrays) -> AttributionModel."""
+    if (getattr(hf_config, "model_type", None) == "gemma3"
+            and hasattr(hf_config, "text_config")):
+        state_dict, hf_config = _text_model(state_dict, hf_config)
     if family is not None:
         if family not in SUPPORTED_FAMILIES:
             raise ValueError(f"family={family!r} is not one of: "
                              f"{', '.join(SUPPORTED_FAMILIES)}")
     else:
         family = detect_family(hf_config, state_dict)
-    cfg = llama.LlamaConfig.from_hf(hf_config)
-    params = llama.params_from_hf(state_dict, cfg, dtype=dtype or torch.float32,
-                                  device=device)
+    table = FAMILIES[family]
+    cfg = table["config"].from_hf(hf_config)
+    params = table["from_hf"](state_dict, cfg, dtype=dtype or torch.float32,
+                              device=device)
     composite = composites.resolve(composite or composites.attnlrp)
     return AttributionModel(family=family, cfg=cfg, params=params,
                             composite=composite)
@@ -232,8 +293,9 @@ def _convert(state_dict, hf_config, composite, dtype, device, family=None):
 
 def from_hf(hf_model, composite: composites.Composite = None, dtype=None,
             family: str = None, device="cuda"):
-    """Convert a loaded HF Llama-family torch model (``.config`` and
-    ``.state_dict()``) into an :class:`AttributionModel` on ``device``.
+    """Convert a loaded HF torch model of one of :data:`SUPPORTED_FAMILIES`
+    (``.config`` and ``.state_dict()``) into an :class:`AttributionModel` on
+    ``device``.
     ``family`` forces a family for an out-of-registry ``model_type`` that
     is computationally one of :data:`SUPPORTED_FAMILIES`; exact Llama clones
     are detected. The composite defaults to AttnLRP."""

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the device time of one attribution goes, on one NVIDIA GPU, for the
-two paths chip_smoke.py drives: the main path (bf16 Llama at TinyLlama-1.1B
-widths, 22 layers, batch 8 x 1024, remat off) and the NF4 path (Llama-3-8B
-widths and depth, batch 1 x 4096, remat). Random weights from a seed.
+three paths chip_smoke.py drives: the main path (bf16 Llama at TinyLlama-1.1B
+widths, 22 layers, batch 8 x 1024, remat off), the NF4 path (Llama-3-8B
+widths and depth, batch 1 x 4096, remat) and Gemma-3-4B's text model (bf16,
+full width and depth, batch 1 x 4096, remat off). Random weights from a seed.
 
-    python3 scripts/profile_torch_paths.py [--paths main,nf4_8b]
+    python3 scripts/profile_torch_paths.py [--paths main,nf4_8b,gemma]
 
 For each path: the wall time of three unprofiled attributions after a
 warm-up, then one attribution under torch.profiler: the device kernel time
@@ -91,12 +92,12 @@ def main():
         print("profile_torch_paths: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    paths = "main,nf4_8b"
+    paths = "main,nf4_8b,gemma"
     if "--paths" in sys.argv:
         paths = sys.argv[sys.argv.index("--paths") + 1]
     card = cs.card_line()
     print(card, flush=True)
-    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models import gemma3, llama
     from lxt_tpu_torch.ops import _build
     _build.library()
     if "main" in paths:
@@ -119,6 +120,17 @@ def main():
                             device="cuda")
         profile(lambda: cs.attribute(params, cfg, ids, "auto", True),
                 f"NF4 Llama-3-8B width L{cfg.num_layers} B1x{cs.SEQ_8B} remat",
+                card)
+        del params
+        torch.cuda.empty_cache()
+    if "gemma" in paths:
+        cfg = gemma3.Gemma3Config(**cs.GEMMA3_4B)
+        gen = torch.Generator("cuda").manual_seed(12)
+        params = gemma3.init_params(cfg, gen, dtype=torch.bfloat16)
+        ids = torch.randint(0, cfg.vocab_size, (1, cs.SEQ_GEMMA), generator=gen,
+                            device="cuda")
+        profile(lambda: cs.attribute(params, cfg, ids, "auto", False, "gemma3_text"),
+                f"Gemma-3-4B L{cfg.num_layers} B1x{cs.SEQ_GEMMA} bf16 remat off",
                 card)
     return 0
 

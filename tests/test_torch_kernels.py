@@ -72,17 +72,17 @@ HOPPER_CASES = {
 }
 
 
-def _hopper_inputs(case, seed):
+def _hopper_inputs(case, seed, dtype=torch.bfloat16):
     B, H, Hkv, T, D, opt = case
     gen = torch.Generator("cuda").manual_seed(seed)
 
     def r(*s):
-        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
 
     q, k, v, do = r(B, H, T, D), r(B, Hkv, T, D), r(B, Hkv, T, D), r(B, H, T, D)
     cos = sin = None
     if opt.get("rope"):
-        cos, sin = (t.cuda().to(torch.bfloat16).contiguous()
+        cos, sin = (t.cuda().to(dtype).contiguous()
                     for t in tcommon.rope_tables(torch.arange(T), D))
 
     def span(key):
@@ -94,12 +94,10 @@ def _hopper_inputs(case, seed):
     return q, k, v, do, args
 
 
-@pytest.mark.parametrize("name", sorted(HOPPER_CASES))
-def test_hopper_bodies_match_plain_versions(name):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, do, args = _hopper_inputs(HOPPER_CASES[name], seed=len(name))
+def _assert_match_plain_versions(q, k, v, do, args):
+    """K1, flash_bwd_dq and flash_bwd_dkv against their plain versions on
+    the same inputs, each held alone (the backward halves get the plain
+    forward's out, lse and Δ)."""
     out, lse = tfa.flash_fwd(q, k, v, *args)
     ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, *args)
     ref_dq, delta = tfa.flash_bwd_dq_ref(q, k, v, do, ref_out, ref_lse, *args)
@@ -114,7 +112,36 @@ def test_hopper_bodies_match_plain_versions(name):
     assert torch.equal(lse <= -1e29, ~seen)
     for key, (got, want) in pairs.items():
         err = (got.float() - want.float()).abs().max().item()
-        assert err <= _bound(want, torch.bfloat16), (key, err)
+        assert err <= _bound(want, q.dtype), (key, err)
+
+
+@pytest.mark.parametrize("name", sorted(HOPPER_CASES))
+def test_hopper_bodies_match_plain_versions(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _assert_match_plain_versions(*_hopper_inputs(HOPPER_CASES[name], seed=len(name)))
+
+
+# head dim 256 (the mma.sync bodies) with Gemma-3's masks: local layers'
+# window narrower than T, cutting across kv tiles, and global layers'
+# causal mask without one; name -> (B, H, Hkv, T, D, options)
+D256_CASES = {
+    "local_T2048_window1024": (1, 8, 4, 2048, 256, {"window": 1024, "rope": True}),
+    "global_T1024": (1, 8, 4, 1024, 256, {"rope": True}),
+    "window200_kv_begin": (2, 8, 4, 512, 256, {"window": 200, "rope": True,
+                                               "kv_begin": [0, 77]}),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(D256_CASES))
+def test_head_dim_256_windows_match_plain_versions(name, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _assert_match_plain_versions(*_hopper_inputs(D256_CASES[name], seed=len(name),
+                                                 dtype=dtype))
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -229,6 +256,31 @@ def test_rotation_pass_bit_equal_to_apply_rope(D, dtype):
     torch.cuda.synchronize()
     assert tfa.launches["rope_rotate"] == before + 1
     assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["split_heads_view", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+def test_rotation_pass_views_and_ragged_runs(D, dtype, layout):
+    """The rotation pass bit-equal to its plain version on a head-split view
+    and on a contiguous tensor, with T 100 (not a multiple of any CTA's run
+    of positions) and 11 heads (not a multiple of its batch of heads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    B, H, T = 3, 11, 100
+    gen = torch.Generator("cuda").manual_seed(D + 3)
+    x = torch.randn(B, T, H * D, generator=gen, device="cuda").to(dtype)
+    x = tcommon.split_heads(x, H, D)
+    if layout == "contiguous":
+        x = x.contiguous()
+    cos, sin = (t.cuda().to(dtype).contiguous()
+                for t in tcommon.rope_tables(torch.arange(T), D, theta=1e6))
+    got = tfa.rope_rotate(x, cos, sin)
+    want = tfa.rope_rotate_ref(x, cos, sin)
+    torch.cuda.synchronize()
+    assert x.is_contiguous() == (layout == "contiguous")
+    assert got.shape == (B, H, T, D) and got.is_contiguous()
+    assert torch.equal(got, want)
 
 
 def test_hopper_calls_rotate_once_per_call():

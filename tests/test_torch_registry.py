@@ -8,7 +8,9 @@ scales, and logits and input relevance (also under ``kv_begin`` and
 ``attention_mask`` left padding) within normalized L2 1e-5 in float32. The
 port reads ``config.json`` with json alone: for every key it leaves out it
 must give what transformers' ``AutoConfig`` gives. The numpy safetensors
-reader must match ``lxt_tpu.io.load_safetensors``.
+reader must match ``lxt_tpu.io.load_safetensors``. Tiny Gemma-3 text
+checkpoints (a ``gemma3_text`` one and an image + text ``gemma3`` one
+holding only its language model) load as lxt_tpu loads them.
 """
 
 import dataclasses
@@ -20,17 +22,19 @@ import pytest
 import torch
 from safetensors.numpy import save_file
 from safetensors.torch import save_file as save_torch
-from transformers import AutoConfig
+from transformers import AutoConfig, Gemma3ForCausalLM, Gemma3TextConfig
 from transformers.models.llama.modeling_llama import LlamaConfig, LlamaForCausalLM
 
 import lxt_tpu
 from lxt_tpu import io as jio
+from lxt_tpu.models import gemma3 as jgemma
 from lxt_tpu.models import llama as jllama
 from lxt_tpu.models import registry as jreg
 from lxt_tpu.ops import quant as jq
 import lxt_tpu_torch
 from lxt_tpu_torch import io as tio
 from lxt_tpu_torch.convert import params_from_numpy
+from lxt_tpu_torch.models import gemma3 as tgemma
 from lxt_tpu_torch.models import llama as tllama
 from lxt_tpu_torch.models import registry as treg
 from lxt_tpu_torch.ops import quant as tq
@@ -150,9 +154,10 @@ def test_from_hf_matches_lxt_tpu():
 
 
 def test_unsupported_family_lists_the_ported_ones(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gemma3"}))
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gpt2"}))
     save_file({"x": np.zeros(2, np.float32)}, str(tmp_path / "model.safetensors"))
-    with pytest.raises(ValueError, match="llama, qwen2, qwen3, mistral, phi3"):
+    with pytest.raises(ValueError, match="llama, qwen2, qwen3, mistral, phi3, "
+                                         "gemma3, gemma3_text"):
         treg.from_pretrained(tmp_path, device="cpu")
     with pytest.raises(ValueError, match="family="):
         treg.from_pretrained(tmp_path, family="gpt2", device="cpu")
@@ -250,8 +255,8 @@ def test_load_checkpoint_params_matches_from_hf(tmp_path):
     hf = _hf_llama(seed=8)
     hf.save_pretrained(tmp_path)
     cfg = tllama.LlamaConfig.from_hf(hf.config)
-    params = tio.load_checkpoint_params(tmp_path, cfg,
-                                        tllama.params_from_hf)
+    params = tio.load_checkpoint_params(tmp_path, cfg, tllama.params_from_hf,
+                                        device="cpu")
     want = lxt_tpu_torch.from_hf(hf, device="cpu").params
     for name in ("wq", "wd", "ln1"):
         assert torch.equal(params["layers"][name], want["layers"][name])
@@ -259,23 +264,31 @@ def test_load_checkpoint_params_matches_from_hf(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["from_pretrained", "from_hf", "params_from_hf",
-                                  "params_from_numpy"])
+                                  "params_from_numpy", "load_checkpoint_params",
+                                  "gemma3_params_from_hf"])
 def test_entry_points_default_to_the_card(tmp_path, name):
-    """The port's four loading entry points put parameters on the card
-    unless the caller asks for the CPU: without a card a default call
-    raises rather than returning CPU tensors."""
+    """The port's loading entry points put parameters on the card unless
+    the caller asks for the CPU: without a card a default call raises
+    rather than returning CPU tensors."""
     fn = {"from_pretrained": treg.from_pretrained, "from_hf": treg.from_hf,
           "params_from_hf": tllama.params_from_hf,
-          "params_from_numpy": params_from_numpy}[name]
+          "params_from_numpy": params_from_numpy,
+          "load_checkpoint_params": tio.load_checkpoint_params,
+          "gemma3_params_from_hf": tgemma.params_from_hf}[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     hf = _hf_llama(seed=9)
-    if name == "from_pretrained":
+    if name in ("from_pretrained", "load_checkpoint_params"):
         hf.save_pretrained(tmp_path)
-        call = lambda: fn(tmp_path).params  # noqa: E731
+        cfg = tllama.LlamaConfig.from_hf(hf.config)
+        call = ((lambda: fn(tmp_path).params) if name == "from_pretrained"  # noqa: E731
+                else (lambda: fn(tmp_path, cfg, tllama.params_from_hf)))
     elif name == "from_hf":
         call = lambda: fn(hf).params  # noqa: E731
     elif name == "params_from_hf":
         call = lambda: fn(hf.state_dict(), tllama.LlamaConfig.from_hf(hf.config))  # noqa: E731
+    elif name == "gemma3_params_from_hf":
+        gm = _hf_gemma3(seed=9)
+        call = lambda: fn(gm.state_dict(), tgemma.Gemma3Config.from_hf(gm.config))  # noqa: E731
     else:
         call = lambda: fn({"embed": np.ones((2, 3), np.float32)})  # noqa: E731
     if torch.cuda.is_available():
@@ -283,3 +296,130 @@ def test_entry_points_default_to_the_card(tmp_path, name):
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             call()
+
+
+# ---------------------------------------------------------------------------
+# Gemma 3
+# ---------------------------------------------------------------------------
+
+_GEMMA_TEXT = dict(vocab_size=VOCAB, hidden_size=64, intermediate_size=128,
+                   num_hidden_layers=6, num_attention_heads=4,
+                   num_key_value_heads=2, head_dim=64, sliding_window=48,
+                   query_pre_attn_scalar=64, max_position_embeddings=512,
+                   rope_scaling={"rope_type": "linear", "factor": 8.0})
+
+
+def _hf_gemma3(seed):
+    """A tiny Gemma3ForCausalLM with norm weights away from 0 (HF
+    initialises them to 0, a multiplier of 1)."""
+    torch.manual_seed(seed)
+    model = Gemma3ForCausalLM(Gemma3TextConfig(**_GEMMA_TEXT)).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                p.normal_(0.0, 0.1)
+    return model
+
+
+def _write_gemma3(tmp_path, kind, seed=11):
+    """kind: "text" (Gemma3ForCausalLM as saved), "image_text" (a gemma3
+    config.json whose text_config is the model, weights under
+    model.language_model.*), or "vision" (the same plus a vision weight)."""
+    hf = _hf_gemma3(seed)
+    if kind == "text":
+        hf.save_pretrained(tmp_path)
+        return
+    text = hf.config.to_dict()
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"model_type": "gemma3", "text_config": text, "mm_tokens_per_image": 4}))
+    state = {k.replace("model.", "model.language_model.", 1): v.detach().numpy()
+             for k, v in hf.state_dict().items() if k != "lm_head.weight"}
+    if kind == "vision":
+        state["model.vision_tower.vision_model.post_layernorm.weight"] = np.ones(
+            8, np.float32)
+    save_file(state, str(tmp_path / "model.safetensors"))
+
+
+GEMMA_LOADS = {"text": ("text", None), "image_text": ("image_text", None),
+               "text_nf4": ("text", "nf4")}
+
+
+@pytest.mark.parametrize("case", sorted(GEMMA_LOADS))
+def test_gemma3_from_pretrained_matches_lxt_tpu(tmp_path, case):
+    kind, bits = GEMMA_LOADS[case]
+    _write_gemma3(tmp_path, kind)
+    jm = jreg.from_pretrained(tmp_path, quantize_bits=bits)
+    tm = treg.from_pretrained(tmp_path, quantize_bits=bits, device="cpu")
+    assert tm.family == jm.family == "gemma3_text"
+    assert dataclasses.asdict(tm.cfg) == dataclasses.asdict(jm.cfg)
+    assert tm.cfg.layer_types[5] == "full_attention" and "lm_head" not in tm.params
+    for name, jl in jm.params["layers"].items():
+        tl = tm.params["layers"][name]
+        assert isinstance(tl, tq.QuantizedTensor) == isinstance(jl, jq.QuantizedTensor)
+        if isinstance(jl, jq.QuantizedTensor):
+            assert tl.bits == jl.bits == "nf4"
+            np.testing.assert_array_equal(tl.q.numpy(), np.asarray(jl.q))
+            np.testing.assert_array_equal(tl.scale.numpy(), np.asarray(jl.scale))
+        else:
+            np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    assert bits is None or isinstance(tm.params["layers"]["wq"], tq.QuantizedTensor)
+    ids = np.random.RandomState(1).randint(0, VOCAB, (2, 128))
+    assert _nl2(tm.logits(ids).numpy(), jm.logits(ids)) <= BAR
+    for kw in ({}, {"kv_begin": np.asarray([5, 0], np.int32)}):
+        jv, jrel = jm.attribute(ids, **kw)
+        tv, trel = tm.attribute(ids, **kw)
+        assert _nl2(tv.numpy(), jv) <= BAR, kw
+        assert _nl2(trel.numpy(), jrel) <= BAR, kw
+
+
+def test_gemma3_from_hf_matches_lxt_tpu():
+    """A loaded Gemma3ForCausalLM through from_hf: the embedding scale and
+    the Gemma forward are dispatched by family."""
+    hf = _hf_gemma3(seed=12)
+    jm, tm = lxt_tpu.from_hf(hf), lxt_tpu_torch.from_hf(hf, device="cpu")
+    assert tm.family == jm.family == "gemma3_text"
+    ids = np.random.RandomState(4).randint(0, VOCAB, (1, 64))
+    np.testing.assert_array_equal(tm.embed(ids).numpy(), np.asarray(jm.embed(ids)))
+    assert _nl2(tm.logits(ids).numpy(), jm.logits(ids)) <= BAR
+    assert _nl2(tm.attribute(ids)[1].numpy(), jm.attribute(ids)[1]) <= BAR
+
+
+def test_gemma3_vision_weights_are_refused(tmp_path):
+    _write_gemma3(tmp_path, "vision")
+    with pytest.raises(ValueError, match="vision weights"):
+        treg.from_pretrained(tmp_path, device="cpu")
+
+
+GEMMA_CONFIGS = {
+    "text_bare": {"model_type": "gemma3_text"},
+    "text_pattern": dict(_GEMMA_TEXT, model_type="gemma3_text",
+                         sliding_window_pattern=3),
+    "text_layer_types": dict(_GEMMA_TEXT, model_type="gemma3_text",
+                             layer_types=["full_attention"] * 6),
+    # google/gemma-3-4b-it's config.json: text_config with the widths, the
+    # rest taken from the defaults
+    "gemma3_4b": {"model_type": "gemma3", "text_config": {
+        "hidden_size": 2560, "intermediate_size": 10240,
+        "model_type": "gemma3_text", "num_hidden_layers": 34,
+        "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+        "sliding_window": 1024}},
+    "gemma3_bare": {"model_type": "gemma3"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(GEMMA_CONFIGS))
+def test_read_hf_config_gemma3_matches_autoconfig(tmp_path, name):
+    """Keys left out take transformers' Gemma3TextConfig defaults;
+    layer_types comes from sliding_window_pattern when the file has only
+    that; a gemma3 config's text_config is filled the same way."""
+    (tmp_path / "config.json").write_text(json.dumps(GEMMA_CONFIGS[name]))
+    auto = AutoConfig.from_pretrained(tmp_path)
+    got = treg.read_hf_config(tmp_path)
+    if auto.model_type == "gemma3":
+        auto, got = auto.text_config, got.text_config
+    want = jgemma.Gemma3Config.from_hf(auto)
+    assert dataclasses.asdict(tgemma.Gemma3Config.from_hf(got)) == \
+        dataclasses.asdict(want)
+    assert got.hidden_activation == auto.hidden_activation
+    if name == "text_pattern":
+        assert want.layer_types.count("full_attention") == 2
