@@ -3,8 +3,10 @@
 each against its plain PyTorch version, and drives the AttnLRP main path
 (input relevance of a Llama-family LM with TinyLlama-1.1B widths, random
 weights from a seed), the quantized path (NF4 weights at Llama-3-8B width
-and depth, and a bitsandbytes-NF4 checkpoint through from_pretrained) and
-Gemma-3-4B's text model at full width and depth through the kernels.
+and depth, and a bitsandbytes-NF4 checkpoint through from_pretrained),
+Gemma-3-4B's text model at full width and depth through the kernels, and
+the sequence-parallel ring (flash_attention_lse's calls) over four
+processes on the one card.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
@@ -15,11 +17,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. K1 flash_fwd, K2 flash_bwd_dq (dq and the delta it computes inside) /
      flash_bwd_dkv and the RoPE rotation pass against their plain versions
      (the pass bit-exact on contiguous tensors and head-split views, delta
-     within 1e-5 normalized L2), bf16 and float32, over the mask regimes,
+     within 1e-5 normalized L2), bf16, float16 and float32, over the mask
+     regimes,
      T 320 (a part-full last q tile), Gemma-3-4B's local and global calls
      (head dim 256, T 4096, window 1024 or none) and both paths' calls;
-     then at the main path's call (B8 H32/4 T1024 D64), the NF4 8B path's
-     (B1 H32/8 T4096 D128) and Gemma-3-4B's two (B1 H8/4 T4096 D256), bf16,
+     the ring steps (offsets and an lse cotangent) at every (q_start,
+     k_start) pair of a 4-way split and one pair off the tile grid, bf16,
+     float16 and float32, head dim 64, 128 (window 300) and 256 (window
+     1024), on both bodies; then at the main path's call (B8 H32/4 T1024 D64), the
+     NF4 8B path's (B1 H32/8 T4096 D128) and Gemma-3-4B's two (B1 H8/4
+     T4096 D256), bf16,
      causal, rope: each kernel's device time (CUDA-graph replays) beside
      its plain version's, its roofline bound (fa.work: FLOPs over 989
      TFLOP/s or bytes over 3.35 TB/s, the larger) and the library's time
@@ -27,8 +34,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and cuDNN backends, and the memory-efficient one where a window needs
      a mask, the fastest kept; its backward against dq (delta inside) +
      dkv); as controls on the Hopper bodies, flash_bwd_dq's mma.sync body
-     and the separate delta pass that the backward no longer runs;
-  4. K3 nf4_dequant against its plain version, bit-exact, bf16 and float32,
+     and the separate delta pass that the backward no longer runs; and a
+     ring step at Llama-3-8B widths (B1 H32/8 T_local 2048 D128, keys
+     wholly in the past: the full square, dlse) beside the library's
+     non-causal attention;
+  4. K3 nf4_dequant against its plain version, bit-exact, bf16, float16
+     and float32,
      over the Llama-3-8B projection shapes and ragged ones; times at the
      wg [4096, 14336] and wd [14336, 4096] shapes;
   5. the main path in float32, 22 layers, batch 1 x 1024: the kernel path
@@ -37,7 +48,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. the main path served: bf16, batch 8 x 1024, three attributions through
      the kernels (launch counts, finite relevance, heatmaps/s), the einsum
      path's heatmaps/s, the bf16-vs-float32 relevance divergence at batch 1,
-     and the peak device memory;
+     the peak device memory, and float16 at batch 1 through the kernels'
+     float16 bodies (launches, divergence from float32);
   7. the NF4 path at Llama-3-8B width and depth (32 layers, bf16, batch
      1 x 4096, remat): three attributions (heatmaps/s, launches per
      attribution of K1, K2, the rotation pass and K3 against 64 / 32 / 128 /
@@ -54,14 +66,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (relevance <= 0.1); then bf16 at full width and depth (34 layers),
      batch 1 x 4096, remat off: three attributions (heatmaps/s, flash
      launches per attribution against 34 each, finite relevance, peak
-     memory).
+     memory);
+ 10. the ring: four processes on the one card over a gloo group (its
+     host-staged point-to-point; the card count is 1), Llama-3-8B widths,
+     random weights from one seed on every process, each comparison
+     explaining the reference's argmax token at the last position: at 2
+     layers and 1 x 4096 the float32 ring against the single-process
+     float32 kernel path (normalized L2 <= 1e-4) and the bf16 ring against
+     the float32 ring (<= 0.1); then bf16 at 4 layers and 1 x 8192 (2048 a
+     process, remat off), three attributions: finite relevance, its
+     divergence from the single-process bf16 kernel path (<= 0.02), the
+     peak memory, the wall time and the launches per process of K1,
+     flash_bwd_dq and flash_bwd_dkv against the steps whose kv shard the
+     causal mask leaves visible (process r: r + 1 of 4) x 4 layers. A
+     process that fails or hangs fails it.
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
 "at_gemma_local" / "at_gemma_global" at Gemma-3-4B's calls (the Gemma path
-runs no rotation pass). "launches", "launches_8b" and "launches_gemma" are
-each the count over its path's three timed attributions ("launches" of K3:
-the NF4 8B path's); the last line is {"ok": true, "device": {...}}.
+runs no rotation pass) and "at_ring" at the ring step. "launches",
+"launches_8b" and "launches_gemma" are each the count over its path's
+three timed attributions ("launches" of K3: the NF4 8B path's), and
+"launches_ring" over the ring's three driven attributions, all four
+processes together; the last line is {"ok": true, "device": {...}}.
 """
 
 import itertools
@@ -79,6 +106,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEQ, SERVE_BATCH, REQUESTS = 1024, 8, 3
 PARITY_BAR, DIVERGENCE_BAR = 1e-4, 0.1
+# (a, r) of each dtype's max|diff| bar a + r * absmax for K1/K2 against their
+# plain versions: lxt_tpu's TPU-kernel criterion for bf16, an eighth of it
+# for float16 (three more mantissa bits), 1e-4 for float32
+KERNEL_BARS = {"bfloat16": (0.01, 0.01171875), "float16": (0.00125, 0.00146484375),
+               "float32": (1e-4, 1e-4)}
 # flash_bwd_dq's delta against the plain version's, normalized L2: the same
 # float32 products summed in another order
 DELTA_BAR = 1e-5
@@ -108,15 +140,38 @@ CASES = {
     "gemma_local": (1, 8, 4, 4096, 256, {"window": 1024, "rope": True}),
     "gemma_global": (1, 8, 4, 4096, 256, {"rope": True}),
 }
+# ring steps (flash_attention_lse's calls): every (q_start, k_start) pair of
+# a 4-way split of 4 x T (keys in the past, on the diagonal and wholly in the
+# future) and one pair off the tile grid, each with a nonzero lse cotangent:
+# the Hopper bodies in bf16 at D 64 and 128, the mma.sync bodies in float32
+# and at D 256 with Gemma-3's window
+RING_CASES = {
+    "ring_hd64": (2, 4, 2, 256, 64, {}),
+    "ring_hd128_window300": (1, 8, 2, 256, 128, {"window": 300}),
+    "ring_hd256_window1024": (1, 8, 4, 1024, 256, {"window": 1024}),
+}
+
+
+def ring_pairs(T):
+    return [(i * T, j * T) for i in range(4) for j in range(4)] + [(100, 37)]
+
+
 # the paths' attention calls, bf16, causal, rope: the main path's
 # (TinyLlama-1.1B widths, B 8 x 1024), the NF4 8B path's (Llama-3-8B
-# widths, B 1 x 4096) and Gemma-3-4B's local and global layers' (B 1 x 4096)
+# widths, B 1 x 4096) and Gemma-3-4B's local and global layers' (B 1 x 4096);
+# and a ring step of phase 10 at Llama-3-8B widths (T_local 2048, rope
+# applied outside, keys wholly in the past: the full square, with an lse
+# cotangent)
 MAIN_CASE = (SERVE_BATCH, 32, 4, SEQ, 64, {"rope": True})
 CALLS = {"main": MAIN_CASE, "8b": (1, 32, 8, 4096, 128, {"rope": True}),
-         "gemma_local": CASES["gemma_local"], "gemma_global": CASES["gemma_global"]}
-CALL_NAMES = {"main": "B8 H32/4 T1024 D64", "8b": "B1 H32/8 T4096 D128",
-              "gemma_local": "B1 H8/4 T4096 D256 window 1024",
-              "gemma_global": "B1 H8/4 T4096 D256"}
+         "gemma_local": CASES["gemma_local"], "gemma_global": CASES["gemma_global"],
+         "ring": (1, 32, 8, 2048, 128, {"q_start": 2048, "dlse": True})}
+CALL_NAMES = {"main": "B8 H32/4 T1024 D64 causal rope",
+              "8b": "B1 H32/8 T4096 D128 causal rope",
+              "gemma_local": "B1 H8/4 T4096 D256 window 1024 causal rope",
+              "gemma_global": "B1 H8/4 T4096 D256 causal rope",
+              "ring": "B1 H32/8 T_local 2048 D128 ring step q_start 2048 k_start 0 "
+                      "(full square) dlse"}
 # peak rates of an H100 SXM (data sheet): bf16 tensor cores, float32 outside
 # them (the rotation pass's elementwise work), device memory
 PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
@@ -166,6 +221,16 @@ GEMMA3_4B = dict(vocab_size=262208, hidden_size=2560, intermediate_size=10240,
                  rope_theta=1e6, rope_local_theta=1e4, rope_global_scaling=8.0,
                  rms_eps=1e-6, query_pre_attn_scalar=256.0, sliding_window=1024)
 SEQ_GEMMA, GEMMA_PARITY_LAYERS, SEQ_GEMMA_PARITY = 4096, 6, 2048
+# phase 10, the ring: four processes on the one card over a gloo group,
+# Llama-3-8B widths, random weights from one seed on every process; gates
+# at 2 layers and 1 x 4096, the driven run bf16 at 4 layers and 1 x 8192.
+# The driven run's bar against the single-process bf16 kernel path: both
+# bf16, explaining one token, apart only in sum order (read 0.004164 on the
+# H100 before the ring skipped hidden steps)
+RING_WORLD, RING_SEED, RING_TIMEOUT = 4, 21, 600
+RING_GATE = (2, 4096)
+RING_DRIVEN = (4, 8192)
+RING_BF16_BAR = 0.02
 
 
 def card_line():
@@ -249,28 +314,41 @@ def kernel_inputs(case, dtype, seed):
     return (q, k, v, do), extra
 
 
+def ring_args(case, seed):
+    """A call's global offsets ({"q_start", "k_start"}) and, where the
+    case asks for one, a seeded lse cotangent [B, H, T] (None otherwise)."""
+    import torch
+    B, H, _, T, _, opt = case
+    off = {"q_start": opt.get("q_start", 0), "k_start": opt.get("k_start", 0)}
+    gen = torch.Generator("cuda").manual_seed(seed + 1)
+    dlse = (torch.randn((B, H, T), generator=gen, device="cuda")
+            if opt.get("dlse") else None)
+    return off, dlse
+
+
 def compare_kernels(case, dtype, seed):
-    """Each kernel and its plain version on the same inputs: returns
-    {output: (error, bound, max_abs_err)}, the error being the max abs
-    error except for delta (normalized L2); the backward kernels get the
-    plain forward's out and lse and flash_bwd_dkv the plain delta, so each
-    is held alone."""
+    """Each kernel and its plain version on the same inputs (at the case's
+    global offsets, flash_bwd_dq with its lse cotangent): returns {output:
+    (error, bound, max_abs_err)}, the error being the max abs error except
+    for delta (normalized L2); the backward kernels get the plain forward's
+    out and lse and flash_bwd_dkv the plain delta, so each is held alone."""
     import torch
     from lxt_tpu_torch.ops import flash_attention as fa
-    a, r = (0.01, 0.01171875) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    a, r = KERNEL_BARS[str(dtype)[6:]]
     (q, k, v, do), extra = kernel_inputs(case, dtype, seed)
-    out, lse = fa.flash_fwd(q, k, v, *extra)
-    ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, *extra)
+    off, dlse = ring_args(case, seed)
+    out, lse = fa.flash_fwd(q, k, v, *extra, **off)
+    ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, *extra, **off)
     dq_args = (q, k, v, do, ref_out, ref_lse, *extra)
-    want_dq, want_delta = fa.flash_bwd_dq_ref(*dq_args)
+    want_dq, want_delta = fa.flash_bwd_dq_ref(*dq_args, dlse=dlse, **off)
     bwd = (q, k, v, do, ref_lse, want_delta, *extra)
     seen = ref_lse > -1e29
     got = {"out": out, "lse": torch.where(seen, lse, 0.0)}
-    got["dq"], got["delta"] = fa.flash_bwd_dq(*dq_args)
-    got["dk"], got["dv"] = fa.flash_bwd_dkv(*bwd)
+    got["dq"], got["delta"] = fa.flash_bwd_dq(*dq_args, dlse=dlse, **off)
+    got["dk"], got["dv"] = fa.flash_bwd_dkv(*bwd, **off)
     want = {"out": ref_out, "lse": torch.where(seen, ref_lse, 0.0),
             "dq": want_dq, "delta": want_delta}
-    want["dk"], want["dv"] = fa.flash_bwd_dkv_ref(*bwd)
+    want["dk"], want["dv"] = fa.flash_bwd_dkv_ref(*bwd, **off)
     cos, sin = extra[:2]
     if cos is not None:  # the rotation pass, bit-exact: bound 0
         got["rope"] = fa.rope_rotate(q, cos, sin)
@@ -301,31 +379,35 @@ def bound(name, case):
     B, H, Hkv, T, D, opt = case
     flops, moved = fa.work(name, B, H, Hkv, T, D, 2, window=opt.get("window"),
                            causal=opt.get("causal", True),
-                           rope=bool(opt.get("rope")))
+                           rope=bool(opt.get("rope")),
+                           q_start=opt.get("q_start", 0),
+                           k_start=opt.get("k_start", 0),
+                           dlse=bool(opt.get("dlse")))
     t_ops = flops / (PEAK_F32 if name == "rope_rotate" else PEAK_BF16) * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None):
+def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None, causal=True):
     """The library's time for the same attention: one
-    scaled_dot_product_attention call (causal, GQA) under its flash and its
+    scaled_dot_product_attention call (causal or, for a ring step whose keys
+    lie wholly in the past, non-causal; GQA) under its flash and its
     cuDNN backend, forward and backward (torch.autograd.grad with
     retain_graph) timed apart; with a window, whose mask only a boolean
     attn_mask can give, under the memory-efficient backend too. q and k are
-    rotated, and k/v repeated where a backend refuses GQA, outside the
-    timed windows. Returns the fastest {"fwd": (ms, backend), "bwd": (ms,
-    backend)} and a line per backend."""
+    rotated (where the call has tables), and k/v repeated where a backend
+    refuses GQA, outside the timed windows. Returns the fastest {"fwd": (ms,
+    backend), "bwd": (ms, backend)} and a line per backend."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from lxt_tpu_torch.models import common
     from lxt_tpu_torch.ops.attention import repeat_kv
-    qr, kr = common.apply_rope(q, k, cos, sin)
+    qr, kr = (q, k) if cos is None else common.apply_rope(q, k, cos, sin)
     n_rep = q.shape[1] // k.shape[1]
     best, lines = {}, []
     backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION]
-    mask = {"is_causal": True}
+    mask = {"is_causal": causal}
     if window is not None:
         i = torch.arange(q.shape[2], device=q.device)
         mask = {"attn_mask": (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)}
@@ -370,28 +452,32 @@ def time_call(call, card):
     from lxt_tpu_torch.ops import flash_attention as fa
     case = CALLS[call]
     (q, k, v, do), extra = kernel_inputs(case, torch.bfloat16, seed=99)
+    off, dlse = ring_args(case, seed=99)
     cos, sin, scale = extra[0], extra[1], extra[5]
-    window = case[5].get("window")
-    out, lse = fa.flash_fwd(q, k, v, *extra)
+    B, H, Hkv, T, D, opt = case
+    window = opt.get("window")
+    full = fa.visible_pairs(T, window, opt.get("causal", True), **off) == T * T
+    out, lse = fa.flash_fwd(q, k, v, *extra, **off)
     dq_args = (q, k, v, do, out, lse, *extra)
-    _, delta = fa.flash_bwd_dq(*dq_args)
+    _, delta = fa.flash_bwd_dq(*dq_args, dlse=dlse, **off)
     bwd = (q, k, v, do, lse, delta, *extra)
     timed = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *extra),
-                      lambda: fa.flash_fwd_ref(q, k, v, *extra)),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*dq_args),
-                         lambda: fa.flash_bwd_dq_ref(*dq_args)),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd),
-                          lambda: fa.flash_bwd_dkv_ref(*bwd)),
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *extra, **off),
+                      lambda: fa.flash_fwd_ref(q, k, v, *extra, **off)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*dq_args, dlse=dlse, **off),
+                         lambda: fa.flash_bwd_dq_ref(*dq_args, dlse=dlse, **off)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*bwd, **off),
+                          lambda: fa.flash_bwd_dkv_ref(*bwd, **off)),
         "rope_rotate": (lambda: fa.rope_rotate(q, cos, sin),
                         lambda: fa.rope_rotate_ref(q, cos, sin)),
     }
-    lib, lib_lines = sdpa_yardstick(q, k, v, do, cos, sin, scale, window)
+    lib, lib_lines = sdpa_yardstick(q, k, v, do, cos, sin, scale, window,
+                                    causal=not full)
     library = {"flash_fwd": lib.get("fwd"), "flash_bwd_dq": lib.get("bwd"),
                "flash_bwd_dkv": lib.get("bwd"), "rope_rotate": None}
     plain_iters = 10 if call == "main" else 3
     hopper = fa._hopper(q)
-    if not hopper:  # the mma.sync bodies rotate inside the kernel
+    if not hopper or cos is None:  # the mma.sync bodies rotate inside the kernel
         del timed["rope_rotate"]
     res = {}
     for name, (kern, plain) in timed.items():
@@ -408,14 +494,14 @@ def time_call(call, card):
         r = res[name]
         body = "" if name == "rope_rotate" else (
             f" ({'Hopper' if hopper else 'mma.sync'} body)")
-        print(f"kernel time {name} at {CALL_NAMES[call]} bf16 causal rope{body}: "
+        print(f"kernel time {name} at {CALL_NAMES[call]} bf16{body}: "
               f"kernel {r['ms']:.4f} ms (eager calls {eager:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
               f"{b_ms / r['ms']:.1%} of it), library "
               + (f"{lib_ms:.4f} ms ({lib_name})" if lib_ms else "none")
               + f" [{card}]", flush=True)
     dq_ms = res["flash_bwd_dq"]["ms"]
-    if hopper:
+    if hopper and not any(off.values()):
         mma_ms = graph_ms(lambda: fa.flash_bwd_dq_mma(*dq_args))
         delta_ms = graph_ms(lambda: (out.float() * do.float()).sum(-1))
         print(f"controls at {CALL_NAMES[call]}: flash_bwd_dq's mma.sync body "
@@ -436,7 +522,7 @@ def time_call(call, card):
 def phase_kernels(card):
     import torch
     failures = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for i, (name, case) in enumerate(CASES.items()):
             res = compare_kernels(case, dtype, seed=i)
             ok = all(err <= bound for err, bound, _ in res.values())
@@ -445,13 +531,29 @@ def phase_kernels(card):
             print(f"kernel case {str(dtype)[6:]:8s} {name:22s} " + " ".join(
                 f"{k} {e:.3g}/{b:.3g}" for k, (e, b, _) in res.items())
                 + (" PASS" if ok else " FAIL"), flush=True)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for i, (name, (B, H, Hkv, T, D, opt)) in enumerate(RING_CASES.items()):
+            worst, ok = {}, True
+            for q_start, k_start in ring_pairs(T):
+                step = dict(opt, q_start=q_start, k_start=k_start, dlse=True)
+                res = compare_kernels((B, H, Hkv, T, D, step), dtype, seed=100 + i)
+                for key, (err, bnd, _) in res.items():
+                    ok = ok and err <= bnd
+                    worst[key] = max(worst.get(key, (0.0, 1.0)), (err, bnd),
+                                     key=lambda eb: eb[0] / eb[1])
+            if not ok:
+                failures.append(f"kernel case {name} {dtype}")
+            print(f"kernel case {str(dtype)[6:]:8s} {name:22s} over "
+                  f"{len(ring_pairs(T))} ring-step offsets with dlse, worst: "
+                  + " ".join(f"{k} {e:.3g}/{b:.3g}" for k, (e, b) in worst.items())
+                  + (" PASS" if ok else " FAIL"), flush=True)
     errs = {}
     for call, case in CALLS.items():
         res = compare_kernels(case, torch.bfloat16, seed=99)
         ok = all(err <= bound for err, bound, _ in res.values())
         if not ok:
             failures.append(f"kernel case {call} call")
-        print(f"kernel case bfloat16 {call} call {CALL_NAMES[call]} rope " + " ".join(
+        print(f"kernel case bfloat16 {call} call {CALL_NAMES[call]}: " + " ".join(
             f"{k} {e:.3g}/{b:.3g}" for k, (e, b, _) in res.items())
             + (" PASS" if ok else " FAIL"), flush=True)
         if call == "main":
@@ -464,9 +566,10 @@ def phase_kernels(card):
     return failures, errs, timing
 
 
-def attribute(params, cfg, ids, impl, remat, family="llama"):
+def attribute(params, cfg, ids, impl, remat, family="llama", token=None):
     """One heatmap per example: (logits at the last position, relevance),
-    through the family's embedding and forward."""
+    through the family's embedding and forward; the target is the argmax
+    logit at the last position, or ``token``'s."""
     import lxt_tpu_torch
     from lxt_tpu_torch.models.registry import FAMILIES
     fns = FAMILIES[family]
@@ -477,7 +580,7 @@ def attribute(params, cfg, ids, impl, remat, family="llama"):
                                 remat=remat, logits_at=-1,
                                 attn_impl=impl).logits
         held["logits"] = logits.detach()
-        return lxt_tpu_torch.select_logit(logits)
+        return lxt_tpu_torch.select_logit(logits, token=token)
 
     _, rel = lxt_tpu_torch.input_relevance(target, fns["embed"](params, ids, cfg))
     return held["logits"], rel
@@ -585,12 +688,31 @@ def phase_served(card, params32, ids1, rel32):
           f"path: {div_e:.4g})", flush=True)
     if not (math.isfinite(div) and div <= DIVERGENCE_BAR):
         failures.append("bf16 divergence")
+
+    # float16 through the kernels' float16 bodies (mma.sync: the rotation
+    # runs inside them)
+    cfg_h = llama.LlamaConfig(**MODEL, dtype="float16")
+    params_h = cast(params32, torch.float16)
+    fa.reset_launches()
+    _, rel_h = attribute(params_h, cfg_h, ids1, "auto", False)
+    torch.cuda.synchronize()
+    launches_h = dict(fa.launches)
+    div_h = nl2(rel_h.float(), rel32)
+    want_h = expected_launches(cfg_h.num_layers, hopper=False, remat=False)
+    print(f"main path float16 vs float32 relevance at B1x{SEQ}, kernels: "
+          f"normalized L2 {div_h:.4g} (bar {DIVERGENCE_BAR}); launches "
+          f"{launches_h} (expected {want_h}) [{card}]", flush=True)
+    if not (math.isfinite(div_h) and div_h <= DIVERGENCE_BAR):
+        failures.append("float16 divergence")
+    if launches_h != want_h:
+        failures.append(f"float16 launches {launches_h}")
     return failures, launches
 
 
 def phase_k3(card):
-    """K3 against its plain version: bit-exact on every case, both dtypes;
-    then times at the wg and wd shapes (bf16, the main path's dtype)."""
+    """K3 against its plain version: bit-exact on every case, all three
+    dtypes; then times at the wg and wd shapes (bf16, the main path's
+    dtype)."""
     import torch
     from lxt_tpu_torch.ops import quant
     failures, err_max = [], 0.0
@@ -601,7 +723,7 @@ def phase_k3(card):
 
     for name, (shape, block) in K3_CASES.items():
         qt = quant.quantize(weight(shape), "nf4", block=block)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             got = quant.nf4_dequant(qt.q, qt.scale, qt.block, dtype)
             want = quant.nf4_dequant_ref(qt.q, qt.scale, qt.block, dtype)
             torch.cuda.synchronize()
@@ -811,6 +933,176 @@ def phase_gemma(card):
     return failures, launches
 
 
+def ring_weights(layers, dtype):
+    """Phase 10's model: Llama-3-8B widths at ``layers``, random weights
+    from RING_SEED drawn on the card (the same on every process)."""
+    import torch
+    from lxt_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(**dict(LLAMA3_8B, num_layers=layers), dtype=dtype)
+    return cfg, llama.init_params(cfg, torch.Generator("cuda").manual_seed(RING_SEED))
+
+
+def ring_ids(T, vocab):
+    import torch
+    gen = torch.Generator("cuda").manual_seed(RING_SEED + T)
+    return torch.randint(0, vocab, (1, T), generator=gen, device="cuda")
+
+
+def cast(params, dtype):
+    return {k: ({n: t.to(dtype) for n, t in v.items()} if isinstance(v, dict)
+                else v.to(dtype)) for k, v in params.items()}
+
+
+def ring_rank(rank, store, out_dir, tokens):
+    """One process of phase 10: the gate runs (float32, then the same
+    weights in bf16) and the driven bf16 run through
+    attribute_sequence_parallel over a gloo group, each explaining the
+    logit of its ``tokens`` entry at the last position; writes its results
+    to ``out_dir``/rank<r>.pt."""
+    import functools
+    import torch
+    import torch.distributed as dist
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.ops import flash_attention as fa
+    from lxt_tpu_torch.ops import quant
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the host's cores shared out: more threads a process oversubscribe them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (RING_WORLD + 1)))
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=RING_WORLD)
+    try:
+        forward = functools.partial(llama.forward, remat=False)
+
+        def run(cfg, params, ids, token):
+            return lxt_tpu_torch.attribute_sequence_parallel(
+                forward, params, cfg, llama.embed(params, ids), lxt_tpu_torch.attnlrp,
+                token=token)
+
+        res = {}
+        layers, T = RING_GATE
+        cfg, params = ring_weights(layers, "float32")
+        ids = ring_ids(T, cfg.vocab_size)
+        res["value32"], res["rel32"] = run(cfg, params, ids, tokens["rel32"])
+        params = cast(params, torch.bfloat16)
+        cfg = llama.LlamaConfig(**dict(LLAMA3_8B, num_layers=layers), dtype="bfloat16")
+        res["value16"], res["rel16"] = run(cfg, params, ids, tokens["rel32"])
+        del params
+        torch.cuda.empty_cache()
+
+        layers, T = RING_DRIVEN
+        cfg, params = ring_weights(layers, "bfloat16")
+        ids = ring_ids(T, cfg.vocab_size)
+        run(cfg, params, ids, tokens["rel"])  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        quant.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(REQUESTS):
+            res["value"], res["rel"] = run(cfg, params, ids, tokens["rel"])
+        torch.cuda.synchronize()
+        res["seconds"] = (time.perf_counter() - t0) / REQUESTS
+        res["launches"] = {**fa.launches, **quant.launches}
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        dist.barrier()
+        torch.save({k: v.cpu() if torch.is_tensor(v) else v for k, v in res.items()},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ring(card):
+    """Phase 10: the ring on the card. The single-process kernel-path
+    references (float32 at the gate's size, bf16 at the driven size) in
+    this process, then RING_WORLD processes over gloo on the one card. Each
+    comparison explains one token, the reference's argmax at the last
+    position: in bf16 the two largest logits can tie, and the argmax then
+    depends on the sum order."""
+    import multiprocessing
+    import torch
+    from lxt_tpu_torch.ops import flash_attention as fa
+    failures = []
+    refs, tokens = {}, {}
+    for key, (layers, T), dtype in (("rel32", RING_GATE, "float32"),
+                                    ("rel", RING_DRIVEN, "bfloat16")):
+        cfg, params = ring_weights(layers, dtype)
+        ids = ring_ids(T, cfg.vocab_size)
+        logits, _ = attribute(params, cfg, ids, "auto", remat=False)
+        tokens[key] = int(logits[0, -1].float().argmax())
+        refs[key] = attribute(params, cfg, ids, "auto", remat=False,
+                              token=tokens[key])[1].float().cpu()
+        del params, logits
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=ring_rank,
+                             args=(r, os.path.join(tmp, "store"), tmp, tokens))
+                 for r in range(RING_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(0.0, RING_TIMEOUT - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if hung or codes != [0] * RING_WORLD:
+            return [f"ring processes: hung {hung}, exit codes {codes}"], {}
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(RING_WORLD)]
+    r0 = ranks[0]
+    same = all(torch.equal(r["rel"], r0["rel"]) and torch.equal(r["rel32"], r0["rel32"])
+               for r in ranks)
+    d32 = nl2(r0["rel32"], refs["rel32"])
+    d16 = nl2(r0["rel16"].float(), r0["rel32"])
+    layers, T = RING_GATE
+    print(f"ring Llama-3-8B width L{layers} B1x{T} over {RING_WORLD} processes "
+          f"(gloo, one card), explaining token {tokens['rel32']} at the last "
+          f"position: float32 ring vs the single-process float32 kernel "
+          f"path relevance normalized L2 {d32:.3g} (bar {PARITY_BAR}); bf16 ring vs "
+          f"float32 ring {d16:.4g} (bar {DIVERGENCE_BAR}); every process holds the "
+          f"same gathered relevance: {same} [{card}]", flush=True)
+    if not (same and d32 <= PARITY_BAR and d16 <= DIVERGENCE_BAR):
+        failures.append("ring gates")
+    layers, T = RING_DRIVEN
+    Tl = T // RING_WORLD
+    # the ring steps whose kv shard the causal mask leaves some visible
+    # pair of, per process (a brute-force count of the mask)
+    steps = [sum(fa.visible_pairs(Tl, None, True, q_start=r * Tl,
+                                  k_start=((r - s) % RING_WORLD) * Tl) > 0
+                 for s in range(RING_WORLD)) for r in range(RING_WORLD)]
+    want = [{"flash_fwd": REQUESTS * n * layers, "flash_bwd_dq": REQUESTS * n * layers,
+             "flash_bwd_dkv": REQUESTS * n * layers, "rope_rotate": 0, "nf4_dequant": 0}
+            for n in steps]
+    finite = all(r["rel"].shape == (1, T) and bool(torch.isfinite(r["rel"]).all())
+                 for r in ranks)
+    d = nl2(r0["rel"], refs["rel"])
+    print(f"ring driven run: Llama-3-8B width L{layers} bf16 B1x{T} ({Tl} per "
+          f"process, remat off), {REQUESTS} attributions explaining token "
+          f"{tokens['rel']}: relevance finite and [1, {T}]: {finite}, against the "
+          f"single-process bf16 kernel path normalized L2 {d:.4g} (bar "
+          f"{RING_BF16_BAR}); launches per process {[r['launches'] for r in ranks]} "
+          f"(expected {want}: {steps} visible steps of {RING_WORLD} x {layers} "
+          f"layers x {REQUESTS}); peak device memory per process "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; wall time per "
+          f"attribution through gloo's host staging "
+          f"{[round(r['seconds'], 3) for r in ranks]} s (printed, not claimed) "
+          f"[{card}]", flush=True)
+    if not (finite and same and d <= RING_BF16_BAR):
+        failures.append("ring driven relevance")
+    if [r["launches"] for r in ranks] != want:
+        failures.append("ring launches")
+    return failures, {n: sum(r["launches"][n] for r in ranks) for n in r0["launches"]}
+
+
 def write_safetensors(path, tensors):
     """A minimal safetensors writer (the card's machine has no safetensors
     package): 8-byte header length, JSON header, raw little-endian data."""
@@ -955,7 +1247,10 @@ def main():
     torch.cuda.empty_cache()
     f, gemma_launches = phase_gemma(card)
     failures += f
-    print(f"phases 3-9 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    f, ring_launches = phase_ring(card)
+    failures += f
+    print(f"phases 3-10 took {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -973,7 +1268,8 @@ def main():
          **{f"at_{call}": {key: at[name][call][key] for key in keys}
             for call in CALLS if call != "main" and call in at[name]},
          "launches_8b": nf4_launches[name],
-         "launches_gemma": gemma_launches.get(name, 0)}
+         "launches_gemma": gemma_launches.get(name, 0),
+         "launches_ring": ring_launches.get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

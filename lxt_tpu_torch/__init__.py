@@ -8,8 +8,10 @@ autograd Function or a stop-gradient inside the model forward, so
 dequantization on CUDA tensors run the kernels in ``csrc/`` (built with
 nvcc at first use); on CPU tensors they run their plain PyTorch versions.
 
-``from_pretrained``, ``from_hf``, ``quantize_params`` and
-``QuantizedTensor`` are imported on first access.
+``from_pretrained``, ``from_hf``, ``quantize_params``,
+``QuantizedTensor``, ``flash_attention_lse`` and the sequence-parallel
+ring (``ring_flash_attention``, ``attribute_sequence_parallel``) are
+imported on first access.
 """
 
 import importlib
@@ -24,6 +26,9 @@ _LAZY = {
     "from_hf": "lxt_tpu_torch.models.registry",
     "quantize_params": "lxt_tpu_torch.ops.quant",
     "QuantizedTensor": "lxt_tpu_torch.ops.quant",
+    "flash_attention_lse": "lxt_tpu_torch.ops.flash_attention",
+    "ring_flash_attention": "lxt_tpu_torch.parallel.ring",
+    "attribute_sequence_parallel": "lxt_tpu_torch.parallel.ring",
 }
 
 __all__ = [

@@ -2,15 +2,21 @@
 //
 // Replaces the Pallas TPU kernels in lxt_tpu/ops/flash_attention.py:
 // _fused_bwd_kernel and _fused_bwd_kernel_split (one kv block, launched by
-// _fused_bwd) and _dq_kernel with _dkv_kernel (launched by _split_bwd).
-// From the forward's out and lse:
-//   Δ = rowsum(out∘do), p = exp(s − lse), dv = pᵀ·do, dp = do·vᵀ,
+// _fused_bwd) and _dq_kernel with _dkv_kernel (launched by _split_bwd),
+// for flash_attention's backward and for flash_attention_lse's (_flash_lse_bwd).
+// From the forward's out and lse, and the lse cotangent dlse where the
+// caller uses the lse (flash_attention_lse; the ring merges by it):
+//   Δ = rowsum(out∘do) − dlse, p = exp(s − lse), dv = pᵀ·do, dp = do·vᵀ,
 //   ds = p∘(dp − Δ), dq = ds·k·scale, dk = dsᵀ·q·scale,
 // with dk/dv summed over each GQA group and the transposed RoPE rotation
-// applied to dq and dk. Rows with lse <= −5e29 (no visible key) give p = 0.
-// flash_bwd_dq computes Δ of its own rows in its prologue and writes it
-// out (lxt_tpu's inline_delta option, _delta_block); flash_bwd_dkv, which
-// runs after it, reads that Δ. The backward runs no separate Δ pass.
+// applied to dq and dk (dlse folds in as −Δ does: ∂lse/∂s = p, as
+// _make_delta does in lxt_tpu). Rows with lse <= −5e29 (no visible key)
+// give p = 0. flash_bwd_dq computes Δ of its own rows in its prologue and
+// writes it out (lxt_tpu's inline_delta option, _delta_block); without a
+// dlse its arithmetic is that of flash_attention's backward bit for bit.
+// flash_bwd_dkv, which runs after it, reads that Δ. The backward runs no
+// separate Δ pass. The masks take the call's global q_start / k_start
+// offsets (Mask in flash_common.cuh), as _block_mask does.
 //
 // What bounds it on the H100: five products per score (against two in the
 // forward; flash_bwd_dq recomputes s and dp, so the two kernels do seven),
@@ -82,7 +88,7 @@
 //   before it waits for the tiles, the epilogue's tables load during the
 //   last tile, and dq is stored as bf16 pairs.
 //
-// The mma.sync bodies (float32 and bf16 at head dim 256):
+// The mma.sync bodies (float32, float16, and bf16 at head dim 256):
 // - flash_bwd_dkv: one CTA per (b, kv head, 64-row kv tile); each warp owns
 //   16 kv rows and accumulates dk and dv in registers while the CTA loops
 //   over the n_rep q heads of the group and over the visible q tiles.
@@ -92,8 +98,8 @@
 // Both recompute p from lse (no probabilities are stored), skip fully
 // masked tiles, and pass p and ds through per-warp shared strips in the
 // activation dtype for the next product, as the TPU kernels cast them.
-// Products use mma.sync (bf16) or FMAs (float32) with fp32 accumulation;
-// loads are not pipelined.
+// Products use mma.sync (bf16, float16) or FMAs (float32) with fp32
+// accumulation; loads are not pipelined.
 #include "hopper.cuh"
 
 namespace lxt {
@@ -148,6 +154,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashArgs 
                   delta);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    if (a.dlse) delta[r] -= a.dlse[stat0 + row0 + 8 * r];
     const float lse = a.lse[stat0 + row0 + 8 * r];
     dead[r] = lse <= kNegInf / 2;
     lse2[r] = lse * kLog2e;
@@ -631,6 +638,7 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
                          a.sdo[2], row0, delta);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
+        if (a.dlse) delta[r] -= a.dlse[stat + row0 + 8 * r];
         const float lse = a.lse[stat + row0 + 8 * r];
         sub[r] = lse <= kNegInf / 2 ? __int_as_float(0x7f800000) : lse * kLog2e;
         if (t == 0) a.lse_out[stat + row0 + 8 * r] = delta[r];
@@ -802,7 +810,8 @@ cudaError_t launch_bwd_dq(const FlashArgs& a, cudaStream_t stream) {
 
 }  // namespace lxt
 
-// dtype: 0 float32, 1 bfloat16. Each returns the cudaError_t of its launch.
+// dtype: 0 float32, 1 bfloat16, 2 float16. Each returns the cudaError_t of
+// its launch.
 // The mma.sync body of flash_bwd_dq at every (dtype, head dim): the body
 // bf16 at head dim 64 and 128 ran before its Hopper body, kept callable so
 // that chip_smoke.py can time the two side by side.
@@ -817,6 +826,9 @@ extern "C" int lxt_flash_bwd_dq_mma(const lxt::FlashArgs* a, int dtype, int head
     case 1064: return launch_bwd_dq<bf16, 64>(*a, s);
     case 1128: return launch_bwd_dq<bf16, 128>(*a, s);
     case 1256: return launch_bwd_dq<bf16, 256>(*a, s);
+    case 2064: return launch_bwd_dq<f16, 64>(*a, s);
+    case 2128: return launch_bwd_dq<f16, 128>(*a, s);
+    case 2256: return launch_bwd_dq<f16, 256>(*a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -843,6 +855,9 @@ extern "C" int lxt_flash_bwd_dkv(const lxt::FlashArgs* a, int dtype, int head_di
     case 1064: return hopper::launch_bwd_dkv<64>(*a, s);
     case 1128: return hopper::launch_bwd_dkv<128>(*a, s);
     case 1256: return launch_bwd_dkv<bf16, 256>(*a, s);
+    case 2064: return launch_bwd_dkv<f16, 64>(*a, s);
+    case 2128: return launch_bwd_dkv<f16, 128>(*a, s);
+    case 2256: return launch_bwd_dkv<f16, 256>(*a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,18 +4,23 @@
 //
 // Work split: a CTA has 4 warps; each warp owns 16 rows of the tile the CTA
 // holds (q rows in flash_fwd and flash_bwd_dq, kv rows in flash_bwd_dkv).
-// Products run per warp on 16-row strips: bf16 through mma.sync.m16n8k16
-// (fp32 accumulate), fp32 through FMAs that own the same accumulator
-// fragment, so the softmax and masking code is shared by both types.
+// Products run per warp on 16-row strips: bf16 and float16 through
+// mma.sync.m16n8k16 (fp32 accumulate), fp32 through FMAs that own the same
+// accumulator fragment, so the softmax and masking code is shared by all
+// three types.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace lxt {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kNegInf = -1e30f;  // masked score / empty-row lse
 constexpr float kLog2e = 1.4426950408889634f;
@@ -36,7 +41,8 @@ struct FlashArgs {
   const void* dout;
   const void* out;       // the forward's out (bwd_dq reads it for Δ)
   const float* lse;
-  const float* delta;    // Δ = rowsum(out∘do) (bwd_dkv)
+  const float* delta;    // Δ = rowsum(out∘do) − dlse, as bwd_dq wrote it (bwd_dkv)
+  const float* dlse;     // [B, H, T] lse cotangent (bwd_dq) or null
   const void* cos;       // [T, D] rope tables in the activation dtype
   const void* sin;
   const int* kv_begin;   // [B] or null
@@ -46,15 +52,20 @@ struct FlashArgs {
   float* lse_out;        // [B, H, T]: lse (fwd), Δ (bwd_dq)
   long long sq[3], sk[3], sv[3], sdo[3], sout[3], so0[3], so1[3];
   int B, H, Hkv, T, window, causal;
+  int q_start, k_start;  // global positions of query row 0 and key row 0
   float scale, scale_log2;  // scale, and scale * log2(e)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ f16 from_f<f16>(float x) {
+  return __float2half_rn(x);
 }
 
 // Shared-memory row pitch: 16 bytes of padding keeps 16-byte row alignment
@@ -146,41 +157,50 @@ __device__ __forceinline__ void rope_transpose(float (&acc)[D / 8][4], const T* 
 
 // Causal / sliding-window / padding mask in global positions: key j is
 // visible from query i when j > i - window, kv_begin <= j < kv_end and, if
-// causal, j <= i.
+// causal, j <= i. Query row i of a call sits at global position i + q_start
+// and key row j at j + k_start; the mask works in the call's key rows: query
+// row i stands at key row i + shift (shift = q_start - k_start), and kv0, kv1
+// are the valid keys moved by -k_start and cut at T. Every method takes and
+// returns the call's own row indices.
 struct Mask {
-  int window, kv0, kv1;
+  int window, kv0, kv1, shift;
   bool causal;
 
   __device__ __forceinline__ bool allowed(int i, int j) const {
-    return j > i - window && j >= kv0 && j < kv1 && (!causal || j <= i);
+    const int p = i + shift;
+    return j > p - window && j >= kv0 && j < kv1 && (!causal || j <= p);
   }
   // the tile [q0, q0 + nq) x [k0, k0 + nk) is entirely masked
   __device__ __forceinline__ bool skip(int q0, int nq, int k0, int nk) const {
-    return k0 + nk - 1 <= q0 - window || k0 + nk - 1 < kv0 || k0 >= kv1 ||
-           (causal && k0 > q0 + nq - 1);
+    const int p0 = q0 + shift;
+    return k0 + nk - 1 <= p0 - window || k0 + nk - 1 < kv0 || k0 >= kv1 ||
+           (causal && k0 > p0 + nq - 1);
   }
   // the visible keys [lo, hi) of query i, and the visible queries [lo, hi)
   // of key j: the same test as allowed() as two bounds
   __device__ __forceinline__ void key_span(int i, int& lo, int& hi) const {
-    lo = max(i - window + 1, kv0);
-    hi = causal ? min(i + 1, kv1) : kv1;
+    const int p = i + shift;
+    lo = max(p - window + 1, kv0);
+    hi = causal ? min(p + 1, kv1) : kv1;
   }
   __device__ __forceinline__ void query_span(int j, int& lo, int& hi) const {
-    lo = causal ? j : 0;
-    hi = j >= kv0 && j < kv1 ? j + window : lo;
+    lo = causal ? j - shift : -kNoPad;
+    hi = j >= kv0 && j < kv1 ? j + window - shift : lo;
   }
   // the tile is entirely visible, so no element needs the mask
   __device__ __forceinline__ bool interior(int q0, int nq, int k0, int nk) const {
-    return k0 > q0 + nq - 1 - window && k0 >= kv0 && k0 + nk - 1 < kv1 &&
-           (!causal || k0 + nk - 1 <= q0);
+    const int p0 = q0 + shift;
+    return k0 > p0 + nq - 1 - window && k0 >= kv0 && k0 + nk - 1 < kv1 &&
+           (!causal || k0 + nk - 1 <= p0);
   }
 };
 
 // keys at or past T do not exist: a kv tile may run past T (the Hopper K1
 // body's 128-row kv tiles at T % 128 == 64), and its rows there are masked
 __device__ __forceinline__ Mask make_mask(const FlashArgs& a, int b) {
-  return Mask{a.window, a.kv_begin ? a.kv_begin[b] : 0,
-              min(a.kv_end ? a.kv_end[b] : kNoPad, a.T), a.causal != 0};
+  return Mask{a.window, (a.kv_begin ? a.kv_begin[b] : 0) - a.k_start,
+              min((a.kv_end ? a.kv_end[b] : kNoPad) - a.k_start, a.T),
+              a.q_start - a.k_start, a.causal != 0};
 }
 
 // ---------------------------------------------------------------------------
@@ -194,26 +214,43 @@ __device__ __forceinline__ Mask make_mask(const FlashArgs& a, int b) {
 // B[k * ldb + n].
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld_u32(const T* p) {
+  static_assert(sizeof(T) == 2, "two 16-bit elements");
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+__device__ __forceinline__ uint32_t bits16(bf16 x) { return __bfloat16_as_ushort(x); }
+__device__ __forceinline__ uint32_t bits16(f16 x) { return __half_as_ushort(x); }
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(T lo, T hi) {
+  return bits16(lo) | (bits16(hi) << 16);
 }
 
+template <typename T>
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same_v<T, bf16>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    static_assert(std::is_same_v<T, f16>, "bf16 or float16");
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
-template <bool B_NT, int NT, int K>
-__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* A, int lda,
-                                         const bf16* B, int ldb) {
+// bf16 and float16: one mma.sync per 16 x 8 x 16 block
+template <bool B_NT, int NT, int K, typename T, std::enable_if_t<sizeof(T) == 2, int> = 0>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const T* A, int lda,
+                                         const T* B, int ldb) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int k0 = 0; k0 < K; k0 += 16) {
@@ -230,10 +267,10 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const bf16* A, int
         b0 = ld_u32(B + n * ldb + k0 + 2 * t);
         b1 = ld_u32(B + n * ldb + k0 + 8 + 2 * t);
       } else {
-        b0 = pack_bf16(B[(k0 + 2 * t) * ldb + n], B[(k0 + 2 * t + 1) * ldb + n]);
-        b1 = pack_bf16(B[(k0 + 8 + 2 * t) * ldb + n], B[(k0 + 9 + 2 * t) * ldb + n]);
+        b0 = pack16(B[(k0 + 2 * t) * ldb + n], B[(k0 + 2 * t + 1) * ldb + n]);
+        b1 = pack16(B[(k0 + 8 + 2 * t) * ldb + n], B[(k0 + 9 + 2 * t) * ldb + n]);
       }
-      mma_16816(acc[nt], a, b0, b1);
+      mma_16816<T>(acc[nt], a, b0, b1);
     }
   }
 }
@@ -321,6 +358,9 @@ __device__ __forceinline__ float2 to_f2(const float* p) {
 }
 __device__ __forceinline__ float2 to_f2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 to_f2(const f16* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 
 // Δ = rowsum(out∘do) of the two rows a lane's accumulator fragments hold

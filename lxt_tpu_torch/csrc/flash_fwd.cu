@@ -2,10 +2,17 @@
 //
 // Replaces the Pallas TPU kernels in lxt_tpu/ops/flash_attention.py:
 // _fwd_kernel, _fwd_kernel_single (one kv block) and
-// _fwd_kernel_single_split (the causal diagonal split), launched by _fwd.
-// All three compute one function: out = softmax(q k^T * scale + mask) v and
-// the natural-log logsumexp of each row, by online softmax in the exp2
-// domain. Rows with no visible key give out 0 and lse -1e30.
+// _fwd_kernel_single_split (the causal diagonal split), launched by _fwd for
+// flash_attention and flash_attention_lse. All three compute one function:
+// out = softmax(q k^T * scale + mask) v and the natural-log logsumexp of
+// each row, by online softmax in the exp2 domain. Rows with no visible key
+// give out 0 and lse -1e30. The masks run in global positions: the call's
+// q_start / k_start offsets (a ring step's shards) shift the causal and
+// window tests and kv_begin / kv_end compare with global key positions
+// (Mask in flash_common.cuh). Under an offset a call may be entirely
+// visible (keys wholly in the past) or entirely masked (wholly in the
+// future, every row empty); the bodies below need nothing more for either,
+// since every skip, span and interior test goes through Mask.
 //
 // What bounds it on the H100: at the two paths' calls (B 8, H 32 / Hkv 4,
 // T 1024, head dim 64; B 1, H 32 / Hkv 8, T 4096, head dim 128; bf16,
@@ -38,14 +45,14 @@
 //   rotated by the rotation pass (rope.cu), once per call. This body never
 //   rotates k.
 //
-// The mma.sync body (float32, and bf16 at head dim 256): one CTA per (b,
+// The mma.sync body (float32, float16, and bf16 at head dim 256): one CTA per (b,
 // h, 64-row q tile); the 4 warps own 16 q rows each and loop over the kv tiles
 // (a loop in the block replaces the TPU's sequential kv grid axis; blocks
 // run in any order and share nothing). Fully masked kv tiles are skipped
 // and fully visible ones skip the per-element mask. GQA reads kv head
 // h / n_rep in place; k/v are never repeated. RoPE rotates the q and k
-// tiles in shared memory after the load. Products use mma.sync (bf16) or
-// FMAs (float32) with fp32 accumulation; p goes through shared memory for
+// tiles in shared memory after the load. Products use mma.sync (bf16,
+// float16) or FMAs (float32) with fp32 accumulation; p goes through shared memory for
 // the p·v product, as the TPU kernel casts p to v's dtype. Loads are plain
 // 16-byte vectors with no pipelining.
 #include "hopper.cuh"
@@ -438,7 +445,8 @@ extern "C" int lxt_flash_hopper(int dtype, int head_dim) {
   return dtype == 1 && (head_dim == 64 || head_dim == 128);
 }
 
-// dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 float32, 1 bfloat16, 2 float16. Returns the cudaError_t of the
+// launch.
 extern "C" int lxt_flash_fwd(const lxt::FlashArgs* a, int dtype, int head_dim,
                              void* stream) {
   using namespace lxt;
@@ -450,6 +458,9 @@ extern "C" int lxt_flash_fwd(const lxt::FlashArgs* a, int dtype, int head_dim,
     case 1064: return hopper::launch_fwd<64>(*a, s);
     case 1128: return hopper::launch_fwd<128>(*a, s);
     case 1256: return launch_fwd<bf16, 256>(*a, s);
+    case 2064: return launch_fwd<f16, 64>(*a, s);
+    case 2128: return launch_fwd<f16, 128>(*a, s);
+    case 2256: return launch_fwd<f16, 256>(*a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -12,9 +12,10 @@
 // layer axis l (layer-stacked weights) is part of the grid.
 //
 // What bounds it on the H100: memory traffic. Per weight element it reads
-// half a byte of codes and 4/block bytes of scales and writes 2 (bf16) or 4
-// (float32) bytes, about 2.56 bytes per element in bf16, with no reuse: one
-// coalesced pass at the card's bandwidth is the whole design. Each thread
+// half a byte of codes and 4/block bytes of scales and writes 2 (bf16,
+// float16) or 4 (float32) bytes, about 2.56 bytes per element in bf16, with
+// no reuse: one coalesced pass at the card's bandwidth is the whole design.
+// Each thread
 // reads 16 contiguous packed bytes of one packed row with one 16-byte load
 // (neighbouring threads, neighbouring bytes) and writes the 16 low-nibble
 // values to row j and the 16 high-nibble values to row j + K/2 as 16-byte
@@ -24,6 +25,7 @@
 // lookup is one warp shuffle. A ragged N (N % 16 != 0) or a misaligned base
 // takes the scalar instance, which loads and stores each column under a mask.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,10 +46,16 @@ __device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void put(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16_rn(x);
 }
+__device__ __forceinline__ void put(__half* dst, float x) { *dst = __float2half_rn(x); }
 
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+// two values rounded to a 16-bit type, packed low then high
+__device__ __forceinline__ uint32_t pair(__nv_bfloat16*, float lo, float hi) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ uint32_t pair(__half*, float lo, float hi) {
+  return (uint32_t)__half_as_ushort(__float2half_rn(lo)) |
+         ((uint32_t)__half_as_ushort(__float2half_rn(hi)) << 16);
 }
 
 // 16 consecutive output values as 16-byte stores (dst 16-byte aligned)
@@ -56,12 +64,14 @@ __device__ __forceinline__ void store_vec(float* dst, const float* v) {
   for (int c = 0; c < kCols; c += 4)
     *reinterpret_cast<float4*>(dst + c) = make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
 }
-__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* v) {
+template <typename OutT>
+__device__ __forceinline__ void store_vec(OutT* dst, const float* v) {
+  static_assert(sizeof(OutT) == 2, "bf16 or float16");
 #pragma unroll
   for (int c = 0; c < kCols; c += 8)
     *reinterpret_cast<uint4*>(dst + c) =
-        make_uint4(bf16_pair(v[c], v[c + 1]), bf16_pair(v[c + 2], v[c + 3]),
-                   bf16_pair(v[c + 4], v[c + 5]), bf16_pair(v[c + 6], v[c + 7]));
+        make_uint4(pair(dst, v[c], v[c + 1]), pair(dst, v[c + 2], v[c + 3]),
+                   pair(dst, v[c + 4], v[c + 5]), pair(dst, v[c + 6], v[c + 7]));
 }
 
 // grid: (ceil(rows / 8), ceil(chunks / 32)); block: (32, 8). rows = l * K/2
@@ -140,8 +150,9 @@ int launch_nf4(const void* q, const void* absmax, void* out, int rows, int Kh,
 }  // namespace lxt
 
 // q [layers, Kh, N] uint8, absmax [layers, 2*Kh/block, N] float32, out
-// [layers, 2*Kh, N] float32 (dtype 0) or bfloat16 (dtype 1). aligned != 0
-// promises N % 16 == 0 and 16-byte aligned q and absmax (out is fresh).
+// [layers, 2*Kh, N] float32 (dtype 0), bfloat16 (dtype 1) or float16 (dtype
+// 2). aligned != 0 promises N % 16 == 0 and 16-byte aligned q and absmax
+// (out is fresh).
 extern "C" int lxt_nf4_dequant(const void* q, const void* absmax, void* out,
                                int layers, int Kh, int N, int block, int dtype,
                                int aligned, void* stream) {
@@ -155,6 +166,7 @@ extern "C" int lxt_nf4_dequant(const void* q, const void* absmax, void* out,
   switch (dtype) {
     case 0: return launch_nf4<float>(q, absmax, out, (int)rows, Kh, N, block, aligned != 0, s);
     case 1: return launch_nf4<__nv_bfloat16>(q, absmax, out, (int)rows, Kh, N, block, aligned != 0, s);
+    case 2: return launch_nf4<__half>(q, absmax, out, (int)rows, Kh, N, block, aligned != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -102,7 +102,8 @@ cudaError_t launch_rope(const void* x, long long sb, long long sh, long long st,
 
 // x [B, H, T, D] with element strides (sb, sh, st) and a contiguous last
 // dim; cos/sin [T, D] contiguous; out [B, H, T, D] contiguous; D 64, 128 or
-// 256. dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch.
+// 256. dtype: 0 float32, 1 bfloat16, 2 float16. Returns the cudaError_t of
+// the launch.
 extern "C" int lxt_rope_rotate(const void* x, long long sb, long long sh, long long st,
                                const void* cos, const void* sin, void* out, int B, int H,
                                int T, int D, int dtype, void* stream) {
@@ -111,5 +112,6 @@ extern "C" int lxt_rope_rotate(const void* x, long long sb, long long sh, long l
   if (B > 65535 || H > 65535 * kHeads) return cudaErrorInvalidValue;
   if (dtype == 1) return launch_rope<bf16>(x, sb, sh, st, cos, sin, out, B, H, T, D, s);
   if (dtype == 0) return launch_rope<float>(x, sb, sh, st, cos, sin, out, B, H, T, D, s);
+  if (dtype == 2) return launch_rope<f16>(x, sb, sh, st, cos, sin, out, B, H, T, D, s);
   return cudaErrorInvalidValue;
 }

@@ -223,8 +223,15 @@ def _run_layers(lp, cfg, inputs_embeds, composite, *, probes,
     """The decoder layer stack (no embedding, final norm or lm_head)."""
     T = inputs_embeds.shape[1]
     act_fn = ACTIVATIONS[cfg.act]
+    seq_len = T
+    if attn_impl.partition("+")[0] == "ring":
+        # T is this process's shard: longrope picks its factor schedule from
+        # the global length, as the single-device run does (lxt_tpu passes
+        # the shard's, ROADMAP F7)
+        from lxt_tpu_torch.parallel.ring import ring_length
+        seq_len = ring_length(T)
     rope = common.rope_tables(positions, cfg.hd, cfg.rope_theta,
-                              rope_scaling=cfg.rope_scaling, seq_len=T)
+                              rope_scaling=cfg.rope_scaling, seq_len=seq_len)
     scale = cfg.hd ** -0.5
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     comp = composite

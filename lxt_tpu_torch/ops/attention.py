@@ -10,7 +10,9 @@ materializes a [T, T] bias; an additive ``bias`` or ``softcap`` takes the
 einsum path.
 
 Shapes are ``[batch, heads, seq, head_dim]``; the einsum path repeats GQA
-key/value heads, the kernels index them.
+key/value heads, the kernels index them. ``impl="ring"`` runs the
+sequence-parallel ring (``parallel/ring.py``): each process holds one
+shard of the sequence.
 """
 
 import math
@@ -59,6 +61,26 @@ def _einsum_attention(q, k, v, bias, causal, window, scale, softcap=None):
     return torch.matmul(probs.to(dtype), v)
 
 
+def route(impl, q, flash_ok):
+    """The path ``attention`` takes: 'auto' picks the flash kernels for a
+    CUDA tensor of any dtype (float32, bfloat16 and float16 all have
+    kernels) when the call is eligible (``flash_ok``), else einsum; an
+    explicit 'flash' falls back to einsum only for an ineligible call."""
+    if impl == "auto":
+        return "flash" if q.is_cuda and flash_ok else "einsum"
+    return "einsum" if impl == "flash" and not flash_ok else impl
+
+
+def _pad_head_dim(q, k, v):
+    """Zero-pad the head dim to the next native width (exact: padded q/k
+    columns add 0 to scores, padded v columns are sliced off)."""
+    D = q.shape[-1]
+    Dp = min(p for p in NATIVE_HEAD_DIMS if p >= D)
+    if Dp == D:
+        return q, k, v
+    return tuple(F.pad(t, (0, Dp - D)) for t in (q, k, v))
+
+
 def attention(
     q, k, v,
     *,
@@ -85,14 +107,24 @@ def attention(
     causal, window : structural causal / sliding-window mask.
     composite : rule assignment; ``composite.qkv`` fixes the relevance flow.
     impl : 'einsum' | 'flash' | 'auto' ('auto': the flash kernels for CUDA
-        tensors when eligible, the einsum path otherwise). 'flash' on CPU
-        tensors runs the kernels' plain PyTorch version.
+        tensors when eligible, the einsum path otherwise; see
+        :func:`route`). 'flash' on CPU tensors runs the
+        kernels' plain PyTorch version. 'ring' (any '+option' suffix is
+        ignored): ring attention over the processes of the group that
+        ``parallel.ring.attribute_sequence_parallel`` set (default: the
+        default group); q/k/v hold this process's shard of the sequence,
+        and only structural masks apply.
     softcap : optional tanh logit soft-capping (einsum path).
     kv_begin, kv_end : optional int [B] per-example valid-key span (left /
         right padding); fully padded query rows give zeros on the flash path.
     """
+    if impl.partition("+")[0] == "ring":
+        return _ring(q, k, v, bias=bias, causal=causal, window=window,
+                     composite=composite, scale=scale, softcap=softcap,
+                     kv_begin=kv_begin, kv_end=kv_end, rope=rope)
     if impl not in ("auto", "flash", "einsum"):
-        raise ValueError(f"impl must be 'auto', 'flash' or 'einsum', got {impl!r}")
+        raise ValueError(f"impl must be 'auto', 'flash', 'einsum' or 'ring', "
+                         f"got {impl!r}")
     n_rep = q.shape[1] // k.shape[1]
     D = q.shape[-1]
     if scale is None:
@@ -105,10 +137,7 @@ def attention(
     Tq, Tk = q.shape[2], k.shape[2]
     flash_ok = (bias is None and softcap is None and Tq == Tk
                 and Tq % 128 == 0 and D <= max(NATIVE_HEAD_DIMS))
-    if impl == "auto":
-        impl = "flash" if (q.is_cuda and flash_ok) else "einsum"
-    if impl == "flash" and not flash_ok:
-        impl = "einsum"
+    impl = route(impl, q, flash_ok)
 
     if impl == "flash":
         from lxt_tpu_torch.ops.flash_attention import flash_attention
@@ -118,15 +147,11 @@ def attention(
                           and D in NATIVE_HEAD_DIMS)
         if rope is not None and not rope_in_kernel:
             q, k = _mcommon.apply_rope(q, k, *rope)
-        # other head dims zero-pad to the next native width (exact: padded
-        # q/k columns add 0 to scores, padded v columns are sliced off)
-        Dp = min(p for p in NATIVE_HEAD_DIMS if p >= D)
-        if Dp != D:
-            q, k, v = (F.pad(t, (0, Dp - D)) for t in (q, k, v))
+        q, k, v = _pad_head_dim(q, k, v)
         out = flash_attention(q, k, v, window, scale=scale, causal=causal,
                               kv_begin=kv_begin, kv_end=kv_end,
                               rope=rope if rope_in_kernel else None)
-        return out[..., :D] if Dp != D else out
+        return out[..., :D]
 
     if rope is not None:
         q, k = _mcommon.apply_rope(q, k, *rope)
@@ -143,3 +168,27 @@ def attention(
     v = repeat_kv(v, n_rep)
     return _einsum_attention(q, k, v, bias, causal, window, scale,
                              softcap=softcap)
+
+
+def _ring(q, k, v, *, bias, causal, window, composite, scale, softcap,
+          kv_begin, kv_end, rope):
+    """The ring path (``lxt_tpu``'s ``ring:<axis>`` impl): rope applied
+    here with the shard's global positions (the kernels index their tables
+    by the call's rows), then ``composite.qkv``, then the ring."""
+    from lxt_tpu_torch.parallel import ring
+    if not (bias is None and softcap is None and kv_begin is None
+            and kv_end is None):
+        raise ValueError("ring attention supports structural masks only "
+                         "(causal, window)")
+    D = q.shape[-1]
+    if D > max(NATIVE_HEAD_DIMS):
+        raise ValueError(f"ring attention: head dim {D} above "
+                         f"{max(NATIVE_HEAD_DIMS)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if rope is not None:
+        q, k = _mcommon.apply_rope(q, k, *rope)
+    q, k, v = composite.qkv(q, k, v)
+    out = ring.ring_flash_attention(*_pad_head_dim(q, k, v), ring.active_group(),
+                                    scale=scale, causal=causal, window=window)
+    return out[..., :D]

@@ -7,12 +7,15 @@ kernels compute standard flash attention and its standard backward:
 - K1 ``flash_fwd`` (``csrc/flash_fwd.cu``): out = softmax(q kᵀ·scale + mask) v
   by online softmax, plus the natural-log logsumexp of each row;
 - K2 ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``): the
-  gradients from p = exp(s − lse) and Δ = rowsum(out∘do);
+  gradients from p = exp(s − lse) and Δ = rowsum(out∘do) − dlse, dlse being
+  the lse cotangent of :func:`flash_attention_lse` (none for
+  :func:`flash_attention`);
 - ``rope_rotate`` (``csrc/rope.cu``): the RoPE rotation pass of one tensor.
 
 K1, ``flash_bwd_dq`` and ``flash_bwd_dkv`` have a Hopper body (wgmma, TMA,
-warp-specialised) for bf16 at head dim 64 and 128; float32 and head dim 256
-run the mma.sync bodies. The body is picked by (dtype, head dim) alone.
+warp-specialised) for bf16 at head dim 64 and 128; float32, float16 and head
+dim 256 run the mma.sync bodies. The body is picked by (dtype, head dim)
+alone.
 ``flash_bwd_dq`` also computes Δ of its rows from the forward's out and
 writes it out for ``flash_bwd_dkv``: the backward runs no separate Δ pass.
 
@@ -20,8 +23,10 @@ Layout: q ``[B, H, T, D]``, k/v ``[B, Hkv, T, D]`` with ``Hkv`` dividing
 ``H``; the kernels read the batch, head and time strides (the last dim must
 be contiguous), so head-split views of a projection need no copy. Masks are
 in global positions: ``causal``, a sliding ``window`` (``k > q − window``),
-and per-example ``kv_begin``/``kv_end`` [B] valid-key spans. Query rows with
-no visible key give out 0 and lse −1e30. Optional ``rope`` ``(cos, sin)``
+and per-example ``kv_begin``/``kv_end`` [B] valid-key spans. Query row i
+sits at global position ``q_start`` + i and key row j at ``k_start`` + j
+(both 0 but in a ring step, ``parallel/ring.py``). Query rows with no
+visible key give out 0 and lse −1e30. Optional ``rope`` ``(cos, sin)``
 [T, D] tables rotate q and k (HF rotate-half, in the activation dtype):
 inside the kernels, except that the Hopper bodies read k (K1,
 ``flash_bwd_dq``) and q (``flash_bwd_dkv``) rotated once per call by
@@ -59,13 +64,14 @@ def reset_launches():
 # argument checks (lxt_tpu.ops.flash_attention._canon / _check_rope)
 # ---------------------------------------------------------------------------
 
-def _canon(q, k, window, scale):
+def _canon(q, k, window, scale, q_start=0, k_start=0):
     """(window, scale) as Python numbers: window None means no window, and
     the window is clamped to >= 1 (each row sees at least its own key) and
-    to T + 2**20 (any window >= T masks nothing; the kernels take an int)."""
+    to T + |q_start − k_start| + 2**20 (a window past the call's largest
+    global distance masks nothing; the kernels take an int)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    no_window = max(q.shape[2], k.shape[2]) + 2**20
+    no_window = max(q.shape[2], k.shape[2]) + abs(q_start - k_start) + 2**20
     window = no_window if window is None else min(max(int(window), 1), no_window)
     return window, float(scale)
 
@@ -94,11 +100,11 @@ def _span(x, B, device):
 # plain PyTorch versions of the kernels
 # ---------------------------------------------------------------------------
 
-def _allowed(q, k, kv_begin, kv_end, window, causal):
+def _allowed(q, k, kv_begin, kv_end, window, causal, q_start=0, k_start=0):
     """Boolean [B|1, 1, Tq, Tk] mask in global positions."""
     dev = q.device
-    qi = torch.arange(q.shape[2], device=dev)[:, None]
-    kj = torch.arange(k.shape[2], device=dev)[None, :]
+    qi = torch.arange(q.shape[2], device=dev)[:, None] + q_start
+    kj = torch.arange(k.shape[2], device=dev)[None, :] + k_start
     ok = kj > qi - window
     if causal:
         ok = ok & (kj <= qi)
@@ -120,42 +126,49 @@ def _allowed(q, k, kv_begin, kv_end, window, causal):
 PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 
 
-def visible_pairs(T, window=None, causal=True, kv_begin=None, kv_end=None):
+def visible_pairs(T, window=None, causal=True, kv_begin=None, kv_end=None,
+                  q_start=0, k_start=0):
     """Number of visible (query, key) pairs of a [T, T] attention, summed
     over the batch rows of ``kv_begin``/``kv_end`` ([B] or None; None is one
-    unpadded row). Query i sees key j when j > i − window,
-    kv_begin ≤ j < kv_end and, if causal, j ≤ i (the mask of the kernels)."""
-    i = torch.arange(T, dtype=torch.int64)
-    lo = i - window + 1 if window is not None else torch.zeros_like(i)
-    hi = i if causal else torch.full_like(i, T - 1)
-    begins = [0] if kv_begin is None else [int(x) for x in kv_begin]
-    ends = [T] * len(begins) if kv_end is None else [int(x) for x in kv_end]
+    unpadded row). Query i (global q_start + i) sees key j (global
+    k_start + j) when j > i − window, kv_begin ≤ j < kv_end and, if causal,
+    j ≤ i, all in global positions (the mask of the kernels)."""
+    # each query's visible keys as a span of the call's key rows
+    p = torch.arange(T, dtype=torch.int64) + (q_start - k_start)
+    lo = (p - window + 1).clamp(min=0) if window is not None else torch.zeros_like(p)
+    hi = p.clamp(max=T - 1) if causal else torch.full_like(p, T - 1)
+    begins = [0] if kv_begin is None else [int(x) - k_start for x in kv_begin]
+    ends = [T] * len(begins) if kv_end is None else [
+        min(int(x) - k_start, T) for x in kv_end]
     if len(begins) == 1 and len(ends) > 1:
         begins = begins * len(ends)
     return sum(int((torch.minimum(hi, torch.tensor(e - 1))
-                    - torch.maximum(lo.clamp(min=0), torch.tensor(b)) + 1)
+                    - torch.maximum(lo, torch.tensor(b)) + 1)
                    .clamp(min=0).sum())
                for b, e in zip(begins, ends))
 
 
 def work(name, B, H, Hkv, T, D, itemsize=2, *, window=None, causal=True,
-         kv_begin=None, kv_end=None, rope=False):
+         kv_begin=None, kv_end=None, rope=False, q_start=0, k_start=0,
+         dlse=False):
     """(FLOPs, bytes) one call of kernel ``name`` must spend: each product
     over the visible pairs costs 2·D FLOPs a pair and head, and each input
-    is read once and each output written once. ``rope_rotate`` is the
-    rotation pass over a [B, H, T, D] tensor (three FLOPs an element)."""
+    is read once and each output written once (``dlse``: flash_bwd_dq also
+    reads the lse cotangent). ``rope_rotate`` is the rotation pass over a
+    [B, H, T, D] tensor (three FLOPs an element)."""
     act = B * H * T * D * itemsize          # q, do, out, dq
     kv = B * Hkv * T * D * itemsize         # k, v, dk, dv
     stat = B * H * T * 4                    # lse, delta (float32)
     tables = 2 * T * D * itemsize if rope else 0
     if name == "rope_rotate":
         return 3 * B * H * T * D, 2 * act + tables
-    pairs = visible_pairs(T, window, causal, kv_begin, kv_end)
+    pairs = visible_pairs(T, window, causal, kv_begin, kv_end, q_start,
+                          k_start)
     if kv_begin is None and kv_end is None:
         pairs *= B
     flops = PRODUCTS[name] * pairs * H * 2 * D
     moved = {"flash_fwd": 2 * act + 2 * kv + stat,
-             "flash_bwd_dq": 4 * act + 2 * kv + 2 * stat,
+             "flash_bwd_dq": 4 * act + 2 * kv + (3 if dlse else 2) * stat,
              "flash_bwd_dkv": 2 * act + 4 * kv + 2 * stat}[name]
     return flops, moved + tables
 
@@ -173,20 +186,22 @@ def _rope_transpose(x, cos, sin):
     return x * cos.float() + torch.cat([y[..., h:], -y[..., :h]], dim=-1)
 
 
-def _scores(q, k, cos, sin, kv_begin, kv_end, window, scale, causal):
+def _scores(q, k, cos, sin, kv_begin, kv_end, window, scale, causal,
+            q_start, k_start):
     """Roped float32 q, repeated float32 k, masked scores and the mask."""
     q, k = _rope_qk(q, k, cos, sin)
     n_rep = q.shape[1] // k.shape[1]
     qf, kf = q.float(), repeat_kv(k.float(), n_rep)
-    ok = _allowed(q, k, kv_begin, kv_end, window, causal)
+    ok = _allowed(q, k, kv_begin, kv_end, window, causal, q_start, k_start)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     return qf, kf, s.masked_fill(~ok, NEG_INF), ok
 
 
-def flash_fwd_ref(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal):
+def flash_fwd_ref(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal,
+                  *, q_start=0, k_start=0):
     """Plain version of K1: float32 softmax; returns (out, lse [B, H, T])."""
     _, _, s, ok = _scores(q, k, cos, sin, kv_begin, kv_end, window, scale,
-                          causal)
+                          causal, q_start, k_start)
     vf = repeat_kv(v.float(), q.shape[1] // k.shape[1])
     m = s.amax(-1, keepdim=True)
     empty = m <= NEG_INF / 2
@@ -198,21 +213,25 @@ def flash_fwd_ref(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal):
     return out.to(q.dtype), lse.squeeze(-1)
 
 
-def _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale, causal):
+def _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale, causal,
+           q_start, k_start):
     qf, kf, s, ok = _scores(q, k, cos, sin, kv_begin, kv_end, window, scale,
-                            causal)
+                            causal, q_start, k_start)
     lse = lse[..., None]
     p = torch.exp(s - lse).masked_fill(~ok | (lse <= NEG_INF / 2), 0.0)
     return qf, kf, p
 
 
 def flash_bwd_dq_ref(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end,
-                     window, scale, causal):
-    """Plain version of ``flash_bwd_dq``: Δ = rowsum(out∘do) and dq =
+                     window, scale, causal, *, q_start=0, k_start=0,
+                     dlse=None):
+    """Plain version of ``flash_bwd_dq``: Δ = rowsum(out∘do) − dlse and dq =
     (p∘(do vᵀ − Δ)) k · scale; returns (dq, Δ float32 [B, H, T])."""
     delta = (out.float() * do.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
     _, kf, p = _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale,
-                      causal)
+                      causal, q_start, k_start)
     vf = repeat_kv(v.float(), q.shape[1] // k.shape[1])
     ds = p * (torch.matmul(do.float(), vf.transpose(-1, -2)) - delta[..., None])
     dq = torch.matmul(ds, kf) * scale
@@ -220,11 +239,11 @@ def flash_bwd_dq_ref(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end,
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
-                      window, scale, causal):
+                      window, scale, causal, *, q_start=0, k_start=0):
     """Plain version of ``flash_bwd_dkv``: dv = pᵀ do, dk = dsᵀ q · scale,
     both summed over each GQA group."""
     qf, _, p = _probs(q, k, lse, cos, sin, kv_begin, kv_end, window, scale,
-                      causal)
+                      causal, q_start, k_start)
     B, Hkv, Tk, D = k.shape
     n_rep = q.shape[1] // Hkv
     dof = do.float()
@@ -245,15 +264,15 @@ class _FlashArgs(ctypes.Structure):
     """Mirror of ``struct FlashArgs`` in ``csrc/flash_common.cuh``."""
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
-            "q", "k", "v", "dout", "out", "lse", "delta", "cos", "sin",
-            "kv_begin", "kv_end", "out0", "out1", "lse_out")]
+            "q", "k", "v", "dout", "out", "lse", "delta", "dlse", "cos",
+            "sin", "kv_begin", "kv_end", "out0", "out1", "lse_out")]
         + [(f"stride{i}", ctypes.c_longlong) for i in range(21)]
         + [(n, ctypes.c_int) for n in (
-            "B", "H", "Hkv", "T", "window", "causal")]
+            "B", "H", "Hkv", "T", "window", "causal", "q_start", "k_start")]
         + [(n, ctypes.c_float) for n in ("scale", "scale_log2")])
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ENTRY = {"flash_fwd": "lxt_flash_fwd", "flash_bwd_dq": "lxt_flash_bwd_dq",
           "flash_bwd_dkv": "lxt_flash_bwd_dkv"}
 _lib = None
@@ -309,8 +328,9 @@ def _hopper(q):
 
 
 def _launch(name, q, k, v, *, dout=None, fwd_out=None, lse=None, delta=None,
-            cos=None, sin=None, kv_begin=None, kv_end=None, outs=(),
-            lse_out=None, window, scale, causal, entry=None):
+            dlse=None, cos=None, sin=None, kv_begin=None, kv_end=None, outs=(),
+            lse_out=None, window, scale, causal, q_start=0, k_start=0,
+            entry=None):
     """Check the arguments and launch kernel ``name`` on the current stream
     (through the library's ``entry``, by default the kernel's own)."""
     if not q.is_cuda:
@@ -319,7 +339,7 @@ def _launch(name, q, k, v, *, dout=None, fwd_out=None, lse=None, delta=None,
     Hkv = k.shape[1]
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {q.dtype} not supported "
-                         f"(bfloat16 or float32)")
+                         f"(bfloat16, float16 or float32)")
     if D not in NATIVE_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not in {NATIVE_HEAD_DIMS}")
     acts = [t for t in (q, k, v, dout, fwd_out) if t is not None]
@@ -331,8 +351,9 @@ def _launch(name, q, k, v, *, dout=None, fwd_out=None, lse=None, delta=None,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     # (tensor, dtype, shape) of every other input the kernel reads densely
     dense = [(lse, torch.float32, (B, H, T)), (delta, torch.float32, (B, H, T)),
-             (cos, q.dtype, (T, D)), (sin, q.dtype, (T, D)),
-             (kv_begin, torch.int32, (B,)), (kv_end, torch.int32, (B,))]
+             (dlse, torch.float32, (B, H, T)), (cos, q.dtype, (T, D)),
+             (sin, q.dtype, (T, D)), (kv_begin, torch.int32, (B,)),
+             (kv_end, torch.int32, (B,))]
     for t in acts + list(outs) + [x for x, _, _ in dense if x is not None]:
         if t.device != q.device:
             raise ValueError(f"{name}: all tensors must be on {q.device}")
@@ -355,10 +376,10 @@ def _launch(name, q, k, v, *, dout=None, fwd_out=None, lse=None, delta=None,
         strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
     args = _FlashArgs(
         ptr(q), ptr(k), ptr(v), ptr(dout), ptr(fwd_out), ptr(lse), ptr(delta),
-        ptr(cos), ptr(sin), ptr(kv_begin), ptr(kv_end),
+        ptr(dlse), ptr(cos), ptr(sin), ptr(kv_begin), ptr(kv_end),
         ptr(outs[0]) if outs else None, ptr(outs[1]) if len(outs) > 1 else None,
-        ptr(lse_out), *strides, B, H, Hkv, T, window, int(causal), scale,
-        scale * LOG2E)
+        ptr(lse_out), *strides, B, H, Hkv, T, window, int(causal),
+        int(q_start), int(k_start), scale, scale * LOG2E)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -388,7 +409,8 @@ def rope_rotate(x, cos, sin):
     B, H, T, D = x.shape
     if x.dtype not in _DTYPE_CODE or D not in NATIVE_HEAD_DIMS:
         raise ValueError(f"rope_rotate: {x.dtype} with head dim {D} not "
-                         f"supported (bfloat16 or float32, {NATIVE_HEAD_DIMS})")
+                         f"supported (bfloat16, float16 or float32, "
+                         f"{NATIVE_HEAD_DIMS})")
     x = _prepared(x)
     for t in (cos, sin):
         if (t.device != x.device or t.dtype != x.dtype
@@ -408,13 +430,14 @@ def rope_rotate(x, cos, sin):
     return out
 
 
-def flash_fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal):
+def flash_fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal,
+              *, q_start=0, k_start=0):
     """K1. Returns (out like q, lse float32 [B, H, T]). On the Hopper body
     (bf16, head dim 64 or 128) with rope, k is rotated first by
     :func:`rope_rotate`; q is rotated inside the kernel."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, cos, sin, kv_begin, kv_end, window,
-                             scale, causal)
+                             scale, causal, q_start=q_start, k_start=k_start)
     q, k, v = _prepared(q), _prepared(k), _prepared(v)
     if cos is not None and _hopper(q):
         k = rope_rotate(k, cos, sin)
@@ -422,35 +445,38 @@ def flash_fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal):
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, k, v, cos=cos, sin=sin, kv_begin=kv_begin,
             kv_end=kv_end, outs=(out,), lse_out=lse, window=window,
-            scale=scale, causal=causal)
+            scale=scale, causal=causal, q_start=q_start, k_start=k_start)
     return out, lse
 
 
 def flash_bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
-                 scale, causal):
+                 scale, causal, *, q_start=0, k_start=0, dlse=None):
     """K2, dq half: one CTA per (b, h, q tile), looping over kv tiles. Also
-    computes Δ = rowsum(out∘do) of its rows from the forward's ``out``;
+    computes Δ = rowsum(out∘do) − dlse of its rows from the forward's
+    ``out`` (and the lse cotangent ``dlse`` float32 [B, H, T], if given);
     returns (dq, Δ float32 [B, H, T]). On the Hopper body (bf16, head dim
     64 or 128) with rope, k is rotated first by :func:`rope_rotate`; q is
     rotated inside the kernel."""
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, out, lse, cos, sin, kv_begin,
-                                kv_end, window, scale, causal)
+                                kv_end, window, scale, causal, q_start=q_start,
+                                k_start=k_start, dlse=dlse)
     q, k, v, do, out = (_prepared(t) for t in (q, k, v, do, out))
     if cos is not None and _hopper(q):
         k = rope_rotate(k, cos, sin)
     return _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
-                   scale, causal)
+                   scale, causal, q_start=q_start, k_start=k_start, dlse=dlse)
 
 
 def _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window, scale,
-            causal, entry=None):
+            causal, entry=None, q_start=0, k_start=0, dlse=None):
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("flash_bwd_dq", q, k, v, dout=do, fwd_out=out, lse=_stat(lse),
-            cos=cos, sin=sin, kv_begin=kv_begin, kv_end=kv_end, outs=(dq,),
-            lse_out=delta, window=window, scale=scale, causal=causal,
-            entry=entry)
+            dlse=None if dlse is None else _stat(dlse), cos=cos, sin=sin,
+            kv_begin=kv_begin, kv_end=kv_end, outs=(dq,), lse_out=delta,
+            window=window, scale=scale, causal=causal, q_start=q_start,
+            k_start=k_start, entry=entry)
     return dq, delta
 
 
@@ -466,7 +492,7 @@ def flash_bwd_dq_mma(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
-                  scale, causal):
+                  scale, causal, *, q_start=0, k_start=0):
     """K2, dk/dv half: one CTA per (b, kv head, kv tile), looping over the
     GQA group's q heads and the visible q tiles. On the Hopper body (bf16,
     head dim 64 or 128) with rope, q is rotated first by
@@ -474,7 +500,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
     rotated inside the kernel."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, cos, sin, kv_begin,
-                                 kv_end, window, scale, causal)
+                                 kv_end, window, scale, causal,
+                                 q_start=q_start, k_start=k_start)
     q, k, v, do = (_prepared(t) for t in (q, k, v, do))
     if cos is not None and _hopper(q):
         q = rope_rotate(q, cos, sin)
@@ -482,7 +509,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
     _launch("flash_bwd_dkv", q, k, v, dout=do, lse=_stat(lse),
             delta=_stat(delta), cos=cos, sin=sin, kv_begin=kv_begin,
             kv_end=kv_end, outs=(dk, dv), window=window, scale=scale,
-            causal=causal)
+            causal=causal, q_start=q_start, k_start=k_start)
     return dk, dv
 
 
@@ -491,27 +518,34 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
 # ---------------------------------------------------------------------------
 
 def _attention_function(fwd, bwd_dq, bwd_dkv):
-    """An autograd Function whose forward is ``fwd`` and whose backward runs
-    ``bwd_dq``, which also returns Δ = rowsum(out∘do), then ``bwd_dkv`` on
-    that Δ."""
+    """An autograd Function returning (out, lse) whose forward is ``fwd``
+    and whose backward runs ``bwd_dq``, which also returns Δ = rowsum(out∘do)
+    − dlse, then ``bwd_dkv`` on that Δ (``_flash_lse_bwd``). Cotangents are
+    not materialized: an unused lse gives dlse None, and with it the
+    arithmetic of flash_attention's backward."""
 
     class _Attention(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v, cos, sin, kv_begin, kv_end, window, scale,
-                    causal):
+                    causal, q_start, k_start):
+            ctx.set_materialize_grads(False)
             out, lse = fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale,
-                           causal)
+                           causal, q_start=q_start, k_start=k_start)
             ctx.save_for_backward(q, k, v, out, lse, cos, sin, kv_begin, kv_end)
             ctx.static = (window, scale, causal)
-            return out
+            ctx.offsets = {"q_start": q_start, "k_start": k_start}
+            return out, lse
 
         @staticmethod
-        def backward(ctx, do):
+        def backward(ctx, do, dlse):
             q, k, v, out, lse, cos, sin, kv_begin, kv_end = ctx.saved_tensors
+            if do is None:  # only the lse was used
+                do = torch.zeros_like(out)
             rest = (cos, sin, kv_begin, kv_end, *ctx.static)
-            dq, delta = bwd_dq(q, k, v, do, out, lse, *rest)
-            dk, dv = bwd_dkv(q, k, v, do, lse, delta, *rest)
-            return dq, dk, dv, None, None, None, None, None, None, None
+            dq, delta = bwd_dq(q, k, v, do, out, lse, *rest, dlse=dlse,
+                               **ctx.offsets)
+            dk, dv = bwd_dkv(q, k, v, do, lse, delta, *rest, **ctx.offsets)
+            return dq, dk, dv, *[None] * 9
 
     return _Attention
 
@@ -521,14 +555,27 @@ _FlashRef = _attention_function(flash_fwd_ref, flash_bwd_dq_ref,
                                 flash_bwd_dkv_ref)
 
 
-def _call(fn, q, k, v, window, scale, causal, kv_begin, kv_end, rope):
+def _check_device(name, q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+
+
+def _call(fn, q, k, v, window, scale, causal, kv_begin, kv_end, rope,
+          q_start, k_start):
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"Hkv={k.shape[1]} must divide H={q.shape[1]}")
-    window, scale = _canon(q, k, window, scale)
+    if rope is not None and (q_start or k_start):
+        # the tables are indexed by the call's own rows
+        raise ValueError("in-kernel rope is incompatible with global "
+                         "q_start/k_start offsets (ring): apply rope "
+                         "outside instead")
+    q_start, k_start = int(q_start), int(k_start)
+    window, scale = _canon(q, k, window, scale, q_start, k_start)
     cos, sin = _check_rope(rope, q, k)
     B = q.shape[0]
     return fn.apply(q, k, v, cos, sin, _span(kv_begin, B, q.device),
-                    _span(kv_end, B, q.device), window, scale, causal)
+                    _span(kv_end, B, q.device), window, scale, causal,
+                    q_start, k_start)
 
 
 def flash_attention(q, k, v, window=None, *, scale: Optional[float] = None,
@@ -541,10 +588,9 @@ def flash_attention(q, k, v, window=None, *, scale: Optional[float] = None,
     span. ``rope``: optional ``(cos, sin)`` [T, D] tables applied in-kernel.
     CUDA tensors run K1/K2 (or raise if the call is not supported); CPU
     tensors run the plain versions."""
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_device("flash_attention", q)
     return _call(_Flash, q, k, v, window, scale, causal, kv_begin, kv_end,
-                 rope)
+                 rope, 0, 0)[0]
 
 
 def flash_attention_ref(q, k, v, window=None, *, scale: Optional[float] = None,
@@ -554,4 +600,35 @@ def flash_attention_ref(q, k, v, window=None, *, scale: Optional[float] = None,
     float32 softmax, masks in global positions, empty rows give out 0 and
     lse −1e30; its backward runs the plain math of K2."""
     return _call(_FlashRef, q, k, v, window, scale, causal, kv_begin, kv_end,
-                 rope)
+                 rope, 0, 0)[0]
+
+
+def flash_attention_lse(q, k, v, window=None, *, q_start=0, k_start=0,
+                        kv_begin=None, kv_end=None,
+                        scale: Optional[float] = None, causal: bool = True,
+                        rope=None):
+    """Fused attention returning ``(out, lse float32 [B, H, T])`` with a
+    backward exact in both cotangents (``lxt_tpu``'s flash_attention_lse).
+
+    ``q_start``/``k_start``: the global positions of the call's first query
+    and first key, which shift the causal and window comparisons and place
+    the keys against ``kv_begin``/``kv_end`` — a ring step's shards
+    (``parallel/ring.py``). Query rows with no visible key give out 0 and
+    lse −1e30 (zero weight in a logsumexp merge). The lse cotangent folds
+    into Δ as Δ − dlse (∂lse/∂s = p), so merged partial attentions
+    differentiate to the relevance of one attention. ``rope`` is refused
+    with nonzero offsets (the tables are indexed by the call's rows). Other
+    arguments as :func:`flash_attention`; Tq == Tk."""
+    _check_device("flash_attention_lse", q)
+    return _call(_Flash, q, k, v, window, scale, causal, kv_begin, kv_end,
+                 rope, q_start, k_start)
+
+
+def flash_attention_lse_ref(q, k, v, window=None, *, q_start=0, k_start=0,
+                            kv_begin=None, kv_end=None,
+                            scale: Optional[float] = None, causal: bool = True,
+                            rope=None):
+    """The plain PyTorch version of :func:`flash_attention_lse` on any
+    device."""
+    return _call(_FlashRef, q, k, v, window, scale, causal, kv_begin, kv_end,
+                 rope, q_start, k_start)

@@ -199,7 +199,7 @@ def nf4_dequant_ref(q, scale, block, dtype):
     return dequantize(QuantizedTensor(q, scale, "nf4", block), dtype)
 
 
-_OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib = None
 
 
@@ -218,7 +218,7 @@ def _library():
 def nf4_dequant(q, scale, block, dtype):
     """K3. Dequantize half-split nf4 codes ``q [..., K/2, N]`` (uint8) with
     float32 ``scale [..., K/block, N]`` to ``[..., K, N]`` in ``dtype``
-    (bfloat16 or float32). CPU tensors take the plain version; a CUDA
+    (bfloat16, float16 or float32). CPU tensors take the plain version; a CUDA
     tensor launches the kernel, or raises on what it does not take."""
     if q.device.type == "cpu":
         return nf4_dequant_ref(q, scale, block, dtype)
@@ -226,7 +226,7 @@ def nf4_dequant(q, scale, block, dtype):
         raise ValueError(f"nf4_dequant: unsupported device {q.device}")
     if dtype not in _OUT_CODE:
         raise ValueError(f"nf4_dequant: output dtype {dtype} not supported "
-                         f"(bfloat16 or float32)")
+                         f"(bfloat16, float16 or float32)")
     if q.dtype != torch.uint8 or q.dim() < 2 or not q.is_contiguous():
         raise ValueError(f"nf4_dequant: codes must be a contiguous uint8 "
                          f"[..., K/2, N] tensor, got {q.dtype} "

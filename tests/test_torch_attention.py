@@ -11,6 +11,8 @@ from ``flash_bwd_dq``, as ``lxt_tpu``'s ``inline_delta`` option computes it
 inside its backward kernel; a few regimes hold it against that option.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,3 +249,20 @@ def test_flash_wrapper_refuses_other_devices():
     q = torch.empty((1, 2, 128, 64), device="meta")
     with pytest.raises(ValueError):
         tfa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("impl", ["auto", "flash", "einsum"])
+def test_route_takes_the_kernels_for_cuda_calls_of_every_dtype(impl, dtype):
+    """The dispatch decision, made from the device before the call: 'auto'
+    takes the kernels for a CUDA tensor of any dtype (float16 included: the
+    kernels have float16 bodies) when the call is eligible, einsum
+    otherwise; the kernel wrappers take every one of these dtypes."""
+    from lxt_tpu_torch.ops.attention import route
+    cuda = types.SimpleNamespace(is_cuda=True, dtype=dtype)
+    cpu = types.SimpleNamespace(is_cuda=False, dtype=dtype)
+    assert dtype in tfa._DTYPE_CODE
+    want = {"auto": "flash", "flash": "flash", "einsum": "einsum"}[impl]
+    assert route(impl, cuda, flash_ok=True) == want
+    assert route(impl, cuda, flash_ok=False) == "einsum"
+    assert route(impl, cpu, flash_ok=True) == ("einsum" if impl == "auto" else impl)

@@ -77,3 +77,60 @@ def test_work_at_the_two_paths_calls():
         flops, moved = tfa.work("flash_fwd", B, H, Hkv, T, D, 2, rope=True)
         assert np.isclose(flops / 2 / 1e9, gflop, rtol=2e-3)
         assert flops / 989e12 > moved / 3.35e12
+
+
+# ring-step calls: (T, window, causal, kv_begin, kv_end, q_start, k_start),
+# spans and offsets in global positions
+OFFSET_MASKS = {
+    "full_square": (64, None, True, None, None, 128, 0),
+    "diagonal": (64, None, True, None, None, 64, 64),
+    "empty_future": (64, None, True, None, None, 0, 128),
+    "window_cuts_past": (64, 100, True, None, None, 128, 64),
+    "window_behind": (64, 40, True, None, None, 192, 0),
+    "off_grid_window_spans": (64, 30, True, [70, 100], [200, 150], 100, 37),
+    "bidirectional_kv_end": (48, None, False, None, [60], 20, 30),
+}
+
+
+def _brute_pairs(T, window, causal, kv_begin, kv_end, q_start, k_start):
+    """The mask counted pair by pair in global positions, summed over the
+    batch rows of the spans."""
+    B = len(kv_begin or kv_end or [0])
+    n = 0
+    for b in range(B):
+        for i in range(q_start, q_start + T):
+            for j in range(k_start, k_start + T):
+                n += ((window is None or j > i - window) and (not causal or j <= i)
+                      and (kv_begin is None or j >= kv_begin[b])
+                      and (kv_end is None or j < kv_end[b]))
+    return n
+
+
+@pytest.mark.parametrize("name", sorted(OFFSET_MASKS))
+def test_visible_pairs_with_offsets_count_the_mask(name):
+    T, window, causal, kv_begin, kv_end, q_start, k_start = OFFSET_MASKS[name]
+    want = _brute_pairs(*OFFSET_MASKS[name])
+    got = tfa.visible_pairs(T, window, causal, kv_begin, kv_end, q_start, k_start)
+    assert got == want
+    B = len(kv_begin or kv_end or [0])
+    q = torch.zeros(B, 1, T, 8)
+    w, _ = tfa._canon(q, q, window, None, q_start, k_start)
+    span = lambda x: None if x is None else torch.tensor(x)  # noqa: E731
+    ok = tfa._allowed(q, q, span(kv_begin), span(kv_end), w, causal, q_start, k_start)
+    assert int(ok.expand(B, 1, T, T).sum()) == want
+    flops, _ = tfa.work("flash_fwd", B, 4, 2, T, 64, window=window, causal=causal,
+                        kv_begin=kv_begin, kv_end=kv_end, q_start=q_start,
+                        k_start=k_start)
+    assert flops == 2 * want * 4 * 2 * 64
+
+
+def test_ring_step_work_is_the_full_square():
+    """A ring step whose keys lie wholly in the queries' past computes
+    every pair: Llama-3-8B's step (B 1, H 32/8, T_local 2048, D 128), and
+    flash_bwd_dq reads the lse cotangent too."""
+    B, H, Hkv, T, D = 1, 32, 8, 2048, 128
+    flops, moved = tfa.work("flash_bwd_dq", B, H, Hkv, T, D, 2, q_start=T, dlse=True)
+    assert flops == 3 * T * T * H * 2 * D
+    _, plain = tfa.work("flash_bwd_dq", B, H, Hkv, T, D, 2, q_start=T)
+    assert moved - plain == B * H * T * 4
+    assert tfa.work("flash_fwd", B, H, Hkv, T, D, k_start=T)[0] == 0

@@ -16,14 +16,19 @@ from lxt_tpu_torch.ops import flash_attention as tfa
 pytestmark = pytest.mark.cuda
 
 
+#: (a, r) of each dtype's max|diff| bound a + r * absmax: lxt_tpu's
+#: TPU-kernel criterion for bf16, an eighth of it for float16 (three more
+#: mantissa bits), 1e-4 for float32
+BARS = {torch.bfloat16: (0.01, 0.01171875), torch.float16: (0.00125, 0.00146484375),
+        torch.float32: (1e-4, 1e-4)}
+
+
 def _bound(want, dtype):
-    """max|diff| bound: lxt_tpu's TPU-kernel criterion for bf16 (0.01 +
-    0.01171875 * absmax), the same form with 1e-4 for float32."""
-    a, r = (0.01, 0.01171875) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    a, r = BARS[dtype]
     return a + r * want.float().abs().max().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_kernels_match_plain_versions(D, dtype):
     if not torch.cuda.is_available():
@@ -94,20 +99,23 @@ def _hopper_inputs(case, seed, dtype=torch.bfloat16):
     return q, k, v, do, args
 
 
-def _assert_match_plain_versions(q, k, v, do, args):
-    """K1, flash_bwd_dq and flash_bwd_dkv against their plain versions on
-    the same inputs, each held alone (the backward halves get the plain
-    forward's out, lse and Δ)."""
-    out, lse = tfa.flash_fwd(q, k, v, *args)
-    ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, *args)
-    ref_dq, delta = tfa.flash_bwd_dq_ref(q, k, v, do, ref_out, ref_lse, *args)
+def _assert_match_plain_versions(q, k, v, do, args, dlse=None, **offsets):
+    """K1, flash_bwd_dq (with the lse cotangent ``dlse``, if given) and
+    flash_bwd_dkv against their plain versions on the same inputs, at the
+    global ``q_start``/``k_start`` offsets, each held alone (the backward
+    halves get the plain forward's out, lse and Δ)."""
+    out, lse = tfa.flash_fwd(q, k, v, *args, **offsets)
+    ref_out, ref_lse = tfa.flash_fwd_ref(q, k, v, *args, **offsets)
+    dq_args = (q, k, v, do, ref_out, ref_lse, *args)
+    ref_dq, delta = tfa.flash_bwd_dq_ref(*dq_args, dlse=dlse, **offsets)
     bwd = (q, k, v, do, ref_lse, delta, *args)
     seen = ref_lse > -1e29
+    dq, got_delta = tfa.flash_bwd_dq(*dq_args, dlse=dlse, **offsets)
     pairs = {"out": (out, ref_out),
              "lse": (torch.where(seen, lse, 0.0), torch.where(seen, ref_lse, 0.0)),
-             "dq": (tfa.flash_bwd_dq(q, k, v, do, ref_out, ref_lse, *args)[0], ref_dq)}
-    pairs.update(zip(("dk", "dv"), zip(tfa.flash_bwd_dkv(*bwd),
-                                       tfa.flash_bwd_dkv_ref(*bwd))))
+             "dq": (dq, ref_dq), "delta": (got_delta, delta)}
+    pairs.update(zip(("dk", "dv"), zip(tfa.flash_bwd_dkv(*bwd, **offsets),
+                                       tfa.flash_bwd_dkv_ref(*bwd, **offsets))))
     torch.cuda.synchronize()
     assert torch.equal(lse <= -1e29, ~seen)
     for key, (got, want) in pairs.items():
@@ -134,7 +142,7 @@ D256_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("name", sorted(D256_CASES))
 def test_head_dim_256_windows_match_plain_versions(name, dtype):
     if not torch.cuda.is_available():
@@ -193,7 +201,7 @@ def test_flash_bwd_dq_is_deterministic(D):
     assert torch.equal(dq1, dq2) and torch.equal(delta1, delta2)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_bwd_dq_delta_matches_plain(D, dtype):
     """Δ from flash_bwd_dq (Hopper body for bf16 at D 64/128, mma.sync
@@ -238,7 +246,7 @@ def test_flash_bwd_dkv_is_deterministic(D):
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_rotation_pass_bit_equal_to_apply_rope(D, dtype):
     if not torch.cuda.is_available():
@@ -259,7 +267,7 @@ def test_rotation_pass_bit_equal_to_apply_rope(D, dtype):
 
 
 @pytest.mark.parametrize("layout", ["split_heads_view", "contiguous"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128])
 def test_rotation_pass_views_and_ragged_runs(D, dtype, layout):
     """The rotation pass bit-equal to its plain version on a head-split view
@@ -298,6 +306,94 @@ def test_hopper_calls_rotate_once_per_call():
                             "rope_rotate": 3}
 
 
+# ring steps: every (q_start, k_start) pair of a 4-way split of T 1024 (keys
+# in the past, on the diagonal and wholly in the future) and one pair off
+# the tile grid, with a nonzero lse cotangent
+RING_PAIRS = [(i * 256, j * 256) for i in range(4) for j in range(4)] + [(100, 37)]
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_offsets_and_dlse_match_plain_versions(D, dtype, window):
+    """flash_attention_lse's calls on both bodies (Hopper: bf16 at D 64 and
+    128; mma.sync: float32, float16 and D 256): K1, flash_bwd_dq with dlse and
+    flash_bwd_dkv against their plain versions at every ring-step pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = {} if window is None else {"window": window}
+    q, k, v, do, args = _hopper_inputs((1, 8, 2, 256, D, opt), seed=D, dtype=dtype)
+    gen = torch.Generator("cuda").manual_seed(D + 1)
+    dlse = torch.randn(q.shape[:3], generator=gen, device="cuda")
+    if window is None:  # unbounded at every offset of the split
+        args = args[:4] + (2048 + 2**20,) + args[5:]
+    for q_start, k_start in RING_PAIRS:
+        _assert_match_plain_versions(q, k, v, do, args, dlse=dlse, q_start=q_start,
+                                     k_start=k_start)
+
+
+def test_flash_attention_lse_backward_on_the_card():
+    """flash_attention_lse's autograd on the card against its plain
+    version, both cotangents, at a ring step with keys in the past."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do, _ = _hopper_inputs((1, 8, 2, 256, 128, {}), seed=5)
+    dlse = torch.randn(q.shape[:3], generator=torch.Generator("cuda").manual_seed(2),
+                       device="cuda")
+    res = []
+    for fn in (tfa.flash_attention_lse, tfa.flash_attention_lse_ref):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out, lse = fn(*leaves, 300, q_start=512, k_start=256)
+        res.append([out, lse, *torch.autograd.grad(
+            (out.float() * do.float()).sum() + (lse * dlse).sum(), leaves)])
+    torch.cuda.synchronize()
+    for got, want in zip(*res):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _bound(want, q.dtype), err
+
+
+def test_float16_runs_the_kernels_on_the_card():
+    """float16 on the card: attention(impl="auto") and impl="flash" run K1
+    and K2 (their mma.sync bodies, no rotation pass) and agree with the
+    einsum path; an nf4 projection runs K3 in its forward and backward and
+    equals the product with the plainly dequantized weight."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lxt_tpu_torch.ops import quant as tq
+    from lxt_tpu_torch.ops.attention import attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(1, h, 256, 64, generator=gen, device="cuda").half()
+                   for h in (8, 2, 2, 8))
+    rope = tuple(t.cuda() for t in tcommon.rope_tables(torch.arange(256), 64))
+    res = {}
+    for impl in ("auto", "flash", "einsum"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        tfa.reset_launches()
+        out = attention(*leaves, causal=True, window=100, rope=rope, impl=impl)
+        res[impl] = [out, *torch.autograd.grad((out.float() * do.float()).sum(), leaves)]
+        res[impl].append(dict(tfa.launches))
+    tq.reset_launches()
+    qt = tq.quantize(0.02 * torch.randn(512, 256, generator=gen, device="cuda"), "nf4")
+    x = torch.randn(2, 64, 512, generator=gen, device="cuda").half().requires_grad_(True)
+    y = tq.quant_matmul(x, qt)
+    (dx,) = torch.autograd.grad(y.float().sum(), x)
+    w = tq.nf4_dequant_ref(qt.q, qt.scale, qt.block, torch.float16)
+    torch.cuda.synchronize()
+    kernels = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "rope_rotate": 0}
+    assert res["auto"][-1] == res["flash"][-1] == kernels
+    assert all(n == 0 for n in res["einsum"][-1].values())
+    for got, want in zip(res["auto"][:-1], res["einsum"][:-1]):
+        assert got.dtype == torch.float16
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _bound(want, torch.float16), err
+    assert all(torch.equal(a, b) for a, b in zip(res["auto"][:-1], res["flash"][:-1]))
+    assert tq.launches["nf4_dequant"] == 2
+    assert y.dtype == torch.float16 and torch.equal(y, torch.matmul(x.detach(), w))
+    assert torch.equal(dx, torch.matmul(torch.ones_like(y), w.transpose(0, 1)))
+
+
 # K3 nf4 dequantization: the five Llama-3-8B projection shapes [K, N], a
 # layer-stacked one and ragged ones (K 64 x N 40 with block 64 is a shape
 # lxt_tpu's Pallas kernel refuses)
@@ -306,7 +402,7 @@ NF4_SHAPES = [((4096, 4096), 64), ((4096, 1024), 64), ((4096, 14336), 64),
               ((64, 40), 64), ((6, 10), 2)]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("shape,block", NF4_SHAPES)
 def test_nf4_dequant_bit_exact(shape, block, dtype):
     if not torch.cuda.is_available():
@@ -325,7 +421,7 @@ def test_nf4_dequant_bit_exact(shape, block, dtype):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_nf4_quant_matmul_matches_dense_product(dtype):
     """The nf4 matmul's forward and input gradient on the card against the
     same product with the plainly dequantized dense weight."""

@@ -367,3 +367,29 @@ def test_nf4_dequantizations_per_layer(monkeypatch, remat):
                 params, tcfg, x, remat=r, logits_at=-1).logits), e)
     assert len(calls) == (20 if remat else 14) * QCFG.num_layers
     assert torch.equal(rels[remat], rels[False])
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_nf4_projection_dequantizes_through_k3_in_every_dtype(monkeypatch, dtype):
+    """An nf4 projection calls K3's wrapper in the activation dtype in its
+    forward and its backward, float16 included (K3 writes float16 on the
+    card; on the CPU the wrapper runs its plain version); the product and
+    the input gradient equal the dense ones."""
+    calls = []
+    k3 = tq.nf4_dequant
+
+    def counted(q, scale, block, out_dtype):
+        calls.append(out_dtype)
+        return k3(q, scale, block, out_dtype)
+
+    monkeypatch.setattr(tq, "nf4_dequant", counted)
+    assert dtype in tq._OUT_CODE
+    gen = torch.Generator().manual_seed(0)
+    qt = tq.quantize(0.02 * torch.randn(128, 48, generator=gen), "nf4")
+    x = torch.randn(2, 3, 128, generator=gen).to(dtype).requires_grad_(True)
+    y = tq.quant_matmul(x, qt)
+    (dx,) = torch.autograd.grad(y.sum(), x)
+    w = tq.dequantize(qt, dtype)
+    assert calls == [dtype, dtype]
+    assert y.dtype == dtype and torch.equal(y, torch.matmul(x.detach(), w))
+    assert torch.equal(dx, torch.matmul(torch.ones_like(y), w.transpose(0, 1)))
