@@ -13,28 +13,32 @@ processes on the one card.
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-  2. the kernel build (nvcc, into lxt_tpu_torch/_build/);
+  2. the kernel build (nvcc, into lxt_tpu_torch/_build/), and the registers
+     and spills ptxas reported for every flash body;
   3. K1 flash_fwd, K2 flash_bwd_dq (dq and the delta it computes inside) /
      flash_bwd_dkv and the RoPE rotation pass against their plain versions
      (the pass bit-exact on contiguous tensors and head-split views, delta
      within 1e-5 normalized L2), bf16, float16 and float32, over the mask
      regimes,
-     T 320 (a part-full last q tile), Gemma-3-4B's local and global calls
-     (head dim 256, T 4096, window 1024 or none) and both paths' calls;
+     T 320 (a part-full last q tile) at head dim 64, 128 and 256, GQA 16/2
+     with a window of 40 at head dim 256, Gemma-3-4B's local and global
+     calls (head dim 256, T 4096, window 1024 or none) and both paths' calls;
      the ring steps (offsets and an lse cotangent) at every (q_start,
      k_start) pair of a 4-way split and one pair off the tile grid, bf16,
      float16 and float32, head dim 64, 128 (window 300) and 256 (window
      1024), on both bodies; then at the main path's call (B8 H32/4 T1024 D64), the
      NF4 8B path's (B1 H32/8 T4096 D128) and Gemma-3-4B's two (B1 H8/4
      T4096 D256), bf16,
-     causal, rope: each kernel's device time (CUDA-graph replays) beside
-     its plain version's, its roofline bound (fa.work: FLOPs over 989
-     TFLOP/s or bytes over 3.35 TB/s, the larger) and the library's time
-     for the same attention (scaled_dot_product_attention under its flash
-     and cuDNN backends, and the memory-efficient one where a window needs
-     a mask, the fastest kept; its backward against dq (delta inside) +
-     dkv); as controls on the Hopper bodies, flash_bwd_dq's mma.sync body
-     and the separate delta pass that the backward no longer runs; and a
+     causal, rope: each kernel's device time (CUDA-graph replays) and
+     body (Hopper or mma.sync) beside its plain version's time, its
+     roofline bound (fa.work: FLOPs over 989 TFLOP/s or bytes over 3.35
+     TB/s, the larger) and the library's time for the same attention
+     (scaled_dot_product_attention under its flash and cuDNN backends, and
+     the memory-efficient one where a window needs a mask, the fastest
+     kept, by graph replays with the eager times beside; its backward
+     against dq (delta inside) + dkv); as controls, the mma.sync body of
+     each kernel that runs its Hopper body at the call and the separate
+     delta pass that the backward no longer runs; and a
      ring step at Llama-3-8B widths (B1 H32/8 T_local 2048 D128, keys
      wholly in the past: the full square, dlse) beside the library's
      non-causal attention;
@@ -64,9 +68,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      float32 at 6 layers (one global), batch 1 x 2048, the kernel path
      against the einsum path (normalized L2 <= 1e-4) and bf16 against it
      (relevance <= 0.1); then bf16 at full width and depth (34 layers),
-     batch 1 x 4096, remat off: three attributions (heatmaps/s, flash
-     launches per attribution against 34 each, finite relevance, peak
-     memory);
+     batch 1 x 4096, remat off: three attributions (heatmaps/s, launches
+     per attribution against 34 of each flash kernel and 68 of the
+     rotation pass, finite relevance, peak memory);
  10. the ring: four processes on the one card over a gloo group (its
      host-staged point-to-point; the card count is 1), Llama-3-8B widths,
      random weights from one seed on every process, each comparison
@@ -83,8 +87,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
-"at_gemma_local" / "at_gemma_global" at Gemma-3-4B's calls (the Gemma path
-runs no rotation pass) and "at_ring" at the ring step. "launches",
+"at_gemma_local" / "at_gemma_global" at Gemma-3-4B's calls and "at_ring"
+at the ring step (where the call runs no rotation pass, the pass has no
+entry); a flash kernel's entry names its "body" and, where a control ran,
+its mma.sync body's time "mma_ms". "launches",
 "launches_8b" and "launches_gemma" are each the count over its path's
 three timed attributions ("launches" of K3: the NF4 8B path's), and
 "launches_ring" over the ring's three driven attributions, all four
@@ -135,16 +141,22 @@ CASES = {
     "odd_tiles_T320_hd64": (2, 4, 2, 320, 64, {"rope": True}),
     "odd_tiles_T320_hd128": (2, 4, 2, 320, 128, {"rope": True, "kv_begin": [0, 37]}),
     "gqa_32_8_hd128_window": (1, 32, 8, 512, 128, {"window": 200, "rope": True}),
-    # Gemma-3-4B's calls (the mma.sync bodies at head dim 256): local layers
-    # with the 1024 window, global layers without one
+    # head dim 256: a half-full last 128-row q tile of K1's Hopper body, and
+    # GQA 16/2 with a window narrower than a tile
+    "odd_tiles_T320_hd256": (2, 8, 4, 320, 256, {"rope": True}),
+    "gqa_16_2_hd256_window40": (1, 16, 2, 512, 256, {"window": 40, "rope": True,
+                                                     "kv_begin": [37]}),
+    # Gemma-3-4B's calls (head dim 256: the Hopper bodies of K1 and
+    # flash_bwd_dkv, the mma.sync body of flash_bwd_dq): local layers with
+    # the 1024 window, global layers without one
     "gemma_local": (1, 8, 4, 4096, 256, {"window": 1024, "rope": True}),
     "gemma_global": (1, 8, 4, 4096, 256, {"rope": True}),
 }
 # ring steps (flash_attention_lse's calls): every (q_start, k_start) pair of
 # a 4-way split of 4 x T (keys in the past, on the diagonal and wholly in the
 # future) and one pair off the tile grid, each with a nonzero lse cotangent:
-# the Hopper bodies in bf16 at D 64 and 128, the mma.sync bodies in float32
-# and at D 256 with Gemma-3's window
+# the Hopper bodies in bf16 at D 64 and 128 and, but for flash_bwd_dq, at
+# D 256 with Gemma-3's window; the mma.sync bodies in float32 and float16
 RING_CASES = {
     "ring_hd64": (2, 4, 2, 256, 64, {}),
     "ring_hd128_window300": (1, 8, 2, 256, 128, {"window": 300}),
@@ -255,20 +267,21 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters=10):
+def graph_ms(fn, iters=10, stream=None):
     """Mean device time of ``fn`` in ms with the host out of the way:
     ``iters`` calls captured in one CUDA graph, replayed twice between
     CUDA events. A wrapper's Python checks and launches cost tens of
     microseconds a call, which back-to-back eager calls (cuda_ms) would
-    count wherever they exceed the kernel's own time."""
+    count wherever they exceed the kernel's own time. ``stream``: the
+    capture stream (a backward's ops run on its forward's stream)."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -388,16 +401,21 @@ def bound(name, case):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+_CAPTURE = {"refused": False}
+
+
 def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None, causal=True):
     """The library's time for the same attention: one
     scaled_dot_product_attention call (causal or, for a ring step whose keys
     lie wholly in the past, non-causal; GQA) under its flash and its
     cuDNN backend, forward and backward (torch.autograd.grad with
-    retain_graph) timed apart; with a window, whose mask only a boolean
-    attn_mask can give, under the memory-efficient backend too. q and k are
-    rotated (where the call has tables), and k/v repeated where a backend
-    refuses GQA, outside the timed windows. Returns the fastest {"fwd": (ms,
-    backend), "bwd": (ms, backend)} and a line per backend."""
+    retain_graph) timed apart, each by CUDA-graph replays and eagerly; with
+    a window, whose mask only a boolean attn_mask can give, under the
+    memory-efficient backend too. q and k are rotated (where the call has
+    tables), and k/v repeated where a backend refuses GQA, outside the timed
+    windows. Returns the fastest {"fwd": (ms, backend, eager ms), "bwd":
+    (...)} by replay time (by the eager time, and the backend's name says
+    so, where it refuses capture) and a line per backend."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -415,28 +433,71 @@ def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None, causal=True):
     for backend in backends:
         for gqa in (True, False):
             kk, vv = (kr, v) if gqa else (repeat_kv(kr, n_rep), repeat_kv(v, n_rep))
-            leaves = [t.detach().clone().requires_grad_(True) for t in (qr, kk, vv)]
+
+            def fresh():
+                return [t.detach().clone().requires_grad_(True) for t in (qr, kk, vv)]
+
+            def attend(ls):
+                return F.scaled_dot_product_attention(
+                    *ls, scale=scale, enable_gqa=gqa, **mask)
+
+            leaves = fresh()
 
             def fwd():
-                return F.scaled_dot_product_attention(
-                    *leaves, scale=scale, enable_gqa=gqa, **mask)
+                return attend(leaves)
+
+            def fwd_no_grad():
+                with torch.no_grad():
+                    return fwd()
 
             name = backend.name.lower() + ("" if gqa else " (k/v repeated)")
             try:
                 with sdpa_kernel([backend]):
-                    with torch.no_grad():
-                        f_ms = cuda_ms(fwd)
+                    eager = {"fwd": cuda_ms(fwd_no_grad)}
                     out = fwd()
-                    b_ms = cuda_ms(lambda: torch.autograd.grad(
+                    eager["bwd"] = cuda_ms(lambda: torch.autograd.grad(
                         out, leaves, do, retain_graph=True))
                     torch.cuda.synchronize()
             except RuntimeError as e:
                 lines.append(f"{name}: refused ({str(e).splitlines()[0][:80]})")
                 continue
-            lines.append(f"{name}: forward {f_ms:.4f} ms, backward {b_ms:.4f} ms")
-            for key, ms in (("fwd", f_ms), ("bwd", b_ms)):
+            replay = {}
+            for key in ("fwd", "bwd"):
+                if _CAPTURE["refused"]:
+                    replay[key] = "not captured: an earlier capture failed"
+                    continue
+                try:
+                    with sdpa_kernel([backend]):
+                        if key == "fwd":
+                            replay[key] = graph_ms(fwd_no_grad)
+                        else:
+                            # fresh leaves and the forward on the capture
+                            # stream: the backward's ops, and its leaves'
+                            # gradient nodes, then run on that stream, not
+                            # the default one, which a capture may not touch
+                            side = torch.cuda.Stream()
+                            side.wait_stream(torch.cuda.current_stream())
+                            with torch.cuda.stream(side):
+                                ls = fresh()
+                                out = attend(ls)
+                            replay[key] = graph_ms(lambda: torch.autograd.grad(
+                                out, ls, do, retain_graph=True), stream=side)
+                except RuntimeError as e:
+                    # a failed capture can leave the caching allocator
+                    # unable to free memory: no further captures
+                    _CAPTURE["refused"] = True
+                    torch.cuda.synchronize()
+                    replay[key] = f"refused capture ({str(e).splitlines()[0][:60]})"
+            lines.append(f"{name}: " + ", ".join(
+                f"{label} {eager[key]:.4f} ms eager, "
+                + (f"{replay[key]:.4f} ms graph replay" if isinstance(replay[key], float)
+                   else replay[key])
+                for key, label in (("fwd", "forward"), ("bwd", "backward"))))
+            for key in ("fwd", "bwd"):
+                ms, label = ((replay[key], name) if isinstance(replay[key], float)
+                             else (eager[key], name + ", eager: capture refused"))
                 if key not in best or ms < best[key][0]:
-                    best[key] = (ms, name)
+                    best[key] = (ms, label, eager[key])
             del out, leaves
             break
     return best, lines
@@ -444,10 +505,12 @@ def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None, causal=True):
 
 def time_call(call, card):
     """Each flash kernel at one of the paths' calls, and the rotation pass
-    where the call's path runs it (the Hopper bodies): kernel and plain
-    times (plain, kernel, kernel, plain), bound and the library's time; and
-    on the Hopper bodies two controls: flash_bwd_dq's mma.sync body and the
-    separate delta pass, which the backward no longer runs."""
+    where a kernel of the call runs its Hopper body (bf16: that body reads
+    an operand rotated by the pass): kernel and plain times (plain, kernel,
+    kernel, plain), bound and the library's time (graph replays); and, as
+    controls, the mma.sync body of each kernel that runs its Hopper body
+    here (q and k rotated in the kernel) and, beside flash_bwd_dq's Hopper
+    body, the separate delta pass, which the backward no longer runs."""
     import torch
     from lxt_tpu_torch.ops import flash_attention as fa
     case = CALLS[call]
@@ -476,8 +539,9 @@ def time_call(call, card):
     library = {"flash_fwd": lib.get("fwd"), "flash_bwd_dq": lib.get("bwd"),
                "flash_bwd_dkv": lib.get("bwd"), "rope_rotate": None}
     plain_iters = 10 if call == "main" else 3
-    hopper = fa._hopper(q)
-    if not hopper or cos is None:  # the mma.sync bodies rotate inside the kernel
+    # each kernel's body at this call; the mma.sync bodies rotate inside
+    bodies = {n: fa._hopper(n, q) for n in FLASH[:3]}
+    if not any(bodies.values()) or cos is None:
         del timed["rope_rotate"]
     res = {}
     for name, (kern, plain) in timed.items():
@@ -487,36 +551,85 @@ def time_call(call, card):
         p2 = cuda_ms(plain, plain_iters, 1)
         eager = cuda_ms(kern)
         b_ms, b_by = bound(name, case)
-        lib_ms, lib_name = library[name] or (None, None)
+        lib_ms, lib_name, lib_eager = library[name] or (None, None, None)
         res[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                     "library": lib_name, "eager_ms": eager}
+                     "library": lib_name, "library_eager_ms": lib_eager,
+                     "eager_ms": eager}
         r = res[name]
-        body = "" if name == "rope_rotate" else (
-            f" ({'Hopper' if hopper else 'mma.sync'} body)")
+        body = ""
+        if name in bodies:
+            r["body"] = "Hopper" if bodies[name] else "mma.sync"
+            body = f" ({r['body']} body)"
         print(f"kernel time {name} at {CALL_NAMES[call]} bf16{body}: "
               f"kernel {r['ms']:.4f} ms (eager calls {eager:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
               f"{b_ms / r['ms']:.1%} of it), library "
-              + (f"{lib_ms:.4f} ms ({lib_name})" if lib_ms else "none")
+              + (f"{lib_ms:.4f} ms ({lib_name}; eager {lib_eager:.4f} ms)"
+                 if lib_ms else "none")
               + f" [{card}]", flush=True)
+    if not any(off.values()):
+        mma = {"flash_fwd": lambda: fa.flash_fwd_mma(q, k, v, *extra),
+               "flash_bwd_dq": lambda: fa.flash_bwd_dq_mma(*dq_args),
+               "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_mma(*bwd)}
+        parts = []
+        for name, fn in mma.items():
+            # bf16 builds K1's and flash_bwd_dkv's mma.sync bodies at head
+            # dim 256 only, where their Hopper bodies replaced them
+            if bodies[name] and (name == "flash_bwd_dq" or D == 256):
+                ms = res[name]["mma_ms"] = graph_ms(fn)
+                parts.append(f"{name} {ms:.4f} ms against its Hopper body "
+                             f"{res[name]['ms']:.4f} ms ({ms / res[name]['ms']:.2f}x)")
+        if bodies["flash_bwd_dq"]:
+            delta_ms = graph_ms(lambda: (out.float() * do.float()).sum(-1))
+            parts.append(f"the separate delta pass the backward no longer runs "
+                         f"{delta_ms:.4f} ms")
+        if parts:
+            print(f"controls at {CALL_NAMES[call]}: the mma.sync bodies (q and k "
+                  f"rotated in the kernel) " + "; ".join(parts) + f" [{card}]",
+                  flush=True)
     dq_ms = res["flash_bwd_dq"]["ms"]
-    if hopper and not any(off.values()):
-        mma_ms = graph_ms(lambda: fa.flash_bwd_dq_mma(*dq_args))
-        delta_ms = graph_ms(lambda: (out.float() * do.float()).sum(-1))
-        print(f"controls at {CALL_NAMES[call]}: flash_bwd_dq's mma.sync body "
-              f"(q and k rotated in the kernel, delta inside) {mma_ms:.4f} ms "
-              f"against its Hopper body {dq_ms:.4f} ms ({mma_ms / dq_ms:.2f}x); "
-              f"the separate delta pass the backward no longer runs "
-              f"{delta_ms:.4f} ms [{card}]", flush=True)
     pair = dq_ms + res["flash_bwd_dkv"]["ms"]
     print(f"library at {CALL_NAMES[call]}: " + "; ".join(lib_lines), flush=True)
     if "bwd" in lib and "fwd" in lib:
-        print(f"against the library at {CALL_NAMES[call]}: K1 "
-              f"{res['flash_fwd']['ms'] / lib['fwd'][0]:.2f}x its forward; the K2 "
+        print(f"against the library at {CALL_NAMES[call]} (its graph-replay times): "
+              f"K1 {res['flash_fwd']['ms'] / lib['fwd'][0]:.2f}x its forward; the K2 "
               f"pair (delta inside flash_bwd_dq) {pair:.4f} ms, "
               f"{pair / lib['bwd'][0]:.2f}x its backward [{card}]", flush=True)
     return res
+
+
+def ptxas_report():
+    """The registers and spills that ptxas reported (-Xptxas=-v) for each
+    flash body of the library in use, one line a kernel, demangled where
+    c++filt is found."""
+    import re
+    import shutil
+    from lxt_tpu_torch.ops import _build
+    found, name = {}, None
+    for line in _build.log_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or "flash" not in name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found.setdefault(name, {})["spills"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.setdefault(name, {})["registers"] = int(m.group(1))
+    names = list(found)
+    if shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = [n.split("(")[0] for n in out]
+    return [f"ptxas {shown}: {info.get('registers')} registers, "
+            f"{info.get('spills', ('?', '?'))[0]} bytes spill stores, "
+            f"{info.get('spills', ('?', '?'))[1]} bytes spill loads"
+            for shown, info in zip(names, found.values())]
 
 
 def phase_kernels(card):
@@ -586,14 +699,22 @@ def attribute(params, cfg, ids, impl, remat, family="llama", token=None):
     return held["logits"], rel
 
 
-def expected_launches(L, hopper, remat):
+# the kernels that run their Hopper bodies (and read an operand rotated by
+# the rotation pass) in bf16 at each head dim; none in float32 and float16
+HOPPER_BODIES = {64: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                 128: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                 256: ("flash_fwd", "flash_bwd_dkv")}
+
+
+def expected_launches(L, remat, hopper=()):
     """Flash launches per attribution: K1 once a layer (twice with remat,
-    whose recompute runs the forward again) and each K2 half once; on the
-    Hopper bodies (bf16, head dim 64 and 128) the rotation pass rotates k
-    before each K1 and each flash_bwd_dq, and q before each flash_bwd_dkv."""
-    fwd = 2 * L if remat else L
-    return {"flash_fwd": fwd, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "rope_rotate": fwd + 2 * L if hopper else 0}
+    whose recompute runs the forward again) and each K2 half once; the
+    rotation pass once before each launch of a kernel in ``hopper`` (those
+    running their Hopper bodies): k before K1 and flash_bwd_dq, q before
+    flash_bwd_dkv."""
+    counts = {"flash_fwd": 2 * L if remat else L, "flash_bwd_dq": L,
+              "flash_bwd_dkv": L}
+    return {**counts, "rope_rotate": sum(counts[n] for n in hopper)}
 
 
 def phase_parity(card):
@@ -621,7 +742,7 @@ def phase_parity(card):
           f"[{card}]", flush=True)
     if not (finite and d_logits <= PARITY_BAR and d_rel <= PARITY_BAR):
         failures.append("main path float32 parity")
-    if rose != expected_launches(cfg.num_layers, hopper=False, remat=False):
+    if rose != expected_launches(cfg.num_layers, remat=False):
         failures.append(f"launches per attribution {rose}")
     return failures, params, ids, rel_k
 
@@ -666,7 +787,7 @@ def phase_served(card, params32, ids1, rel32):
           f"memory {peak:.2f} GiB [{card}]", flush=True)
     if not ok:
         failures.append("served relevance not finite or misshapen")
-    want = expected_launches(cfg.num_layers, hopper=True, remat=False)
+    want = expected_launches(cfg.num_layers, remat=False, hopper=HOPPER_BODIES[64])
     if launches != {n: REQUESTS * c for n, c in want.items()}:
         failures.append(f"served launches {launches}")
 
@@ -698,7 +819,7 @@ def phase_served(card, params32, ids1, rel32):
     torch.cuda.synchronize()
     launches_h = dict(fa.launches)
     div_h = nl2(rel_h.float(), rel32)
-    want_h = expected_launches(cfg_h.num_layers, hopper=False, remat=False)
+    want_h = expected_launches(cfg_h.num_layers, remat=False)
     print(f"main path float16 vs float32 relevance at B1x{SEQ}, kernels: "
           f"normalized L2 {div_h:.4g} (bar {DIVERGENCE_BAR}); launches "
           f"{launches_h} (expected {want_h}) [{card}]", flush=True)
@@ -815,7 +936,8 @@ def phase_nf4_8b(card):
     # per layer: K1 in the forward and the recompute; K3 for the 7
     # projections in the forward and the backward, and for 6 in the
     # recompute, which stops before wd (its backward needs only codes)
-    want = dict(expected_launches(L, hopper=True, remat=True), nf4_dequant=20 * L)
+    want = dict(expected_launches(L, remat=True, hopper=HOPPER_BODIES[128]),
+                nf4_dequant=20 * L)
     ok = all(r.shape == (1, SEQ_8B) and bool(torch.isfinite(r).all())
              for r in rels)
     print(f"NF4 Llama-3-8B width L{L} B1x{SEQ_8B} bf16 remat: init and "
@@ -874,7 +996,7 @@ def phase_gemma(card):
     logits_e, rel_e = attribute(params, cfg, ids, "einsum", False, fam)
     d_logits, d_rel = nl2(logits_k, logits_e), nl2(rel_k, rel_e)
     finite = bool(torch.isfinite(rel_k).all() and torch.isfinite(logits_k).all())
-    want = expected_launches(cfg.num_layers, hopper=False, remat=False)
+    want = expected_launches(cfg.num_layers, remat=False)
     print(f"Gemma-3-4B width float32 L{cfg.num_layers} (layer types "
           f"{''.join('L' if s else 'G' for s in gemma3.layer_sliding_flags(cfg))}) "
           f"B1x{SEQ_GEMMA_PARITY}: kernels vs einsum normalized L2 logits "
@@ -918,7 +1040,7 @@ def phase_gemma(card):
     launches = dict(fa.launches)
     per = {n: c / REQUESTS for n, c in launches.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = expected_launches(cfg.num_layers, hopper=False, remat=False)
+    want = expected_launches(cfg.num_layers, remat=False, hopper=HOPPER_BODIES[256])
     ok = all(r.shape == (1, SEQ_GEMMA) and bool(torch.isfinite(r).all()) for r in rels)
     print(f"Gemma-3-4B L{cfg.num_layers} B1x{SEQ_GEMMA} bf16 remat off: "
           f"{n_params / 1e9:.3f} B parameters, init {t_init:.1f} s; {REQUESTS} "
@@ -1224,6 +1346,8 @@ def main():
     _build.library()
     print(f"kernel build {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds:.1f} s) [{card}]", flush=True)
+    for line in ptxas_report():
+        print(line, flush=True)
 
     t_start = time.perf_counter()
     failures, errs, timing = phase_kernels(card)
@@ -1261,11 +1385,14 @@ def main():
           for name in FLASH}
     at["nf4_dequant"] = {"main": k3_times[K3_TIMED[0]], "8b": k3_times[K3_TIMED[1]]}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")
+    more = ("body", "mma_ms", "library_eager_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
-         **{key: at[name]["main"][key] for key in keys},
-         **{f"at_{call}": {key: at[name][call][key] for key in keys}
+         **{key: at[name]["main"][key] for key in keys + more
+            if key in at[name]["main"]},
+         **{f"at_{call}": {key: at[name][call][key] for key in keys + more
+                           if key in at[name][call]}
             for call in CALLS if call != "main" and call in at[name]},
          "launches_8b": nf4_launches[name],
          "launches_gemma": gemma_launches.get(name, 0),

@@ -14,25 +14,30 @@
 // future, every row empty); the bodies below need nothing more for either,
 // since every skip, span and interior test goes through Mask.
 //
-// What bounds it on the H100: at the two paths' calls (B 8, H 32 / Hkv 4,
-// T 1024, head dim 64; B 1, H 32 / Hkv 8, T 4096, head dim 128; bf16,
-// causal) it does 34 and 137 GFLOP of products on 76-100 MB of
-// q/k/v/out, far above the card's ~295 FLOP/byte ridge: the tensor cores
+// What bounds it on the H100: at the paths' calls (B 8, H 32 / Hkv 4,
+// T 1024, head dim 64; B 1, H 32 / Hkv 8, T 4096, head dim 128; Gemma-3-4B's
+// B 1, H 8 / Hkv 4, T 4096, head dim 256, causal with and without a 1024
+// window; bf16) it does 34, 137, 30 and 69 GFLOP of products on 50-100 MB
+// of q/k/v/out, far above the card's ~295 FLOP/byte ridge: the tensor cores
 // (989 TFLOP/s) are the roofline bound, and beside them the exp2 and
 // max/sum work per score on the FP32 and special-function units, which at
 // head dim 64 costs as much as the products.
 //
 // Two bodies; the switch at the end picks one by (dtype, head dim) only.
+// The mma.sync body stays callable in bf16 at head dim 256
+// (lxt_flash_fwd_mma), the control that chip_smoke.py times beside the
+// Hopper body.
 //
-// The Hopper body (bf16 at head dim 64 and 128, the two paths' calls):
+// The Hopper body (bf16 at head dim 64, 128 and 256, the paths' calls):
 // - one CTA per (b, h, q tile of 64 rows per consumer warpgroup): three
-//   warpgroups (192 rows) at head dim 64, two (128 rows) at 128, whose
-//   accumulators are twice as wide, and one producer warpgroup that gives
-//   its registers to them (setmaxnreg). The grid runs the q tiles
-//   last-first, so under the causal mask the CTAs with the most kv tiles
-//   start first.
+//   warpgroups (192 rows) at head dim 64, two (128 rows) at 128 and 256,
+//   whose accumulators are two and four times as wide (128 fp32 a thread
+//   at 256), and one producer warpgroup that gives its registers to them
+//   (setmaxnreg). The grid runs the q tiles last-first, so under the
+//   causal mask the CTAs with the most kv tiles start first.
 // - one producer thread TMA-loads the q tile once and keeps a ring of 4
-//   (k, v) tile pairs of 64 rows in flight (128-byte swizzled, one
+//   (k, v) tile pairs (2 at head dim 256, where a pair of 64-row tiles is
+//   64 KiB beside the 64 KiB q tile) in flight (128-byte swizzled, one
 //   mbarrier pair per stage); rows past T read as zeros and are not stored.
 // - s = q kᵀ is a wgmma m64n64k16 chain per warpgroup from shared memory;
 //   p is rescaled, rounded to bf16 and kept in registers as the A operand
@@ -41,12 +46,13 @@
 // - the softmax is branch-free: masks are two bounds per row, applied only
 //   on tiles the mask cuts, and exp2 is one ex2.approx each; empty rows give
 //   out 0 and lse -1e30 as in the body below.
-// - RoPE: q is rotated once, in shared memory, in the prologue; k arrives
-//   rotated by the rotation pass (rope.cu), once per call. This body never
-//   rotates k.
+// - RoPE: q is rotated once, in shared memory, in the prologue (at head dim
+//   256 in two batches of 32 rows, whose tables hold 64 registers a thread
+//   instead of 128); k arrives rotated by the rotation pass (rope.cu), once
+//   per call. This body never rotates k.
 //
-// The mma.sync body (float32, float16, and bf16 at head dim 256): one CTA per (b,
-// h, 64-row q tile); the 4 warps own 16 q rows each and loop over the kv tiles
+// The mma.sync body (float32 and float16): one CTA per (b, h, 64-row q
+// tile); the 4 warps own 16 q rows each and loop over the kv tiles
 // (a loop in the block replaces the TPU's sequential kv grid axis; blocks
 // run in any order and share nothing). Fully masked kv tiles are skipped
 // and fully visible ones skip the per-element mask. GQA reads kv head
@@ -189,13 +195,16 @@ namespace hopper {
 
 template <int D>
 struct FwdTiles {
-  // three consumer warpgroups at head dim 64, two at 128 (its accumulators
-  // are twice as wide)
+  // three consumer warpgroups at head dim 64, two at 128 and 256 (their
+  // accumulators are two and four times as wide: 128 fp32 a thread at 256)
   static constexpr int NWG = D == 64 ? 3 : 2;
   // kv rows per step: 128 at head dim 64 (the softmax's fixed costs per step
-  // weigh most there), 64 at 128 (shared memory)
+  // weigh most there), 64 at 128 and 256 (shared memory)
   static constexpr int BK = D == 64 ? 128 : 64;
-  static constexpr int BQ = 64 * NWG, STAGES = 4, PANELS = D / 64;
+  // stages of the (k, v) ring: at head dim 256 a stage is 64 KiB beside the
+  // 64 KiB q tile, so two fit the 227 KiB a block can use
+  static constexpr int STAGES = D == 256 ? 2 : 4;
+  static constexpr int BQ = 64 * NWG, PANELS = D / 64;
   static constexpr int Q_PANEL = BQ * kPanelBytes, KV_PANEL = BK * kPanelBytes;
   static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // k, then v
@@ -268,8 +277,14 @@ __global__ void __launch_bounds__(Roles<FwdTiles<D>::NWG>::kThreads, 1)
     unsigned char* sQw = sQ + 64 * wg * kPanelBytes;
     mbar_wait(bar_q, 0);
     if (active && a.cos) {
-      rope_swizzled<D, 64, 128>(sQw, C::Q_PANEL, static_cast<const bf16*>(a.cos),
-                                static_cast<const bf16*>(a.sin), q0w, threadIdx.x % 128);
+      // in batches of 32 rows at head dim 256: the tables of all 64 rows
+      // would hold 128 registers a thread
+      constexpr int RR = D == 256 ? 32 : 64;
+#pragma unroll
+      for (int r0 = 0; r0 < 64; r0 += RR)
+        rope_swizzled<D, RR, 128>(sQw + r0 * kPanelBytes, C::Q_PANEL,
+                                  static_cast<const bf16*>(a.cos),
+                                  static_cast<const bf16*>(a.sin), q0w + r0, threadIdx.x % 128);
       fence_proxy_async();
     }
     named_sync(1 + wg, 128);
@@ -438,29 +453,46 @@ cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
 
 }  // namespace lxt
 
-// 1 when (dtype, head_dim) runs the Hopper bodies of K1 and of both K2
-// kernels: K1 and flash_bwd_dq then read k rotated by the rotation pass,
-// and flash_bwd_dkv reads q rotated by it.
-extern "C" int lxt_flash_hopper(int dtype, int head_dim) {
-  return dtype == 1 && (head_dim == 64 || head_dim == 128);
+// kernel: 0 K1, 1 flash_bwd_dq, 2 flash_bwd_dkv. 1 when (dtype, head_dim)
+// runs that kernel's Hopper body, which reads k (K1, flash_bwd_dq) or q
+// (flash_bwd_dkv) rotated by the rotation pass: bf16 at head dim 64 and 128
+// for all three, and at 256 for K1 and flash_bwd_dkv. flash_bwd_dq at head
+// dim 256 runs its mma.sync body, which rotates q and k itself.
+extern "C" int lxt_flash_hopper(int kernel, int dtype, int head_dim) {
+  if (dtype != 1) return 0;
+  if (kernel == 1) return head_dim == 64 || head_dim == 128;
+  return head_dim == 64 || head_dim == 128 || head_dim == 256;
 }
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. Returns the cudaError_t of the
-// launch.
-extern "C" int lxt_flash_fwd(const lxt::FlashArgs* a, int dtype, int head_dim,
-                             void* stream) {
+// dtype: 0 float32, 1 bfloat16, 2 float16. Each returns the cudaError_t of
+// its launch.
+// The mma.sync body of K1 at every (dtype, head dim) but bf16 at 64 and
+// 128: the body bf16 at head dim 256 ran before its Hopper body, kept
+// callable so that chip_smoke.py can time the two side by side.
+extern "C" int lxt_flash_fwd_mma(const lxt::FlashArgs* a, int dtype, int head_dim,
+                                 void* stream) {
   using namespace lxt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype * 1000 + head_dim) {
     case 64: return launch_fwd<float, 64>(*a, s);
     case 128: return launch_fwd<float, 128>(*a, s);
     case 256: return launch_fwd<float, 256>(*a, s);
-    case 1064: return hopper::launch_fwd<64>(*a, s);
-    case 1128: return hopper::launch_fwd<128>(*a, s);
     case 1256: return launch_fwd<bf16, 256>(*a, s);
     case 2064: return launch_fwd<f16, 64>(*a, s);
     case 2128: return launch_fwd<f16, 128>(*a, s);
     case 2256: return launch_fwd<f16, 256>(*a, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int lxt_flash_fwd(const lxt::FlashArgs* a, int dtype, int head_dim,
+                             void* stream) {
+  using namespace lxt;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype * 1000 + head_dim) {
+    case 1064: return hopper::launch_fwd<64>(*a, s);
+    case 1128: return hopper::launch_fwd<128>(*a, s);
+    case 1256: return hopper::launch_fwd<256>(*a, s);
+    default: return lxt_flash_fwd_mma(a, dtype, head_dim, stream);
   }
 }

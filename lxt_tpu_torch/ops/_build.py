@@ -82,13 +82,23 @@ def _compile(sources, target):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _target():
+    return BUILD_DIR / f"liblxt_kernels-{_digest()}.so"
+
+
+def log_path():
+    """The nvcc log (with ptxas's registers and spills of every kernel) of
+    the library that :func:`library` loads."""
+    return _target().with_suffix(".log")
+
+
 def library():
     """Build (if needed) and load the kernel library; returns the CDLL."""
     global _lib, build_seconds
     if _lib is None:
         sources = sorted(SRC_DIR.glob("*.cu"))
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        target = BUILD_DIR / f"liblxt_kernels-{_digest()}.so"
+        target = _target()
         if not target.exists():
             t0 = time.perf_counter()
             _compile(sources, target)

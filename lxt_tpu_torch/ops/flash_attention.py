@@ -13,9 +13,10 @@ kernels compute standard flash attention and its standard backward:
 - ``rope_rotate`` (``csrc/rope.cu``): the RoPE rotation pass of one tensor.
 
 K1, ``flash_bwd_dq`` and ``flash_bwd_dkv`` have a Hopper body (wgmma, TMA,
-warp-specialised) for bf16 at head dim 64 and 128; float32, float16 and head
-dim 256 run the mma.sync bodies. The body is picked by (dtype, head dim)
-alone.
+warp-specialised) for bf16 at head dim 64 and 128, and K1 and
+``flash_bwd_dkv`` also at head dim 256; float32, float16 and
+``flash_bwd_dq`` at head dim 256 run the mma.sync bodies. Each kernel's
+body is picked by (dtype, head dim) alone.
 ``flash_bwd_dq`` also computes Δ of its rows from the forward's out and
 writes it out for ``flash_bwd_dkv``: the backward runs no separate Δ pass.
 
@@ -30,7 +31,9 @@ visible key give out 0 and lse −1e30. Optional ``rope`` ``(cos, sin)``
 [T, D] tables rotate q and k (HF rotate-half, in the activation dtype):
 inside the kernels, except that the Hopper bodies read k (K1,
 ``flash_bwd_dq``) and q (``flash_bwd_dkv``) rotated once per call by
-``rope_rotate``; the transposed rotation is applied to dq and dk.
+``rope_rotate``; the transposed rotation is applied to dq and dk. At head
+dim 256 that is two rotation passes per forward and backward (k before K1,
+q before ``flash_bwd_dkv``), at 64 and 128 three.
 
 Every kernel wrapper takes its plain version for CPU tensors (the tests);
 for a CUDA tensor it launches the kernel or raises. ``launches`` counts the
@@ -275,6 +278,10 @@ class _FlashArgs(ctypes.Structure):
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ENTRY = {"flash_fwd": "lxt_flash_fwd", "flash_bwd_dq": "lxt_flash_bwd_dq",
           "flash_bwd_dkv": "lxt_flash_bwd_dkv"}
+#: each kernel's mma.sync body alone (controls timed by chip_smoke.py)
+_MMA = {name: entry + "_mma" for name, entry in _ENTRY.items()}
+#: the kernel argument of lxt_flash_hopper
+_KERNEL_CODE = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 _lib = None
 
 
@@ -283,12 +290,12 @@ def _library():
     if _lib is None:
         from lxt_tpu_torch.ops import _build
         lib = _build.library()
-        for sym in (*_ENTRY.values(), "lxt_flash_bwd_dq_mma"):
+        for sym in (*_ENTRY.values(), *_MMA.values()):
             fn = getattr(lib, sym)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.lxt_flash_hopper.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.lxt_flash_hopper.argtypes = [ctypes.c_int] * 3
         lib.lxt_flash_hopper.restype = ctypes.c_int
         lib.lxt_rope_rotate.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3
@@ -317,14 +324,14 @@ def _stat(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _hopper(q):
-    """Whether a CUDA call of this dtype and head dim runs the Hopper bodies
-    of K1, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``lxt_flash_hopper`` in
-    csrc/flash_fwd.cu decides): they read k (K1, ``flash_bwd_dq``) and q
-    (``flash_bwd_dkv``) rotated by the rotation pass instead of rotating
-    them in the kernel."""
+def _hopper(name, q):
+    """Whether a CUDA call of kernel ``name`` at q's dtype and head dim runs
+    its Hopper body (``lxt_flash_hopper`` in csrc/flash_fwd.cu decides):
+    that body reads k (K1, ``flash_bwd_dq``) or q (``flash_bwd_dkv``)
+    rotated by the rotation pass instead of rotating it in the kernel."""
     code = _DTYPE_CODE.get(q.dtype)
-    return code is not None and bool(_library().lxt_flash_hopper(code, q.shape[-1]))
+    return code is not None and bool(
+        _library().lxt_flash_hopper(_KERNEL_CODE[name], code, q.shape[-1]))
 
 
 def _launch(name, q, k, v, *, dout=None, fwd_out=None, lse=None, delta=None,
@@ -433,20 +440,38 @@ def rope_rotate(x, cos, sin):
 def flash_fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal,
               *, q_start=0, k_start=0):
     """K1. Returns (out like q, lse float32 [B, H, T]). On the Hopper body
-    (bf16, head dim 64 or 128) with rope, k is rotated first by
+    (bf16, head dim 64, 128 or 256) with rope, k is rotated first by
     :func:`rope_rotate`; q is rotated inside the kernel."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, cos, sin, kv_begin, kv_end, window,
                              scale, causal, q_start=q_start, k_start=k_start)
     q, k, v = _prepared(q), _prepared(k), _prepared(v)
-    if cos is not None and _hopper(q):
+    if cos is not None and _hopper("flash_fwd", q):
         k = rope_rotate(k, cos, sin)
+    return _fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal,
+                q_start=q_start, k_start=k_start)
+
+
+def _fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal,
+         entry=None, q_start=0, k_start=0):
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, k, v, cos=cos, sin=sin, kv_begin=kv_begin,
             kv_end=kv_end, outs=(out,), lse_out=lse, window=window,
-            scale=scale, causal=causal, q_start=q_start, k_start=k_start)
+            scale=scale, causal=causal, q_start=q_start, k_start=k_start,
+            entry=entry)
     return out, lse
+
+
+def flash_fwd_mma(q, k, v, cos, sin, kv_begin, kv_end, window, scale,
+                  causal):
+    """K1 through its mma.sync body (not bf16 at head dim 64 or 128), q and
+    k rotated inside the kernel: the body that bf16 at head dim 256 ran
+    before its Hopper body, which ``chip_smoke.py`` times beside it. The
+    model path never calls it."""
+    q, k, v = _prepared(q), _prepared(k), _prepared(v)
+    return _fwd(q, k, v, cos, sin, kv_begin, kv_end, window, scale, causal,
+                entry=_MMA["flash_fwd"])
 
 
 def flash_bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
@@ -456,13 +481,14 @@ def flash_bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
     ``out`` (and the lse cotangent ``dlse`` float32 [B, H, T], if given);
     returns (dq, Δ float32 [B, H, T]). On the Hopper body (bf16, head dim
     64 or 128) with rope, k is rotated first by :func:`rope_rotate`; q is
-    rotated inside the kernel."""
+    rotated inside the kernel. Head dim 256 runs the mma.sync body, which
+    rotates q and k itself."""
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, out, lse, cos, sin, kv_begin,
                                 kv_end, window, scale, causal, q_start=q_start,
                                 k_start=k_start, dlse=dlse)
     q, k, v, do, out = (_prepared(t) for t in (q, k, v, do, out))
-    if cos is not None and _hopper(q):
+    if cos is not None and _hopper("flash_bwd_dq", q):
         k = rope_rotate(k, cos, sin)
     return _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
                    scale, causal, q_start=q_start, k_start=k_start, dlse=dlse)
@@ -488,14 +514,14 @@ def flash_bwd_dq_mma(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end,
     it. The model path never calls it."""
     q, k, v, do, out = (_prepared(t) for t in (q, k, v, do, out))
     return _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
-                   scale, causal, entry="lxt_flash_bwd_dq_mma")
+                   scale, causal, entry=_MMA["flash_bwd_dq"])
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
                   scale, causal, *, q_start=0, k_start=0):
     """K2, dk/dv half: one CTA per (b, kv head, kv tile), looping over the
     GQA group's q heads and the visible q tiles. On the Hopper body (bf16,
-    head dim 64 or 128) with rope, q is rotated first by
+    head dim 64, 128 or 256) with rope, q is rotated first by
     :func:`rope_rotate` (a [B, H, T, D] scratch copy for the call); k is
     rotated inside the kernel."""
     if q.device.type == "cpu":
@@ -503,14 +529,31 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
                                  kv_end, window, scale, causal,
                                  q_start=q_start, k_start=k_start)
     q, k, v, do = (_prepared(t) for t in (q, k, v, do))
-    if cos is not None and _hopper(q):
+    if cos is not None and _hopper("flash_bwd_dkv", q):
         q = rope_rotate(q, cos, sin)
+    return _bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
+                    window, scale, causal, q_start=q_start, k_start=k_start)
+
+
+def _bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end, window,
+             scale, causal, entry=None, q_start=0, k_start=0):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv", q, k, v, dout=do, lse=_stat(lse),
             delta=_stat(delta), cos=cos, sin=sin, kv_begin=kv_begin,
             kv_end=kv_end, outs=(dk, dv), window=window, scale=scale,
-            causal=causal, q_start=q_start, k_start=k_start)
+            causal=causal, q_start=q_start, k_start=k_start, entry=entry)
     return dk, dv
+
+
+def flash_bwd_dkv_mma(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
+                      window, scale, causal):
+    """``flash_bwd_dkv`` through its mma.sync body (not bf16 at head dim 64
+    or 128), q and k rotated inside the kernel: the body that bf16 at head
+    dim 256 ran before its Hopper body, which ``chip_smoke.py`` times beside
+    it. The model path never calls it."""
+    q, k, v, do = (_prepared(t) for t in (q, k, v, do))
+    return _bwd_dkv(q, k, v, do, lse, delta, cos, sin, kv_begin, kv_end,
+                    window, scale, causal, entry=_MMA["flash_bwd_dkv"])
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,8 @@ def test_kernels_match_plain_versions(D, dtype):
 
 
 # the Hopper bodies of K1, flash_bwd_dq and flash_bwd_dkv (bf16, head dim 64
-# and 128): name -> (B, H, Hkv, T, D, options)
+# and 128), and of K1 and flash_bwd_dkv at head dim 256 (flash_bwd_dq there:
+# its mma.sync body): name -> (B, H, Hkv, T, D, options)
 HOPPER_CASES = {
     # T 320: K1's last 128- (D 128) or 192-row (D 64) q tile is part full
     "odd_tiles_T320_hd64": (2, 4, 2, 320, 64, {"rope": True}),
@@ -74,6 +75,13 @@ HOPPER_CASES = {
     "kv_end_bidirectional_hd128": (2, 4, 2, 256, 128, {"kv_end": [256, 77],
                                                        "causal": False}),
     "kv_begin_hd64": (2, 8, 8, 256, 64, {"kv_begin": [0, 130], "rope": True}),
+    "odd_tiles_T320_hd256": (2, 8, 4, 320, 256, {"rope": True}),
+    "gqa_16_2_hd256_rope": (1, 16, 2, 256, 256, {"rope": True}),
+    "window_across_tiles_hd256": (1, 8, 4, 512, 256, {"window": 40, "rope": True}),
+    "window1024_T2048_hd256": (1, 8, 4, 2048, 256, {"window": 1024, "rope": True}),
+    "kv_begin_hd256": (2, 8, 4, 256, 256, {"kv_begin": [0, 130], "rope": True}),
+    "kv_end_bidirectional_hd256": (2, 8, 4, 256, 256, {"kv_end": [256, 77],
+                                                       "causal": False}),
 }
 
 
@@ -131,7 +139,8 @@ def test_hopper_bodies_match_plain_versions(name):
     _assert_match_plain_versions(*_hopper_inputs(HOPPER_CASES[name], seed=len(name)))
 
 
-# head dim 256 (the mma.sync bodies) with Gemma-3's masks: local layers'
+# head dim 256 (bf16: the Hopper bodies of K1 and flash_bwd_dkv; float16
+# and float32: the mma.sync bodies) with Gemma-3's masks: local layers'
 # window narrower than T, cutting across kv tiles, and global layers'
 # causal mask without one; name -> (B, H, Hkv, T, D, options)
 D256_CASES = {
@@ -152,7 +161,7 @@ def test_head_dim_256_windows_match_plain_versions(name, dtype):
                                                  dtype=dtype))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_hopper_bodies_read_strided_views(D):
     """Head-split views of [B, T, heads * D] projections, as the model hands
     them over (the tensor maps read their strides), give the same bits as
@@ -229,10 +238,11 @@ def test_flash_bwd_dq_delta_matches_plain(D, dtype):
     assert err <= 1e-5, err
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_bwd_dkv_is_deterministic(D):
-    """The GQA sum runs inside one CTA in a fixed order: two launches give
-    bit-equal dk and dv."""
+    """The GQA sum runs inside one CTA in a fixed order (at head dim 256 the
+    two warpgroups own disjoint columns): two launches give bit-equal dk and
+    dv."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, do, args = _hopper_inputs((2, 16, 2, 512, D, {"rope": True}), seed=D)
@@ -291,19 +301,22 @@ def test_rotation_pass_views_and_ragged_runs(D, dtype, layout):
     assert torch.equal(got, want)
 
 
-def test_hopper_calls_rotate_once_per_call():
+@pytest.mark.parametrize("D,passes", [(64, 3), (128, 3), (256, 2)])
+def test_hopper_calls_rotate_once_per_call(D, passes):
     """K1 and flash_bwd_dq rotate k, and flash_bwd_dkv q, through one
-    rotation pass each: three per forward and backward."""
+    rotation pass each where they run their Hopper bodies: three per
+    forward and backward at head dim 64 and 128; two at 256, where
+    flash_bwd_dq runs its mma.sync body and rotates q and k itself."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    q, k, v, do, args = _hopper_inputs((1, 8, 2, 256, 64, {"rope": True}), seed=3)
+    q, k, v, do, args = _hopper_inputs((1, 8, 2, 256, D, {"rope": True}), seed=3)
     tfa.reset_launches()
     out, lse = tfa.flash_fwd(q, k, v, *args)
     _, delta = tfa.flash_bwd_dq(q, k, v, do, out, lse, *args)
     tfa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
     torch.cuda.synchronize()
     assert tfa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                            "rope_rotate": 3}
+                            "rope_rotate": passes}
 
 
 # ring steps: every (q_start, k_start) pair of a 4-way split of T 1024 (keys
@@ -317,8 +330,9 @@ RING_PAIRS = [(i * 256, j * 256) for i in range(4) for j in range(4)] + [(100, 3
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_offsets_and_dlse_match_plain_versions(D, dtype, window):
     """flash_attention_lse's calls on both bodies (Hopper: bf16 at D 64 and
-    128; mma.sync: float32, float16 and D 256): K1, flash_bwd_dq with dlse and
-    flash_bwd_dkv against their plain versions at every ring-step pair."""
+    128, and K1 and flash_bwd_dkv at D 256; mma.sync: float32, float16 and
+    flash_bwd_dq at D 256): K1, flash_bwd_dq with dlse and flash_bwd_dkv
+    against their plain versions at every ring-step pair."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
