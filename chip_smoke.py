@@ -69,7 +69,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against the einsum path (normalized L2 <= 1e-4) and bf16 against it
      (relevance <= 0.1); then bf16 at full width and depth (34 layers),
      batch 1 x 4096, remat off: three attributions (heatmaps/s, launches
-     per attribution against 34 of each flash kernel and 68 of the
+     per attribution against 34 of each flash kernel and 102 of the
      rotation pass, finite relevance, peak memory);
  10. the ring: four processes on the one card over a gloo group (its
      host-staged point-to-point; the card count is 1), Llama-3-8B widths,
@@ -146,17 +146,17 @@ CASES = {
     "odd_tiles_T320_hd256": (2, 8, 4, 320, 256, {"rope": True}),
     "gqa_16_2_hd256_window40": (1, 16, 2, 512, 256, {"window": 40, "rope": True,
                                                      "kv_begin": [37]}),
-    # Gemma-3-4B's calls (head dim 256: the Hopper bodies of K1 and
-    # flash_bwd_dkv, the mma.sync body of flash_bwd_dq): local layers with
-    # the 1024 window, global layers without one
+    # Gemma-3-4B's calls (head dim 256: the Hopper bodies of K1,
+    # flash_bwd_dq and flash_bwd_dkv in bf16): local layers with the 1024
+    # window, global layers without one
     "gemma_local": (1, 8, 4, 4096, 256, {"window": 1024, "rope": True}),
     "gemma_global": (1, 8, 4, 4096, 256, {"rope": True}),
 }
 # ring steps (flash_attention_lse's calls): every (q_start, k_start) pair of
 # a 4-way split of 4 x T (keys in the past, on the diagonal and wholly in the
 # future) and one pair off the tile grid, each with a nonzero lse cotangent:
-# the Hopper bodies in bf16 at D 64 and 128 and, but for flash_bwd_dq, at
-# D 256 with Gemma-3's window; the mma.sync bodies in float32 and float16
+# the Hopper bodies in bf16 at D 64, 128 and 256 (with Gemma-3's window);
+# the mma.sync bodies in float32 and float16
 RING_CASES = {
     "ring_hd64": (2, 4, 2, 256, 64, {}),
     "ring_hd128_window300": (1, 8, 2, 256, 128, {"window": 300}),
@@ -701,9 +701,8 @@ def attribute(params, cfg, ids, impl, remat, family="llama", token=None):
 
 # the kernels that run their Hopper bodies (and read an operand rotated by
 # the rotation pass) in bf16 at each head dim; none in float32 and float16
-HOPPER_BODIES = {64: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                 128: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                 256: ("flash_fwd", "flash_bwd_dkv")}
+HOPPER_BODIES = {D: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                 for D in (64, 128, 256)}
 
 
 def expected_launches(L, remat, hopper=()):

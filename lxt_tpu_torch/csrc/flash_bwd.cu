@@ -76,21 +76,30 @@
 //   element of dk and dv has one writer: deterministic, no atomics, and no
 //   partial sum between the warpgroups.
 //
-// The Hopper body of flash_bwd_dq (bf16 at head dim 64 and 128). What
+// The Hopper body of flash_bwd_dq (bf16 at head dim 64, 128 and 256). What
 // bounds it: three products per visible pair (s, dp, ds·k; 51.5 and 206
-// GFLOP at the two paths' calls, 0.0522 / 0.2085 ms at 989 TFLOP/s)
-// against ~0.15 GB of q/do/out/dq/k/v (~0.045 ms at 3.35 TB/s), so the
-// tensor cores, and beside them the exp2 and the ds arithmetic per score.
-// The mma.sync body reached 7.7% of that bound: unpipelined loads behind
+// GFLOP at the two paths' calls, 0.0522 / 0.2085 ms at 989 TFLOP/s, and 45.1
+// / 103.1 GFLOP at Gemma-3-4B's local and global calls) against ~0.1-0.15
+// GB of q/do/out/dq/k/v (~0.03-0.045 ms at 3.35 TB/s), so the tensor cores,
+// and beside them the exp2 and the ds arithmetic per score. The mma.sync
+// body reached 5.6-7.7% of that bound: unpipelined loads behind
 // __syncthreads, p and ds through shared strips, a branchy mask per
-// element. This body is K1's shape:
+// element, and at head dim 256 the k tile rotated again for every q tile.
+// This body is K1's shape:
 // - one CTA per (b, h, q tile of 64 rows per consumer warpgroup): three
-//   warpgroups at head dim 64, two at 128, and a producer warpgroup that
-//   gives its registers to them (setmaxnreg); q tiles last-first, so under
-//   the causal mask the CTAs with the most kv tiles start first.
+//   warpgroups at head dim 64, two at 128 and 256, and a producer
+//   warpgroup that gives its registers to them (setmaxnreg); q tiles
+//   last-first, so under the causal mask the CTAs with the most kv tiles
+//   start first.
 // - one producer thread TMA-loads the q and do tiles once and keeps a ring
 //   of 4 (k, v) stages of 64 rows over the visible kv tiles. lse and Δ of
 //   a q-major CTA are per-row constants in registers: no per-stage copy.
+// - at head dim 256 q and do take 128 KiB and dq 128 fp32 registers a
+//   thread, so the kv tiles have 32 rows: s and dp are m64n32 chains of
+//   depth 256 (16 registers each), ds·k two m64n256k16 products, and the
+//   ring 3 stages of 32 KiB (225 KiB in all). q rotates in two batches of
+//   32 rows, and dq's tables load after the main loop (ahead of it, they
+//   would not fit beside dq, s and dp).
 // - per kv tile and warpgroup: s = q kᵀ and dp = do vᵀ are two wgmma
 //   chains from shared memory (all four K-major); p = ex2.approx(s·scale·
 //   log2e − lse·log2e), a row with no visible key subtracting +inf; the
@@ -112,9 +121,9 @@
 //   before it waits for the tiles, the epilogue's tables load during the
 //   last tile, and dq is stored as bf16 pairs.
 //
-// The mma.sync bodies (float32 and float16, and flash_bwd_dq in bf16 at
-// head dim 256; lxt_flash_bwd_dq_mma keeps every bf16 dq body callable and
-// lxt_flash_bwd_dkv_mma the bf16 dkv body at 256, as controls):
+// The mma.sync bodies (float32 and float16; lxt_flash_bwd_dq_mma keeps every
+// bf16 dq body callable and lxt_flash_bwd_dkv_mma the bf16 dkv body at 256,
+// as controls):
 // - flash_bwd_dkv: one CTA per (b, kv head, 64-row kv tile); each warp owns
 //   16 kv rows and accumulates dk and dv in registers while the CTA loops
 //   over the n_rep q heads of the group and over the visible q tiles.
@@ -818,18 +827,24 @@ inline cudaError_t launch_bwd_dkv256(const FlashArgs& a, cudaStream_t stream) {
 
 template <int D>
 struct DqTiles {
-  // three consumer warpgroups at head dim 64, two at 128 (dq's accumulator
-  // is twice as wide); kv tiles of 64 rows (s and dp take 32 registers
-  // each). Two warpgroups at head dim 64, or 128-row kv tiles with them,
-  // measured slower.
+  // three consumer warpgroups at head dim 64, two at 128 and 256 (dq's
+  // accumulator is two and four times as wide); kv tiles of 64 rows (s and
+  // dp take 32 registers each). Two warpgroups at head dim 64, or 128-row kv
+  // tiles with them, measured slower. At head dim 256 the kv tiles have 32
+  // rows: dq holds 128 fp32 a thread beside s and dp (16 each) and ds (8),
+  // and a (k, v) stage is 32 KiB beside the 128 KiB of q and do, so three
+  // stages fit the 227 KiB a block can use.
   static constexpr int NWG = D == 64 ? 3 : 2;
-  static constexpr int BQ = 64 * NWG, BN = 64, STAGES = 4, PANELS = D / 64;
+  static constexpr int BN = D == 256 ? 32 : 64;
+  static constexpr int STAGES = D == 256 ? 3 : 4;
+  static constexpr int BQ = 64 * NWG, PANELS = D / 64;
   static constexpr int Q_PANEL = BQ * kPanelBytes, KV_PANEL = BN * kPanelBytes;
   static constexpr int Q_BYTES = PANELS * Q_PANEL, KV_BYTES = PANELS * KV_PANEL;
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // k, then v
   static constexpr int STAGE_OFF = 2 * Q_BYTES;     // after q and do
   static constexpr int BAR_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
   static constexpr size_t smem = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
+  static_assert(smem <= 232448, "the dynamic shared memory a block can use");
 };
 
 struct DqMaps {
@@ -906,7 +921,10 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
     const bool rope = active && a.cos != nullptr;
     const bf16* cos = static_cast<const bf16*>(a.cos);
     const bf16* sin = static_cast<const bf16*>(a.sin);
-    RopeChunks<D, 64, 128> q_tab;  // the q tile's tables, loaded with Δ
+    // the q tile's tables, loaded with Δ; at head dim 256 in batches of 32
+    // rows, as K1 (the tables of 64 rows would hold 128 registers a thread)
+    constexpr int RR = D == 256 ? 32 : 64;
+    RopeChunks<D, RR, 128> q_tab;
     if (rope) q_tab.load(cos, sin, q0w, threadIdx.x % 128);
     float delta[2] = {0.f, 0.f}, sub[2] = {0.f, 0.f};
     if (active) {
@@ -925,6 +943,11 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
     mbar_wait(bar_q, 0);
     if (rope) {
       q_tab.apply(sQw, C::Q_PANEL, threadIdx.x % 128);
+#pragma unroll
+      for (int r0 = RR; r0 < 64; r0 += RR) {
+        q_tab.load(cos, sin, q0w + r0, threadIdx.x % 128);
+        q_tab.apply(sQw + r0 * kPanelBytes, C::Q_PANEL, threadIdx.x % 128);
+      }
       fence_proxy_async();
     }
     named_sync(1 + wg, 128);
@@ -1001,13 +1024,18 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
 
     // the epilogue's tables, loaded ahead so that their latency overlaps
     // products: one half when the last visible kv tile arrives, the other
-    // with the last dq product (all of them at once spilled registers)
+    // with the last dq product (all of them at once spilled registers). At
+    // head dim 256 even half of them would not fit beside dq, s and dp: they
+    // load after the main loop, when s and dp are dead.
+    constexpr bool kAhead = D != 256;
     RopeFrags<D> dq_tab;
     int k_last = -1;
-    for (int kt = 0; kt < a.T; kt += C::BN)
-      if (!mask.skip(q0w, 64, kt, C::BN)) k_last = kt;
+    if constexpr (kAhead)
+      for (int kt = 0; kt < a.T; kt += C::BN)
+        if (!mask.skip(q0w, 64, kt, C::BN)) k_last = kt;
     auto prefetch = [&]() {
-      if (rope && k0 == k_last) dq_tab.load<0>(cos, sin, row0);
+      if constexpr (kAhead)
+        if (rope && k0 == k_last) dq_tab.load<0>(cos, sin, row0);
     };
     if (next_tile()) {
       prefetch();
@@ -1044,7 +1072,8 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
       }
       wgmma_fence();
       dq_product(dsa, s_prev);
-      if (rope) dq_tab.load<1>(cos, sin, row0);
+      if constexpr (kAhead)
+        if (rope) dq_tab.load<1>(cos, sin, row0);
       wgmma_wait<0>();
       fence_acc(dq);
       mbar_arrive(&empty[s_prev]);
@@ -1056,7 +1085,11 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dq[j][e] *= a.scale;
       // a warpgroup that saw no key has dq = 0, which the rotation keeps
-      if (rope && k_last >= 0) dq_tab.apply(dq);
+      if constexpr (kAhead) {
+        if (rope && k_last >= 0) dq_tab.apply(dq);
+      } else if (rope) {
+        rope_transpose<bf16, D>(dq, cos, sin, row0);
+      }
       bf16* dqg = static_cast<bf16*>(a.out0) + b * a.so0[0] + h * a.so0[1];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -1091,8 +1124,8 @@ cudaError_t launch_bwd_dq(const FlashArgs& a, cudaStream_t stream) {
 // dtype: 0 float32, 1 bfloat16, 2 float16. Each returns the cudaError_t of
 // its launch.
 // The mma.sync body of flash_bwd_dq at every (dtype, head dim): the body
-// bf16 at head dim 64 and 128 ran before its Hopper body, kept callable so
-// that chip_smoke.py can time the two side by side.
+// bf16 at head dim 64, 128 and 256 ran before its Hopper body, kept callable
+// so that chip_smoke.py can time the two side by side.
 extern "C" int lxt_flash_bwd_dq_mma(const lxt::FlashArgs* a, int dtype, int head_dim,
                                     void* stream) {
   using namespace lxt;
@@ -1118,6 +1151,7 @@ extern "C" int lxt_flash_bwd_dq(const lxt::FlashArgs* a, int dtype, int head_dim
   switch (dtype * 1000 + head_dim) {
     case 1064: return hopper::launch_bwd_dq<64>(*a, s);
     case 1128: return hopper::launch_bwd_dq<128>(*a, s);
+    case 1256: return hopper::launch_bwd_dq<256>(*a, s);
     default: return lxt_flash_bwd_dq_mma(a, dtype, head_dim, stream);
   }
 }

@@ -455,13 +455,13 @@ cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
 
 // kernel: 0 K1, 1 flash_bwd_dq, 2 flash_bwd_dkv. 1 when (dtype, head_dim)
 // runs that kernel's Hopper body, which reads k (K1, flash_bwd_dq) or q
-// (flash_bwd_dkv) rotated by the rotation pass: bf16 at head dim 64 and 128
-// for all three, and at 256 for K1 and flash_bwd_dkv. flash_bwd_dq at head
-// dim 256 runs its mma.sync body, which rotates q and k itself.
+// (flash_bwd_dkv) rotated by the rotation pass: bf16 at head dim 64, 128
+// and 256 for all three. float32 and float16 run the mma.sync bodies, which
+// rotate q and k themselves. The kernel argument stays so that a body can
+// be routed on its own.
 extern "C" int lxt_flash_hopper(int kernel, int dtype, int head_dim) {
-  if (dtype != 1) return 0;
-  if (kernel == 1) return head_dim == 64 || head_dim == 128;
-  return head_dim == 64 || head_dim == 128 || head_dim == 256;
+  (void)kernel;
+  return dtype == 1 && (head_dim == 64 || head_dim == 128 || head_dim == 256);
 }
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. Each returns the cudaError_t of

@@ -205,8 +205,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// the dkv body at head dim 256: 32-column sᵀ and dpᵀ halves (K-major
-// operands), and dv/dk products whose B (do, q) is MN-major in shared memory
+// the head dim 256 bodies: 32-column score chains (K-major operands; dkv's
+// sᵀ and dpᵀ halves, dq's s and dp over 32-row kv tiles), and dkv's dv/dk
+// products whose B (do, q) is MN-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da, uint64_t db,
                                             int accumulate) {
   asm volatile(
@@ -227,7 +228,8 @@ __device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[16][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// K1's p·v at head dim 256: the whole 64 x 256 accumulator in one product
+// K1's p·v and flash_bwd_dq's ds·k at head dim 256: the whole 64 x 256
+// accumulator in one product
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4], const uint32_t (&a)[4],
                                              uint64_t db) {
   asm volatile(

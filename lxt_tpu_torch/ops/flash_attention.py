@@ -13,10 +13,9 @@ kernels compute standard flash attention and its standard backward:
 - ``rope_rotate`` (``csrc/rope.cu``): the RoPE rotation pass of one tensor.
 
 K1, ``flash_bwd_dq`` and ``flash_bwd_dkv`` have a Hopper body (wgmma, TMA,
-warp-specialised) for bf16 at head dim 64 and 128, and K1 and
-``flash_bwd_dkv`` also at head dim 256; float32, float16 and
-``flash_bwd_dq`` at head dim 256 run the mma.sync bodies. Each kernel's
-body is picked by (dtype, head dim) alone.
+warp-specialised) for bf16 at head dim 64, 128 and 256; float32 and
+float16 run the mma.sync bodies. Each kernel's body is picked by (dtype,
+head dim) alone.
 ``flash_bwd_dq`` also computes Δ of its rows from the forward's out and
 writes it out for ``flash_bwd_dkv``: the backward runs no separate Δ pass.
 
@@ -31,9 +30,10 @@ visible key give out 0 and lse −1e30. Optional ``rope`` ``(cos, sin)``
 [T, D] tables rotate q and k (HF rotate-half, in the activation dtype):
 inside the kernels, except that the Hopper bodies read k (K1,
 ``flash_bwd_dq``) and q (``flash_bwd_dkv``) rotated once per call by
-``rope_rotate``; the transposed rotation is applied to dq and dk. At head
-dim 256 that is two rotation passes per forward and backward (k before K1,
-q before ``flash_bwd_dkv``), at 64 and 128 three.
+``rope_rotate``; the transposed rotation is applied to dq and dk. In bf16
+that is three rotation passes per forward and backward at every head dim
+(k before K1 and before ``flash_bwd_dq``, q before ``flash_bwd_dkv``); the
+mma.sync bodies of float32 and float16 rotate inside the kernels.
 
 Every kernel wrapper takes its plain version for CPU tensors (the tests);
 for a CUDA tensor it launches the kernel or raises. ``launches`` counts the
@@ -480,9 +480,8 @@ def flash_bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
     computes Δ = rowsum(out∘do) − dlse of its rows from the forward's
     ``out`` (and the lse cotangent ``dlse`` float32 [B, H, T], if given);
     returns (dq, Δ float32 [B, H, T]). On the Hopper body (bf16, head dim
-    64 or 128) with rope, k is rotated first by :func:`rope_rotate`; q is
-    rotated inside the kernel. Head dim 256 runs the mma.sync body, which
-    rotates q and k itself."""
+    64, 128 or 256) with rope, k is rotated first by :func:`rope_rotate`; q
+    is rotated inside the kernel."""
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, out, lse, cos, sin, kv_begin,
                                 kv_end, window, scale, causal, q_start=q_start,
@@ -509,9 +508,9 @@ def _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window, scale,
 def flash_bwd_dq_mma(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end,
                      window, scale, causal):
     """``flash_bwd_dq`` through its mma.sync body at any dtype and head dim,
-    q and k rotated inside the kernel: the body that bf16 at head dim 64
-    and 128 ran before its Hopper body, which ``chip_smoke.py`` times beside
-    it. The model path never calls it."""
+    q and k rotated inside the kernel: the body that bf16 ran before its
+    Hopper body, which ``chip_smoke.py`` times beside it. The model path
+    never calls it."""
     q, k, v, do, out = (_prepared(t) for t in (q, k, v, do, out))
     return _bwd_dq(q, k, v, do, out, lse, cos, sin, kv_begin, kv_end, window,
                    scale, causal, entry=_MMA["flash_bwd_dq"])

@@ -79,6 +79,20 @@ def test_work_at_the_two_paths_calls():
         assert flops / 989e12 > moved / 3.35e12
 
 
+@pytest.mark.parametrize("window,gflop,bound_ms", [(1024, 45.1, 0.0456),
+                                                   (None, 103.1, 0.1043)])
+def test_flash_bwd_dq_work_at_gemmas_calls(window, gflop, bound_ms):
+    """flash_bwd_dq at Gemma-3-4B's local (window 1024) and global calls
+    (B 1, H 8 / Hkv 4, T 4096, head dim 256, causal, RoPE): three products
+    over the visible pairs, bound by the tensor cores (989 TFLOP/s bf16)
+    rather than by its bytes (3.35 TB/s)."""
+    flops, moved = tfa.work("flash_bwd_dq", 1, 8, 4, 4096, 256, 2, window=window,
+                            rope=True)
+    assert np.isclose(flops / 1e9, gflop, rtol=1e-3)
+    assert np.isclose(flops / 989e12 * 1e3, bound_ms, rtol=1e-3)
+    assert flops / 989e12 > moved / 3.35e12
+
+
 # ring-step calls: (T, window, causal, kv_begin, kv_end, q_start, k_start),
 # spans and offsets in global positions
 OFFSET_MASKS = {

@@ -61,9 +61,8 @@ def test_kernels_match_plain_versions(D, dtype):
         assert err <= _bound(want, dtype), (name, err)
 
 
-# the Hopper bodies of K1, flash_bwd_dq and flash_bwd_dkv (bf16, head dim 64
-# and 128), and of K1 and flash_bwd_dkv at head dim 256 (flash_bwd_dq there:
-# its mma.sync body): name -> (B, H, Hkv, T, D, options)
+# the Hopper bodies of K1, flash_bwd_dq and flash_bwd_dkv (bf16, head dim
+# 64, 128 and 256): name -> (B, H, Hkv, T, D, options)
 HOPPER_CASES = {
     # T 320: K1's last 128- (D 128) or 192-row (D 64) q tile is part full
     "odd_tiles_T320_hd64": (2, 4, 2, 320, 64, {"rope": True}),
@@ -82,6 +81,9 @@ HOPPER_CASES = {
     "kv_begin_hd256": (2, 8, 4, 256, 256, {"kv_begin": [0, 130], "rope": True}),
     "kv_end_bidirectional_hd256": (2, 8, 4, 256, 256, {"kv_end": [256, 77],
                                                        "causal": False}),
+    # causal over more kv tiles than any ring holds stages (flash_bwd_dq at
+    # head dim 256: up to 32 tiles of 32 rows through 3 stages)
+    "causal_T1024_hd256": (1, 8, 4, 1024, 256, {"rope": True}),
 }
 
 
@@ -139,8 +141,9 @@ def test_hopper_bodies_match_plain_versions(name):
     _assert_match_plain_versions(*_hopper_inputs(HOPPER_CASES[name], seed=len(name)))
 
 
-# head dim 256 (bf16: the Hopper bodies of K1 and flash_bwd_dkv; float16
-# and float32: the mma.sync bodies) with Gemma-3's masks: local layers'
+# head dim 256 (bf16: the Hopper bodies of K1, flash_bwd_dq and
+# flash_bwd_dkv; float16 and float32: the mma.sync bodies) with Gemma-3's
+# masks: local layers'
 # window narrower than T, cutting across kv tiles, and global layers'
 # causal mask without one; name -> (B, H, Hkv, T, D, options)
 D256_CASES = {
@@ -195,7 +198,7 @@ def test_hopper_bodies_read_strided_views(D):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_bwd_dq_is_deterministic(D):
     """Every dq row has one writer and Δ one lane: two launches give
     bit-equal dq and Δ."""
@@ -213,8 +216,8 @@ def test_flash_bwd_dq_is_deterministic(D):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_bwd_dq_delta_matches_plain(D, dtype):
-    """Δ from flash_bwd_dq (Hopper body for bf16 at D 64/128, mma.sync
-    otherwise) against rowsum(out∘do) of the plain version: the same float32
+    """Δ from flash_bwd_dq (Hopper body for bf16, mma.sync for float16
+    and float32) against rowsum(out∘do) of the plain version: the same float32
     products summed in another order, normalized L2 <= 1e-5; rows with no
     visible key (out 0) give Δ 0."""
     if not torch.cuda.is_available():
@@ -301,12 +304,11 @@ def test_rotation_pass_views_and_ragged_runs(D, dtype, layout):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("D,passes", [(64, 3), (128, 3), (256, 2)])
+@pytest.mark.parametrize("D,passes", [(64, 3), (128, 3), (256, 3)])
 def test_hopper_calls_rotate_once_per_call(D, passes):
     """K1 and flash_bwd_dq rotate k, and flash_bwd_dkv q, through one
     rotation pass each where they run their Hopper bodies: three per
-    forward and backward at head dim 64 and 128; two at 256, where
-    flash_bwd_dq runs its mma.sync body and rotates q and k itself."""
+    forward and backward at every head dim in bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, do, args = _hopper_inputs((1, 8, 2, 256, D, {"rope": True}), seed=3)
@@ -329,10 +331,10 @@ RING_PAIRS = [(i * 256, j * 256) for i in range(4) for j in range(4)] + [(100, 3
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_offsets_and_dlse_match_plain_versions(D, dtype, window):
-    """flash_attention_lse's calls on both bodies (Hopper: bf16 at D 64 and
-    128, and K1 and flash_bwd_dkv at D 256; mma.sync: float32, float16 and
-    flash_bwd_dq at D 256): K1, flash_bwd_dq with dlse and flash_bwd_dkv
-    against their plain versions at every ring-step pair."""
+    """flash_attention_lse's calls on both bodies (Hopper: bf16 at D 64,
+    128 and 256; mma.sync: float32 and float16): K1, flash_bwd_dq with dlse
+    and flash_bwd_dkv against their plain versions at every ring-step
+    pair."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
