@@ -4,9 +4,10 @@ each against its plain PyTorch version, and drives the AttnLRP main path
 (input relevance of a Llama-family LM with TinyLlama-1.1B widths, random
 weights from a seed), the quantized path (NF4 weights at Llama-3-8B width
 and depth, and a bitsandbytes-NF4 checkpoint through from_pretrained),
-Gemma-3-4B's text model at full width and depth through the kernels, and
-the sequence-parallel ring (flash_attention_lse's calls) over four
-processes on the one card.
+Gemma-3-4B's text model at full width and depth through the kernels, the
+sequence-parallel ring (flash_attention_lse's calls) over four processes on
+the one card, and the rest of the attribution API (multi-target and latent
+relevance, faithfulness, Integrated Gradients) at the main path's width.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
@@ -70,7 +71,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (relevance <= 0.1); then bf16 at full width and depth (34 layers),
      batch 1 x 4096, remat off: three attributions (heatmaps/s, launches
      per attribution against 34 of each flash kernel and 102 of the
-     rotation pass, finite relevance, peak memory);
+     rotation pass, finite relevance, peak memory), and attribute_latent of
+     the first request (latent [34, 1, 4096, 2560] finite, its input
+     relevance within 0.02 normalized L2 of the attribution's, the same
+     launches, peak memory);
  10. the ring: four processes on the one card over a gloo group (its
      host-staged point-to-point; the card count is 1), Llama-3-8B widths,
      random weights from one seed on every process, each comparison
@@ -83,7 +87,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      peak memory, the wall time and the launches per process of K1,
      flash_bwd_dq and flash_bwd_dkv against the steps whose kv shard the
      causal mask leaves visible (process r: r + 1 of 4) x 4 layers. A
-     process that fails or hangs fails it.
+     process that fails or hangs fails it;
+ 11. the attribution API at TinyLlama-1.1B width and depth on phases 5-6's
+     weights through the kernels, remat off (AttributionModel(...,
+     remat=False)): attribute_topk (k 5), attribute_multi (three tokens)
+     and multi_site_relevance (three (position, token) sites, plain and
+     contrastive), each through one forward and K pulls of its graph, in
+     bf16 at batch 8 x 1024 and float32 at 1 x 1024: launches exactly L of
+     K1 and K x L of each K2 half (and the rotation pass before each
+     Hopper launch), each map within 1e-3 (bf16) / 1e-5 (float32)
+     normalized L2 of its separate attribution (token= or an explicit
+     target=), maps/s beside the separate calls'; attribute_latent in bf16
+     at 8 x 1024 (latent [22, 8, 1024, 2048] finite, input relevance within
+     0.02 of attribute's, one attribution's launches, peak memory); CP-LRP
+     latent relevance in float32 at 1 x 1024 (every layer's total within
+     1e-3 relative of the target); faithfulness(steps=10) in bf16 at
+     8 x 1024 (finite curves, ABPC, seconds per report, K1 launched once a
+     layer for each of its 1 + 3 x 11 forwards); integrated_gradients
+     (steps 32, vanilla_gradient) in bf16 at 8 x 1024 (32 forwards and
+     pulls of launches, finite relevance, the completeness gap printed).
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
@@ -92,9 +114,11 @@ at the ring step (where the call runs no rotation pass, the pass has no
 entry); a flash kernel's entry names its "body" and, where a control ran,
 its mma.sync body's time "mma_ms". "launches",
 "launches_8b" and "launches_gemma" are each the count over its path's
-three timed attributions ("launches" of K3: the NF4 8B path's), and
+three timed attributions ("launches" of K3: the NF4 8B path's),
 "launches_ring" over the ring's three driven attributions, all four
-processes together; the last line is {"ok": true, "device": {...}}.
+processes together, and "launches_api" over phase 11's calls of the API
+(not the separate attributions they are held against); the last line is
+{"ok": true, "device": {...}}.
 """
 
 import itertools
@@ -243,6 +267,16 @@ RING_WORLD, RING_SEED, RING_TIMEOUT = 4, 21, 600
 RING_GATE = (2, 4096)
 RING_DRIVEN = (4, 8192)
 RING_BF16_BAR = 0.02
+# phase 11, the attribution API on phases 5-6's weights, remat off: top-k
+# (k 5), three fixed tokens and three (position, token) sites, each map
+# against its separate attribution (bf16 at B 8 x 1024, float32 at B 1);
+# attribute_latent's input relevance against attribute's; CP-LRP's
+# per-layer totals against the target (tests/test_registry.py's bar); a
+# faithfulness report and Integrated Gradients (printed and gated on launches)
+API_K, API_TOKENS = 5, (17, 4242, 31999)
+API_SITES = ((100, 17), (511, 4242), (SEQ - 1, 31999))
+API_BF16_BAR, API_F32_BAR, LATENT_BAR, CONSERVATION_RTOL = 1e-3, 1e-5, 0.02, 1e-3
+FAITH_STEPS, IG_STEPS = 10, 32
 
 
 def card_line():
@@ -705,27 +739,37 @@ HOPPER_BODIES = {D: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                  for D in (64, 128, 256)}
 
 
-def expected_launches(L, remat, hopper=()):
-    """Flash launches per attribution: K1 once a layer (twice with remat,
-    whose recompute runs the forward again) and each K2 half once; the
-    rotation pass once before each launch of a kernel in ``hopper`` (those
-    running their Hopper bodies): k before K1 and flash_bwd_dq, q before
-    flash_bwd_dkv."""
-    counts = {"flash_fwd": 2 * L if remat else L, "flash_bwd_dq": L,
-              "flash_bwd_dkv": L}
+def expected_launches(L, remat, hopper=(), forwards=1, pulls=1):
+    """Flash launches of ``forwards`` forwards and ``pulls`` backward pulls
+    (one attribution: one of each): K1 once a layer a forward (and a pull,
+    with remat, whose recompute runs the forward again) and each K2 half
+    once a layer a pull; the rotation pass once before each launch of a
+    kernel in ``hopper`` (those running their Hopper bodies): k before K1
+    and flash_bwd_dq, q before flash_bwd_dkv."""
+    counts = {"flash_fwd": (forwards + (pulls if remat else 0)) * L,
+              "flash_bwd_dq": pulls * L, "flash_bwd_dkv": pulls * L}
     return {**counts, "rope_rotate": sum(counts[n] for n in hopper)}
+
+
+def main_weights():
+    """The main path's float32 model (TinyLlama-1.1B widths, full depth),
+    random weights from seed 0, and a batch 1 x SEQ request from the same
+    generator: phases 5-6's, and phase 11's again."""
+    import torch
+    from lxt_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(**MODEL, dtype="float32")
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = llama.init_params(cfg, gen)
+    ids = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=gen, device="cuda")
+    return cfg, params, ids
 
 
 def phase_parity(card):
     """float32 main path: kernels against the einsum path."""
     import torch
-    from lxt_tpu_torch.models import llama
     from lxt_tpu_torch.ops import flash_attention as fa
     failures = []
-    cfg = llama.LlamaConfig(**MODEL, dtype="float32")
-    gen = torch.Generator("cuda").manual_seed(0)
-    params = llama.init_params(cfg, gen)
-    ids = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=gen, device="cuda")
+    cfg, params, ids = main_weights()
     before = dict(fa.launches)
     t0 = time.perf_counter()
     logits_k, rel_k = attribute(params, cfg, ids, "auto", remat=False)
@@ -979,7 +1023,9 @@ def phase_gemma(card):
     """Gemma-3-4B's text model: the float32 gates at reduced depth, then
     bf16 at full width and depth."""
     import torch
+    import lxt_tpu_torch
     from lxt_tpu_torch.models import gemma3
+    from lxt_tpu_torch.models.registry import AttributionModel
     from lxt_tpu_torch.ops import flash_attention as fa
     failures = []
     fam = "gemma3_text"
@@ -1051,6 +1097,27 @@ def phase_gemma(card):
         failures.append("Gemma relevance not finite or misshapen")
     if per != want:
         failures.append(f"Gemma launches per attribution {per}")
+
+    # latent relevance at full width and depth: one backward on the same
+    # weights and the first request, against its attribution
+    model = AttributionModel(fam, cfg, params, lxt_tpu_torch.attnlrp, remat=False)
+    model.attribute_latent(requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (_, in_rel, latent), latent_launches, secs = counted(
+        lambda: model.attribute_latent(requests[0]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    d = nl2(in_rel, rels[0])
+    shape = (cfg.num_layers, 1, SEQ_GEMMA, cfg.hidden_size)
+    finite = bool(torch.isfinite(latent).all())
+    ok = (tuple(latent.shape) == shape and finite and d <= LATENT_BAR
+          and latent_launches == want)
+    print(f"Gemma-3-4B attribute_latent L{cfg.num_layers} B1x{SEQ_GEMMA} bf16: latent "
+          f"{list(latent.shape)} finite {finite}, {secs:.4f} s, input relevance "
+          f"against the attribution's normalized L2 {d:.3g} (bar {LATENT_BAR}), "
+          f"launches {latent_launches} (expected {want}), peak device memory "
+          f"{peak:.2f} GiB" + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("Gemma attribute_latent")
     return failures, launches
 
 
@@ -1224,6 +1291,242 @@ def phase_ring(card):
     return failures, {n: sum(r["launches"][n] for r in ranks) for n in r0["launches"]}
 
 
+def counted(fn):
+    """``fn()``'s result, its flash launches (the counts set to 0 just
+    before it and read just after) and its seconds on the host's clock
+    around synchronised work."""
+    import torch
+    from lxt_tpu_torch.ops import flash_attention as fa
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(fa.launches), time.perf_counter() - t0
+
+
+def api_maps(card, label, shared, separate, bar, want):
+    """One multi-target call against separate attributions: ``shared()``
+    (values, relevance [K, B, T]) through one forward and K pulls, gated
+    on its launches (``want``); ``separate(k)`` the k-th map's own
+    attribution, each within ``bar`` normalized L2. Returns (failures,
+    launches)."""
+    import torch
+    (values, rel), launches, secs = counted(shared)
+    maps = []
+    t0 = time.perf_counter()
+    for k in range(rel.shape[0]):
+        maps.append(separate(k)[1])
+    torch.cuda.synchronize()
+    t_sep = time.perf_counter() - t0
+    errs = [nl2(rel[k], m) for k, m in enumerate(maps)]
+    n = rel.shape[0] * rel.shape[1]
+    ok = (all(math.isfinite(e) and e <= bar for e in errs)
+          and bool(torch.isfinite(rel).all()))
+    print(f"api {label}: {rel.shape[0]} maps of [{rel.shape[1]}, {rel.shape[2]}] "
+          f"through one forward: {n / secs:.3f} maps/s ({secs:.4f} s) against "
+          f"{rel.shape[0]} separate attributions {n / t_sep:.3f} maps/s "
+          f"({t_sep:.4f} s); normalized L2 of each map against its separate "
+          f"attribution {[f'{e:.3g}' for e in errs]} (bar {bar}); launches "
+          f"{launches} (expected {want})" + (" PASS" if ok and launches == want
+                                              else " FAIL") + f" [{card}]",
+          flush=True)
+    failures = [] if ok else [f"api {label} maps"]
+    if launches != want:
+        failures.append(f"api {label} launches {launches}")
+    return failures, launches
+
+
+def site_target(pos, tok, contrastive):
+    """The explicit target of one (position, token) site, as
+    multi_site_relevance seeds it: the logit, or its margin over the
+    strongest other token at the position."""
+    import torch
+
+    def target(logits):
+        row = logits[:, pos, :]
+        value = row[:, tok]
+        if contrastive:
+            masked = row.detach().float().clone()
+            masked[:, tok] = -math.inf
+            value = value - row.gather(-1, masked.argmax(-1, keepdim=True))[:, 0]
+        return value.sum()
+
+    return target
+
+
+def phase_api(card):
+    """Phase 11: the attribution API at TinyLlama-1.1B width and depth
+    through the kernels, remat off, on phases 5-6's weights (float32, and
+    cast to bf16): top-k, multi-token and multi-site maps through one
+    forward and K pulls against separate attributions, latent relevance,
+    CP-LRP conservation per layer, a faithfulness report and Integrated
+    Gradients. Returns (failures, the launches of its driven calls)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models.registry import AttributionModel
+    failures, total = [], {}
+
+    def add(launches):
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+
+    cfg32, params32, ids1 = main_weights()
+    L = cfg32.num_layers
+    cfg16 = llama.LlamaConfig(**MODEL, dtype="bfloat16")
+    models = {"bf16": AttributionModel("llama", cfg16, cast(params32, torch.bfloat16),
+                                       lxt_tpu_torch.attnlrp, remat=False),
+              "f32": AttributionModel("llama", cfg32, params32,
+                                      lxt_tpu_torch.attnlrp, remat=False)}
+    gen = torch.Generator("cuda").manual_seed(11)
+    batch = {"bf16": torch.randint(0, cfg16.vocab_size, (SERVE_BATCH, SEQ),
+                                   generator=gen, device="cuda"), "f32": ids1}
+    hopper = {"bf16": HOPPER_BODIES[64], "f32": ()}
+    bars = {"bf16": API_BF16_BAR, "f32": API_F32_BAR}
+    positions, tokens = (list(x) for x in zip(*API_SITES))
+    for key, model in models.items():
+        ids, B = batch[key], batch[key].shape[0]
+        label = f"{key} B{B}x{SEQ}"
+        model.attribute_topk(ids, API_K)  # warm-up
+        held = {}
+
+        def topk():
+            held["toks"], values, rel = model.attribute_topk(ids, API_K)
+            return values, rel
+
+        want = expected_launches(L, False, hopper[key], pulls=API_K)
+        f, launches = api_maps(
+            card, f"attribute_topk k={API_K} {label}", topk,
+            lambda k: model.attribute(ids, token=held["toks"][k]), bars[key], want)
+        failures += f
+        add(launches)
+        want = expected_launches(L, False, hopper[key], pulls=len(API_TOKENS))
+        f, launches = api_maps(
+            card, f"attribute_multi tokens {list(API_TOKENS)} {label}",
+            lambda: model.attribute_multi(ids, list(API_TOKENS)),
+            lambda k: model.attribute(ids, token=[API_TOKENS[k]] * B), bars[key], want)
+        failures += f
+        add(launches)
+        for contrastive in (False, True):
+            want = expected_launches(L, False, hopper[key], pulls=len(API_SITES))
+            f, launches = api_maps(
+                card, f"multi_site_relevance sites {list(zip(positions, tokens))}"
+                f"{' contrastive' if contrastive else ''} {label}",
+                lambda: lxt_tpu_torch.multi_site_relevance(
+                    lambda e: llama.forward(model.params, model.cfg, e,
+                                            lxt_tpu_torch.attnlrp,
+                                            remat=False).logits,
+                    model.embed(ids), positions, tokens, contrastive=contrastive),
+                lambda k: model.attribute(ids, target=site_target(
+                    positions[k], tokens[k], contrastive)), bars[key], want)
+            failures += f
+            add(launches)
+        torch.cuda.empty_cache()
+
+    # CP-LRP conservation, f32 B1 x 1024 through the kernels: each layer's
+    # total relevance is the target's value
+    (value, _, latent), launches, _ = counted(lambda: models["f32"].attribute_latent(
+        ids1, composite=lxt_tpu_torch.cp_lrp))
+    add(launches)
+    sums = latent.double().sum(dim=(1, 2, 3))
+    dev = ((sums - float(value)).abs() / abs(float(value))).max().item()
+    ok = (math.isfinite(dev) and dev <= CONSERVATION_RTOL
+          and launches == expected_launches(L, False))
+    print(f"api CP-LRP conservation f32 B1x{SEQ} through the kernels: target "
+          f"{float(value):.6g}, per-layer totals {float(sums.min()):.6g} .. "
+          f"{float(sums.max()):.6g}, max relative deviation {dev:.3g} (bar "
+          f"{CONSERVATION_RTOL}); launches {launches}"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("api CP-LRP conservation")
+    del latent
+    torch.cuda.empty_cache()
+
+    # latent relevance, bf16 B8 x 1024: one backward
+    model, ids = models["bf16"], batch["bf16"]
+    del models, params32
+    torch.cuda.empty_cache()
+    model.attribute_latent(ids)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (value, in_rel, latent), launches, secs = counted(lambda: model.attribute_latent(ids))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    add(launches)
+    want = expected_launches(L, False, HOPPER_BODIES[64])
+    _, rel = model.attribute(ids)
+    d = nl2(in_rel, rel)
+    shape = (L, SERVE_BATCH, SEQ, MODEL["hidden_size"])
+    ok = (tuple(latent.shape) == shape and bool(torch.isfinite(latent).all())
+          and d <= LATENT_BAR and launches == want)
+    print(f"api attribute_latent bf16 B{SERVE_BATCH}x{SEQ}: latent {list(latent.shape)} "
+          f"finite {bool(torch.isfinite(latent).all())}, {secs:.4f} s, input relevance "
+          f"against attribute's normalized L2 {d:.3g} (bar {LATENT_BAR}), launches "
+          f"{launches} (expected {want}), peak device memory {peak:.2f} GiB"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("api attribute_latent bf16")
+    del latent, in_rel, rel
+    torch.cuda.empty_cache()
+
+    # the faithfulness report, bf16 B8 x 1024: one attribution, then
+    # 3 x (steps + 1) forwards without a graph
+    report, launches, secs = counted(lambda: model.faithfulness(ids, steps=FAITH_STEPS))
+    add(launches)
+    want = expected_launches(L, False, HOPPER_BODIES[64],
+                             forwards=1 + 3 * (FAITH_STEPS + 1))
+    finite = all(bool(torch.isfinite(report[o].values).all())
+                 for o in ("morf", "lerf", "random"))
+    abpc = report["abpc"].float()
+    print(f"api faithfulness steps={FAITH_STEPS} bf16 B{SERVE_BATCH}x{SEQ}: "
+          f"{secs:.4f} s per report, curves finite {finite}, ABPC mean "
+          f"{float(abpc.mean()):.4g} (per example {[round(float(a), 4) for a in abpc]}), "
+          f"AOPC MoRF / LeRF / random {float(report['aopc_morf'].float().mean()):.4g} / "
+          f"{float(report['aopc_lerf'].float().mean()):.4g} / "
+          f"{float(report['aopc_random'].float().mean()):.4g}; launches {launches} "
+          f"(expected {want})" + (" PASS" if finite and launches == want else " FAIL")
+          + f" [{card}]", flush=True)
+    if not finite:
+        failures.append("api faithfulness curves not finite")
+    if launches != want:
+        failures.append(f"api faithfulness launches {launches}")
+
+    # Integrated Gradients under vanilla_gradient, bf16 B8 x 1024, of the
+    # argmax logit at the last position
+    embeds = model.embed(ids)
+
+    def row(e, composite):
+        return llama.forward(model.params, model.cfg, e, composite, remat=False,
+                             logits_at=-1).logits[:, -1]
+
+    with torch.no_grad():
+        tk = row(embeds, lxt_tpu_torch.attnlrp).argmax(-1, keepdim=True)
+
+    def target(e):
+        return row(e, lxt_tpu_torch.vanilla_gradient).gather(-1, tk)[:, 0]
+
+    rel, launches, secs = counted(lambda: lxt_tpu_torch.integrated_gradients(
+        target, embeds, steps=IG_STEPS))
+    add(launches)
+    want = expected_launches(L, False, HOPPER_BODIES[64], forwards=IG_STEPS,
+                             pulls=IG_STEPS)
+    with torch.no_grad():
+        gain = (target(embeds) - target(torch.zeros_like(embeds))).double()
+    gap = ((rel.double().sum(-1) - gain).abs() / gain.abs()).cpu()
+    finite = bool(torch.isfinite(rel).all())
+    print(f"api integrated_gradients steps={IG_STEPS} vanilla_gradient bf16 "
+          f"B{SERVE_BATCH}x{SEQ}: {secs:.4f} s ({SERVE_BATCH / secs:.4f} maps/s), "
+          f"relevance finite {finite}, completeness gap |sum rel - (f(x) - f(0))| / "
+          f"|f(x) - f(0)| mean {float(gap.mean()):.4g}, max {float(gap.max()):.4g} "
+          f"(printed, not gated); launches {launches} (expected {want})"
+          + (" PASS" if finite and launches == want else " FAIL") + f" [{card}]",
+          flush=True)
+    if not finite:
+        failures.append("api integrated_gradients not finite")
+    if launches != want:
+        failures.append(f"api integrated_gradients launches {launches}")
+    return failures, total
+
+
 def write_safetensors(path, tensors):
     """A minimal safetensors writer (the card's machine has no safetensors
     package): 8-byte header length, JSON header, raw little-endian data."""
@@ -1373,7 +1676,12 @@ def main():
     torch.cuda.empty_cache()
     f, ring_launches = phase_ring(card)
     failures += f
-    print(f"phases 3-10 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t_api = time.perf_counter()
+    f, api_launches = phase_api(card)
+    failures += f
+    print(f"phase 11 took {time.perf_counter() - t_api:.1f} s; phases 3-11 "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -1395,7 +1703,8 @@ def main():
             for call in CALLS if call != "main" and call in at[name]},
          "launches_8b": nf4_launches[name],
          "launches_gemma": gemma_launches.get(name, 0),
-         "launches_ring": ring_launches.get(name, 0)}
+         "launches_ring": ring_launches.get(name, 0),
+         "launches_api": api_launches.get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

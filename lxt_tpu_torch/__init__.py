@@ -9,9 +9,11 @@ dequantization on CUDA tensors run the kernels in ``csrc/`` (built with
 nvcc at first use); on CPU tensors they run their plain PyTorch versions.
 
 ``from_pretrained``, ``from_hf``, ``quantize_params``,
-``QuantizedTensor``, ``flash_attention_lse`` and the sequence-parallel
-ring (``ring_flash_attention``, ``attribute_sequence_parallel``) are
-imported on first access.
+``QuantizedTensor``, ``flash_attention_lse``, the sequence-parallel ring
+(``ring_flash_attention``, ``attribute_sequence_parallel``), the
+multi-target and latent attribution functions, the faithfulness
+evaluation, the gradient baselines and the canonizers are imported on
+first access.
 """
 
 import importlib
@@ -29,6 +31,16 @@ _LAZY = {
     "flash_attention_lse": "lxt_tpu_torch.ops.flash_attention",
     "ring_flash_attention": "lxt_tpu_torch.parallel.ring",
     "attribute_sequence_parallel": "lxt_tpu_torch.parallel.ring",
+    **dict.fromkeys(
+        ("latent_relevance", "contrastive_target", "normalize_relevance",
+         "multi_token_relevance", "topk_relevance", "multi_site_relevance",
+         "multi_site_latent_relevance"), "lxt_tpu_torch.attribution"),
+    **dict.fromkeys(("perturbation_curve", "faithfulness_report",
+                     "aopc_scores"), "lxt_tpu_torch.utils.faithfulness"),
+    **dict.fromkeys(("integrated_gradients", "smoothgrad", "gradient_x_input"),
+                    "lxt_tpu_torch.baselines"),
+    **dict.fromkeys(("apply_canonizers", "fold_norm_scales"),
+                    "lxt_tpu_torch.canonizers"),
 }
 
 __all__ = [

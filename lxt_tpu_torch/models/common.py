@@ -191,6 +191,14 @@ def run_layers(layer_fn, h, num_layers, remat, keep_hidden=False):
     return h, (torch.stack(hiddens) if keep_hidden else None)
 
 
+def layer_probes(probes):
+    """Per-layer views of ``probes [L, B, T, D]`` (or None), from one
+    unbind: in the backward their gradients form one stack. Indexing the
+    stacked tensor layer by layer would give each layer's backward a zero
+    tensor of the whole ``[L, B, T, D]`` to fill and add."""
+    return None if probes is None else probes.unbind(0)
+
+
 def take_frontier(h, logits_at):
     """Slice the single position whose logits will be computed."""
     return h.narrow(1, logits_at % h.shape[1], 1)

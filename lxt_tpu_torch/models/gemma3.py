@@ -164,6 +164,7 @@ def forward(
     act_fn = ACTIVATIONS[cfg.act]
     sliding = layer_sliding_flags(cfg)
     lp, comp = params["layers"], composite
+    probes = common.layer_probes(probes)
 
     def layer(h, i):
         x = gemma_rms_norm(h, lp["ln_in"][i], eps, comp)

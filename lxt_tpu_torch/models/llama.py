@@ -235,6 +235,7 @@ def _run_layers(lp, cfg, inputs_embeds, composite, *, probes,
     scale = cfg.hd ** -0.5
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     comp = composite
+    probes = common.layer_probes(probes)
 
     def layer(h, i):
         def get(name):

@@ -25,7 +25,9 @@ import numpy as np
 import torch
 
 from lxt_tpu_torch import composites
-from lxt_tpu_torch.attribution import input_relevance, select_logit
+from lxt_tpu_torch.attribution import (_pick, input_relevance,
+                                       latent_relevance, multi_token_relevance,
+                                       select_logit, topk_relevance)
 from lxt_tpu_torch.models import gemma3, llama
 
 _LLAMA = {"config": llama.LlamaConfig, "from_hf": llama.params_from_hf,
@@ -120,6 +122,12 @@ def _filled(raw):
     return types.SimpleNamespace(**cfg)
 
 
+def _tensor(x, device):
+    """``x`` (a tensor on any device, an array or a list) as a tensor on
+    ``device``."""
+    return (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))).to(device)
+
+
 def _padding_args(kv_begin, attention_mask, kv_end, device):
     """Validated padding keywords for a batch of left-padded prompts:
     ``kv_begin [B]`` (each row's first real index; the flash kernels stay
@@ -132,40 +140,64 @@ def _padding_args(kv_begin, attention_mask, kv_end, device):
             "take kv_begin=[first real index per row] or attention_mask")
     kw = {}
     if kv_begin is not None:
-        kw["kv_begin"] = torch.as_tensor(np.asarray(kv_begin), dtype=torch.int32,
-                                         device=device)
+        kw["kv_begin"] = _tensor(kv_begin, device).to(torch.int32)
     if attention_mask is not None:
         if kw:
             raise ValueError("pass attention_mask OR kv_begin, not both")
-        kw["attention_mask"] = torch.as_tensor(np.asarray(attention_mask),
-                                               device=device)
+        kw["attention_mask"] = _tensor(attention_mask, device)
     return kw
 
 
 @dataclasses.dataclass
 class AttributionModel:
     """A converted model of one of :data:`FAMILIES` plus its attribution
-    entry points. PyTorch runs eagerly, so there is no program cache."""
+    entry points. PyTorch runs eagerly, so there is no program cache and no
+    ``jit=``; ``check=`` waits for the port of ``ops/check.py``.
+
+    ``remat`` is the family forward's keyword, which every entry point
+    passes: True (the default) recomputes each layer in the backward, and
+    with it in every pull of the multi-target methods; False keeps each
+    layer's activations instead (the main path's setting, where they fit)."""
 
     family: str
     cfg: Any
     params: Any
     composite: composites.Composite
+    remat: bool = True
 
     @property
     def device(self):
         return self.params["embed"].device
 
     def embed(self, input_ids):
-        ids = torch.as_tensor(np.asarray(input_ids), device=self.device)
+        ids = _tensor(input_ids, self.device)
         return FAMILIES[self.family]["embed"](self.params, ids.long(), self.cfg)
 
-    def logits(self, input_ids, composite=None):
-        composite = composites.resolve(composite or self.composite)
+    def _forward(self, composite=None, kv_begin=None, attention_mask=None,
+                 kv_end=None, **kw):
+        """``run(embeds, **more) -> ModelOutputs``: the family forward under
+        ``composite`` (default: the model's) with this model's weights and
+        ``remat``, the validated padding keywords and ``kw``."""
         forward = FAMILIES[self.family]["forward"]
+        params, cfg = self.params, self.cfg
+        composite = composites.resolve(composite or self.composite)
+        kw.update(_padding_args(kv_begin, attention_mask, kv_end, self.device),
+                  remat=self.remat)
+        return lambda e, **more: forward(params, cfg, e, composite, **kw, **more)
+
+    def canonize(self, *canonizers):
+        """A copy with ``canonizers`` applied to (params, cfg): the
+        reference's ``Composite(canonizers=...)`` hook as a pure
+        pre-transform (see :mod:`lxt_tpu_torch.canonizers`)."""
+        from lxt_tpu_torch.canonizers import apply_canonizers
+        params, cfg = apply_canonizers(self.params, self.cfg, self.family,
+                                       canonizers)
+        return dataclasses.replace(self, params=params, cfg=cfg)
+
+    def logits(self, input_ids, composite=None):
+        run = self._forward(composite)
         with torch.no_grad():
-            return forward(self.params, self.cfg, self.embed(input_ids),
-                           composite).logits
+            return run(self.embed(input_ids)).logits
 
     def attribute(self, input_ids, *, target: Optional[Callable] = None,
                   position: int = -1, token=None, composite=None,
@@ -177,21 +209,101 @@ class AttributionModel:
         maps the full ``[B, T, V]`` logits to a scalar instead. Returns
         ``(target_value, relevance [B, T])``. ``kv_begin`` /
         ``attention_mask`` mark left padding (see :func:`_padding_args`)."""
-        composite = composites.resolve(composite or self.composite)
-        kw = _padding_args(kv_begin, attention_mask, kv_end, self.device)
-        tok = None if token is None else torch.as_tensor(np.asarray(token),
-                                                         device=self.device)
-        cfg, params = self.cfg, self.params
-        forward = FAMILIES[self.family]["forward"]
+        run = self._forward(composite, kv_begin, attention_mask, kv_end)
+        tok = None if token is None else _tensor(token, self.device)
 
         def tgt(e):
             if target is not None:
-                return target(forward(params, cfg, e, composite, **kw).logits)
-            logits = forward(params, cfg, e, composite, logits_at=position,
-                             **kw).logits
-            return select_logit(logits, position=-1, token=tok)
+                return target(run(e).logits)
+            return select_logit(run(e, logits_at=position).logits,
+                                position=-1, token=tok)
 
         return input_relevance(tgt, self.embed(input_ids))
+
+    def attribute_latent(self, input_ids, *, target: Optional[Callable] = None,
+                         position: int = -1, composite=None):
+        """Input relevance and per-layer latent relevance in ONE backward
+        (reference docs/latent-feature-attribution-efficient.rst). Returns
+        ``(value, input_rel [B, T], latent_rel [L, B, T, D])``; the default
+        target computes only the row at ``position``."""
+        run = self._forward(composite, output_hidden_states=True)
+        embeds = self.embed(input_ids)
+
+        def forward_with_probes(e, probes):
+            if target is not None:
+                out = run(e, probes=probes)
+                return target(out.logits), out.hidden_states
+            out = run(e, probes=probes, logits_at=position)
+            return select_logit(out.logits, position=-1), out.hidden_states
+
+        return latent_relevance(forward_with_probes, embeds,
+                                (self.cfg.num_layers, *embeds.shape))
+
+    def attribute_multi(self, input_ids, tokens, *, position: int = -1,
+                        composite=None, kv_begin=None, attention_mask=None,
+                        kv_end=None, via: str = "scan"):
+        """K relevance maps for K candidate tokens sharing ONE forward
+        (:func:`lxt_tpu_torch.attribution.multi_token_relevance`).
+
+        ``tokens``: ``[K]`` (the same candidates for every batch row) or
+        ``[K, B]`` int ids. Returns ``(values [K, B], relevance [K, B, T])``.
+        Padding as in :meth:`attribute`."""
+        run = self._forward(composite, kv_begin, attention_mask, kv_end)
+        return multi_token_relevance(
+            lambda e: run(e, logits_at=position).logits,
+            self.embed(input_ids), _tensor(tokens, self.device), via=via)
+
+    def attribute_topk(self, input_ids, k: int = 5, *, position: int = -1,
+                       composite=None, kv_begin=None, attention_mask=None,
+                       kv_end=None, via: str = "scan"):
+        """Explain the model's own top-k candidates at ``position`` in one
+        forward: ``(tokens [K, B], values [K, B], relevance [K, B, T])``.
+        Padding as in :meth:`attribute`."""
+        run = self._forward(composite, kv_begin, attention_mask, kv_end)
+        return topk_relevance(lambda e: run(e, logits_at=position).logits,
+                              self.embed(input_ids), k, via=via)
+
+    def faithfulness(self, input_ids, *, steps: int = 10, position: int = -1,
+                     token=None, composite=None, kv_begin=None,
+                     attention_mask=None, kv_end=None, baseline="zero",
+                     generator=None):
+        """A faithfulness report for this model's own attribution.
+
+        The relevance map is :meth:`attribute`'s, its token pinned to the
+        unperturbed argmax (under the same padding) so every perturbation
+        step scores the same target; MoRF / LeRF / random perturbation
+        curves then evaluate it. Returns the
+        :func:`lxt_tpu_torch.utils.faithfulness.faithfulness_report` dict.
+        ``attention_mask`` doubles as the curves' ``valid_mask``, so padding
+        is never ablated. One forward and backward, then 3 × (steps + 1)
+        forwards without a graph. ``generator`` (a ``torch.Generator`` on
+        the model's device) draws the random order; by default a fixed seed
+        keeps the control reproducible."""
+        from lxt_tpu_torch.utils.faithfulness import faithfulness_report
+
+        run = self._forward(composite, kv_begin, attention_mask, kv_end)
+        embeds = self.embed(input_ids)
+        valid = (None if attention_mask is None
+                 else _tensor(attention_mask, self.device).bool())
+        if baseline is not None and not isinstance(baseline, str):
+            baseline = _tensor(baseline, self.device)
+        pinned = {"token": None if token is None
+                  else _tensor(token, self.device).reshape(-1)}
+
+        def rows(e):                          # [B, vocab] at the position
+            return run(e, logits_at=position).logits[:, -1, :]
+
+        def target(e):
+            row = rows(e)
+            if pinned["token"] is None:
+                pinned["token"] = row.detach().argmax(-1)
+            return _pick(row, pinned["token"]).sum()
+
+        _, rel = input_relevance(target, embeds)
+        return faithfulness_report(
+            lambda e: _pick(rows(e), pinned["token"]), embeds, rel,
+            steps=steps, baseline=baseline, valid_mask=valid,
+            generator=generator)
 
 
 def _llama_structural_match(hf_config, state_dict) -> bool:
@@ -292,23 +404,26 @@ def _convert(state_dict, hf_config, composite, dtype, device, family=None):
 
 
 def from_hf(hf_model, composite: composites.Composite = None, dtype=None,
-            family: str = None, device="cuda"):
+            family: str = None, device="cuda", canonizers=None):
     """Convert a loaded HF torch model of one of :data:`SUPPORTED_FAMILIES`
     (``.config`` and ``.state_dict()``) into an :class:`AttributionModel` on
     ``device``.
     ``family`` forces a family for an out-of-registry ``model_type`` that
     is computationally one of :data:`SUPPORTED_FAMILIES`; exact Llama clones
-    are detected. The composite defaults to AttnLRP."""
+    are detected. The composite defaults to AttnLRP. ``canonizers``: an
+    optional list of ``(params, cfg, family)`` pre-transforms applied to the
+    converted model (:meth:`AttributionModel.canonize`)."""
     if not hasattr(hf_model, "config"):
         raise ValueError("from_hf takes an HF model with a .config; the "
                          "vision layouts are not ported to lxt_tpu_torch yet")
-    return _convert(hf_model.state_dict(), hf_model.config, composite, dtype,
-                    device, family)
+    model = _convert(hf_model.state_dict(), hf_model.config, composite, dtype,
+                     device, family)
+    return model.canonize(*canonizers) if canonizers else model
 
 
 def from_pretrained(model_dir, composite: composites.Composite = None,
                     dtype=None, quantize_bits=None, family: str = None,
-                    device="cuda"):
+                    device="cuda", canonizers=None):
     """Load an :class:`AttributionModel` straight from an HF checkpoint
     directory onto ``device``; no torch model is instantiated.
 
@@ -317,7 +432,8 @@ def from_pretrained(model_dir, composite: composites.Composite = None,
     ``.quant_state.bitsandbytes__*`` for 4-bit, ``.SCB`` for 8-bit) are
     dequantized on the host and, unless ``quantize_bits`` says otherwise,
     re-quantized in kind ("nf4" / 8), which reproduces their values
-    exactly."""
+    exactly. ``canonizers`` as in :func:`from_hf`, applied before the
+    quantization (they transform full-precision weights)."""
     from lxt_tpu_torch.io import load_checkpoint_state_dict
     from lxt_tpu_torch.ops.quant import ingest_bnb_state_dict, quantize_params
 
@@ -327,6 +443,8 @@ def from_pretrained(model_dir, composite: composites.Composite = None,
     if ingest_bnb_state_dict(state) and quantize_bits is None:
         quantize_bits = 8 if had_8bit else "nf4"
     model = _convert(state, hf_config, composite, dtype, device, family)
+    if canonizers:
+        model = model.canonize(*canonizers)
     if quantize_bits:
         model.params = quantize_params(model.params, bits=quantize_bits,
                                        family=model.family)

@@ -462,3 +462,47 @@ def test_nf4_quant_matmul_matches_dense_product(dtype):
     for got, want in ((y, y_ref), (dx, dx_ref)):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= rel * want.float().abs().max().item(), err
+
+
+# the attribution API on the card: top-k maps through one forward and K
+# pulls of its graph (K1 once a layer, each K2 half K times) against K
+# separate attributions, on a 2-layer bf16 Llama whose head dim runs the
+# Hopper bodies at 64 and 256; float32 (mma.sync bodies) beside it
+TOPK_MODELS = {64: dict(hidden_size=256, num_heads=4, num_kv_heads=2),
+               256: dict(hidden_size=512, num_heads=4, num_kv_heads=2,
+                         head_dim=256)}
+
+
+@pytest.mark.parametrize("dtype,bar", [("bfloat16", 1e-3), ("float32", 1e-5)])
+@pytest.mark.parametrize("D", [64, 256])
+def test_topk_maps_match_separate_attributions(D, dtype, bar):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lxt_tpu_torch import composites
+    from lxt_tpu_torch.models import llama as tllama
+    from lxt_tpu_torch.models import registry as treg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L, K, B, T = 2, 3, 2, 256
+    cfg = tllama.LlamaConfig(vocab_size=512, intermediate_size=512, num_layers=L,
+                             dtype=dtype, **TOPK_MODELS[D])
+    gen = torch.Generator("cuda").manual_seed(D)
+    model = treg.AttributionModel("llama", cfg, tllama.init_params(cfg, gen, device="cuda"),
+                                  composites.attnlrp, remat=False)
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda")
+    tfa.reset_launches()
+    toks, values, rel = model.attribute_topk(ids, K)
+    torch.cuda.synchronize()
+    counts = dict(tfa.launches)
+    hopper = dtype == "bfloat16"
+    assert counts == {"flash_fwd": L, "flash_bwd_dq": K * L, "flash_bwd_dkv": K * L,
+                      "rope_rotate": (L + 2 * K * L) if hopper else 0}
+    assert toks.shape == values.shape == (K, B) and rel.shape == (K, B, T)
+    for k in range(K):
+        value, want = model.attribute(ids, token=toks[k])
+        err = ((rel[k].double() - want.double()).norm() / want.double().norm()).item()
+        assert err <= bar, (k, err)
+        # attribute's value is the batch sum in the model's dtype: one
+        # rounding of it apart
+        eps = torch.finfo(getattr(torch, dtype)).eps
+        assert abs(float(values[k].float().sum()) - float(value)) <= (
+            eps * abs(float(value)))
