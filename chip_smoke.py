@@ -6,8 +6,10 @@ weights from a seed), the quantized path (NF4 weights at Llama-3-8B width
 and depth, and a bitsandbytes-NF4 checkpoint through from_pretrained),
 Gemma-3-4B's text model at full width and depth through the kernels, the
 sequence-parallel ring (flash_attention_lse's calls) over four processes on
-the one card, and the rest of the attribution API (multi-target and latent
-relevance, faithfulness, Integrated Gradients) at the main path's width.
+the one card, the rest of the attribution API (multi-target and latent
+relevance, faithfulness, Integrated Gradients) at the main path's width,
+Mixtral-8x7B at full width and depth in NF4 (the routed expert products)
+and GPT-2 XL at full depth (no rotary embedding).
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
@@ -28,9 +30,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      k_start) pair of a 4-way split and one pair off the tile grid, bf16,
      float16 and float32, head dim 64, 128 (window 300) and 256 (window
      1024), on both bodies; then at the main path's call (B8 H32/4 T1024 D64), the
-     NF4 8B path's (B1 H32/8 T4096 D128) and Gemma-3-4B's two (B1 H8/4
-     T4096 D256), bf16,
-     causal, rope: each kernel's device time (CUDA-graph replays) and
+     NF4 8B path's (B1 H32/8 T4096 D128; Mixtral-8x7B's too), Gemma-3-4B's
+     two (B1 H8/4 T4096 D256) and GPT-2 XL's (B8 H25/25 T1024 D64, no
+     rope), bf16, causal: each kernel's device time (CUDA-graph replays) and
      body (Hopper or mma.sync) beside its plain version's time, its
      roofline bound (fa.work: FLOPs over 989 TFLOP/s or bytes over 3.35
      TB/s, the larger) and the library's time for the same attention
@@ -45,8 +47,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      non-causal attention;
   4. K3 nf4_dequant against its plain version, bit-exact, bf16, float16
      and float32,
-     over the Llama-3-8B projection shapes and ragged ones; times at the
-     wg [4096, 14336] and wd [14336, 4096] shapes;
+     over the Llama-3-8B projection shapes, ragged ones and Mixtral's
+     router [4096, 8] (the unaligned path); times at the wg [4096, 14336]
+     and wd [14336, 4096] shapes;
   5. the main path in float32, 22 layers, batch 1 x 1024: the kernel path
      against the einsum path (normalized L2 of logits and relevance <= 1e-4)
      and the kernel launches per attribution;
@@ -105,22 +108,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
      8 x 1024 (finite curves, ABPC, seconds per report, K1 launched once a
      layer for each of its 1 + 3 x 11 forwards); integrated_gradients
      (steps 32, vanilla_gradient) in bf16 at 8 x 1024 (32 forwards and
-     pulls of launches, finite relevance, the completeness gap printed).
+     pulls of launches, finite relevance, the completeness gap printed);
+ 12. Mixtral-8x7B (Mixtral-8x7B-v0.1 config.json widths, random weights):
+     float32 at 2 layers, batch 1 x 1024: the kernel path against the
+     einsum path and the ragged mixture against the dense one (normalized
+     L2 <= 1e-4), bf16 against float32 (<= 0.1) with the share of
+     (layer, token) rows whose top-2 expert set differs between the two
+     printed; then NF4 on every quantizable leaf at full depth (32
+     layers), bf16, batch 1 x 4096, remat: init and quantize seconds, GiB
+     of codes and scales, three attributions (heatmaps/s, peak memory,
+     finite relevance, launches against K1 2L, each K2 half L, 4L
+     rotation passes and K3's count derived from the expert groups the
+     run saw); a dense bf16 control at 4 layers (each (layer, expert)
+     slice plainly dequantized) against the NF4 run at 4 layers (<= 1e-3);
+ 13. GPT-2 XL (gpt2-xl widths, random weights, CP-LRP): float32 at 6
+     layers, batch 1 x 1024, kernels against einsum (<= 1e-4) and bf16
+     against float32 (<= 0.1); bf16 at full depth (48 layers), batch
+     8 x 1024, remat off: three attributions (heatmaps/s, peak memory,
+     launches of K1 and each K2 half L each with no rotation pass); one
+     left-padded batch (row 0 kv_begin 128: finite, 0 on the padding,
+     within 0.02 of its tokens unpadded).
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
 "at_gemma_local" / "at_gemma_global" at Gemma-3-4B's calls and "at_ring"
-at the ring step (where the call runs no rotation pass, the pass has no
-entry); a flash kernel's entry names its "body" and, where a control ran,
-its mma.sync body's time "mma_ms". "launches",
-"launches_8b" and "launches_gemma" are each the count over its path's
-three timed attributions ("launches" of K3: the NF4 8B path's),
-"launches_ring" over the ring's three driven attributions, all four
-processes together, and "launches_api" over phase 11's calls of the API
-(not the separate attributions they are held against); the last line is
+at the ring step and "at_gpt2" at GPT-2 XL's call (where the call runs
+no rotation pass, the pass has no entry); a flash kernel's entry names its
+"body" and, where a control ran, its mma.sync body's time "mma_ms".
+"launches", "launches_8b", "launches_gemma", "launches_mixtral" and
+"launches_gpt2" are each the count over its path's three timed
+attributions ("launches" of K3: the NF4 8B path's), "launches_ring" over
+the ring's three driven attributions, all four processes together, and
+"launches_api" over phase 11's calls of the API (not the separate
+attributions they are held against); the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -194,20 +219,23 @@ def ring_pairs(T):
 
 # the paths' attention calls, bf16, causal, rope: the main path's
 # (TinyLlama-1.1B widths, B 8 x 1024), the NF4 8B path's (Llama-3-8B
-# widths, B 1 x 4096) and Gemma-3-4B's local and global layers' (B 1 x 4096);
-# and a ring step of phase 10 at Llama-3-8B widths (T_local 2048, rope
-# applied outside, keys wholly in the past: the full square, with an lse
-# cotangent)
+# widths, B 1 x 4096; Mixtral-8x7B's attention is the same call) and
+# Gemma-3-4B's local and global layers' (B 1 x 4096); a ring step of phase
+# 10 at Llama-3-8B widths (T_local 2048, rope applied outside, keys wholly
+# in the past: the full square, with an lse cotangent); and GPT-2 XL's
+# (B 8 x 1024, H 25/25, no rope: no rotation pass)
 MAIN_CASE = (SERVE_BATCH, 32, 4, SEQ, 64, {"rope": True})
 CALLS = {"main": MAIN_CASE, "8b": (1, 32, 8, 4096, 128, {"rope": True}),
          "gemma_local": CASES["gemma_local"], "gemma_global": CASES["gemma_global"],
-         "ring": (1, 32, 8, 2048, 128, {"q_start": 2048, "dlse": True})}
+         "ring": (1, 32, 8, 2048, 128, {"q_start": 2048, "dlse": True}),
+         "gpt2": (SERVE_BATCH, 25, 25, SEQ, 64, {})}
 CALL_NAMES = {"main": "B8 H32/4 T1024 D64 causal rope",
               "8b": "B1 H32/8 T4096 D128 causal rope",
               "gemma_local": "B1 H8/4 T4096 D256 window 1024 causal rope",
               "gemma_global": "B1 H8/4 T4096 D256 causal rope",
               "ring": "B1 H32/8 T_local 2048 D128 ring step q_start 2048 k_start 0 "
-                      "(full square) dlse"}
+                      "(full square) dlse",
+              "gpt2": "B8 H25/25 T1024 D64 causal, no rope"}
 # peak rates of an H100 SXM (data sheet): bf16 tensor cores, float32 outside
 # them (the rotation pass's elementwise work), device memory
 PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
@@ -242,6 +270,8 @@ K3_CASES = {
     "wk_stack_32x4096x1024": ((32, 4096, 1024), 64),
     "ragged_128x48": ((128, 48), 64),
     "ragged_64x40": ((64, 40), 64),
+    # Mixtral-8x7B's router [4096, 8]: N < 16 takes the unaligned path
+    "router_4096x8": ((4096, 8), 64),
 }
 K3_TIMED = ("wg_wu_4096x14336", "wd_14336x4096")
 # the tiny bitsandbytes-NF4 checkpoint of phase 8
@@ -277,6 +307,21 @@ API_K, API_TOKENS = 5, (17, 4242, 31999)
 API_SITES = ((100, 17), (511, 4242), (SEQ - 1, 31999))
 API_BF16_BAR, API_F32_BAR, LATENT_BAR, CONSERVATION_RTOL = 1e-3, 1e-5, 0.02, 1e-3
 FAITH_STEPS, IG_STEPS = 10, 32
+# phase 12, Mixtral: Mixtral-8x7B-v0.1's config.json widths (transformers'
+# MixtralConfig defaults), random weights from a seed. The float32 gates at
+# 2 layers and 1 x 1024; the headline NF4 run at full depth, bf16, 1 x 4096,
+# remat; the dense control at 4 layers against the NF4 run at 4 layers
+MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                    num_layers=32, num_heads=32, num_kv_heads=8, num_experts=8,
+                    experts_per_token=2, rope_theta=1e6, rms_eps=1e-5)
+MIXTRAL_GATE, SEQ_MIXTRAL, MIXTRAL_CONTROL_LAYERS = (2, 1024), 4096, 4
+# phase 13, GPT-2 XL (openai-community/gpt2-xl config.json widths): bf16,
+# batch 8 x 1024, remat off, CP-LRP; the float32 gates at 6 layers and
+# 1 x 1024. One left-padded batch: row 0 padded by 128, its relevance held
+# against the same tokens unpadded (bf16 through other GEMM shapes)
+GPT2_XL = dict(vocab_size=50257, hidden_size=1600, num_layers=48, num_heads=25,
+               max_positions=1024, ln_eps=1e-5)
+GPT2_GATE_LAYERS, GPT2_PAD, PADDED_BAR = 6, 128, 0.02
 
 
 def card_line():
@@ -713,17 +758,19 @@ def phase_kernels(card):
     return failures, errs, timing
 
 
-def attribute(params, cfg, ids, impl, remat, family="llama", token=None):
+def attribute(params, cfg, ids, impl, remat, family="llama", token=None,
+              composite=None):
     """One heatmap per example: (logits at the last position, relevance),
-    through the family's embedding and forward; the target is the argmax
-    logit at the last position, or ``token``'s."""
+    through the family's embedding and forward under ``composite``
+    (default AttnLRP); the target is the argmax logit at the last
+    position, or ``token``'s."""
     import lxt_tpu_torch
     from lxt_tpu_torch.models.registry import FAMILIES
     fns = FAMILIES[family]
     held = {}
 
     def target(x):
-        logits = fns["forward"](params, cfg, x, lxt_tpu_torch.attnlrp,
+        logits = fns["forward"](params, cfg, x, composite or lxt_tpu_torch.attnlrp,
                                 remat=remat, logits_at=-1,
                                 attn_impl=impl).logits
         held["logits"] = logits.detach()
@@ -1625,6 +1672,269 @@ def phase_from_pretrained(card):
     return failures
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Records the sorted top-K expert ids [N, K] of every router call of
+    the Mixtral model while the context is open (one per layer per forward
+    with remat off)."""
+    from lxt_tpu_torch.models import mixtral
+    seen, route = [], mixtral._route
+
+    def recording(*args):
+        top_w, top_idx = route(*args)
+        seen.append(top_idx.detach().reshape(-1, top_idx.shape[-1]).sort(-1).values)
+        return top_w, top_idx
+
+    mixtral._route = recording
+    try:
+        yield seen
+    finally:
+        mixtral._route = route
+
+
+def route_flips(a, b):
+    """The share of (layer, token) rows whose top-K expert sets differ."""
+    rows = sum(x.shape[0] for x in a)
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b)) / rows
+
+
+def nf4_leaf_bytes(qt):
+    return qt.q.numel() * qt.q.element_size() + qt.scale.numel() * 4
+
+
+def phase_mixtral(card):
+    """Phase 12: Mixtral-8x7B's widths. The float32 gates at 2 layers; the
+    NF4 run at full depth (three attributions); the dense control at 4
+    layers. Returns (failures, the launches of the NF4 run's three
+    attributions)."""
+    import torch
+    from lxt_tpu_torch.models import mixtral
+    from lxt_tpu_torch.ops import flash_attention as fa
+    from lxt_tpu_torch.ops import quant
+    failures, fam = [], "mixtral"
+    layers, T = MIXTRAL_GATE
+    cfg = mixtral.MixtralConfig(**dict(MIXTRAL_8X7B, num_layers=layers))
+    gen = torch.Generator("cuda").manual_seed(13)
+    params = mixtral.init_params(cfg, gen)
+    ids = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device="cuda")
+
+    def run(p, impl, c=cfg):
+        with recorded_routes() as routes:
+            logits, rel = attribute(p, c, ids, impl, False, fam)
+        return logits, rel, routes
+
+    fa.reset_launches()
+    logits_k, rel_k, routes_k = run(params, "auto")
+    torch.cuda.synchronize()
+    rose = dict(fa.launches)
+    logits_e, rel_e, routes_e = run(params, "einsum")
+    d_logits, d_rel = nl2(logits_k, logits_e), nl2(rel_k, rel_e)
+    finite = bool(torch.isfinite(rel_k).all() and torch.isfinite(logits_k).all())
+    want = expected_launches(layers, remat=False)
+    print(f"Mixtral-8x7B width float32 L{layers} B1x{T} ragged: kernels vs einsum "
+          f"normalized L2 logits {d_logits:.3g}, relevance {d_rel:.3g} (bar "
+          f"{PARITY_BAR}), top-2 sets differing {route_flips(routes_k, routes_e):.3%} "
+          f"of (layer, token); launches per attribution {rose} (expected {want}) "
+          f"[{card}]", flush=True)
+    if not (finite and d_logits <= PARITY_BAR and d_rel <= PARITY_BAR):
+        failures.append("Mixtral float32 parity")
+    if rose != want:
+        failures.append(f"Mixtral float32 launches {rose}")
+    del logits_e, rel_e
+    logits_d, rel_d, routes_d = run(params, "auto", dataclasses.replace(cfg, moe_impl="dense"))
+    d_logits, d_rel = nl2(logits_k, logits_d), nl2(rel_k, rel_d)
+    print(f"Mixtral-8x7B width float32 L{layers} B1x{T}, kernels: ragged vs dense "
+          f"normalized L2 logits {d_logits:.3g}, relevance {d_rel:.3g} (bar "
+          f"{PARITY_BAR}), top-2 sets differing {route_flips(routes_k, routes_d):.3%} "
+          f"[{card}]", flush=True)
+    if not (d_logits <= PARITY_BAR and d_rel <= PARITY_BAR):
+        failures.append("Mixtral ragged vs dense")
+    del logits_d, rel_d
+    params16 = cast(params, torch.bfloat16)
+    del params
+    _, rel16, routes16 = run(params16, "auto")
+    div = nl2(rel16.float(), rel_k)
+    print(f"Mixtral-8x7B width bf16 vs float32 relevance L{layers} B1x{T}, kernels: "
+          f"normalized L2 {div:.4g} (bar {DIVERGENCE_BAR}); top-2 expert sets "
+          f"differing between the bf16 and float32 runs: "
+          f"{route_flips(routes16, routes_k):.3%} of (layer, token) [{card}]",
+          flush=True)
+    if not (math.isfinite(div) and div <= DIVERGENCE_BAR):
+        failures.append("Mixtral bf16 divergence")
+    del params16
+    torch.cuda.empty_cache()
+
+    # the headline: NF4 on every quantizable leaf at full depth
+    cfg = mixtral.MixtralConfig(**MIXTRAL_8X7B)
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, torch.Generator("cuda").manual_seed(14),
+                                 dtype=torch.bfloat16, quantize_bits="nf4")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    names = quant.FAMILY_QUANTIZABLE[fam]
+    qbytes = sum(nf4_leaf_bytes(params["layers"][n]) for n in names)
+    ebytes = sum(nf4_leaf_bytes(params["layers"][n]) for n in mixtral.EXPERT_LEAVES)
+    gen = torch.Generator("cuda").manual_seed(15)
+    requests = [torch.randint(0, cfg.vocab_size, (1, SEQ_MIXTRAL), generator=gen,
+                              device="cuda") for _ in range(REQUESTS)]
+
+    def runner(p, c):
+        return lambda ids: attribute(p, c, ids, "auto", True, fam)[1]
+
+    runner(params, cfg)(requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    quant.reset_launches()
+    mixtral.reset_routing()
+    rate, rels = serve_rate(runner(params, cfg), requests)
+    launches = {**fa.launches, **quant.launches}
+    routing = dict(mixtral.routing)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # K3 per block run (forward and recompute): the four attention
+    # projections, the router and three products per non-empty expert
+    # group; the backward dequantizes once more for each of the forward's
+    reads, groups = routing["host_reads"], routing["nonempty_groups"]
+    want = {n: REQUESTS * c for n, c in
+            expected_launches(L, remat=True, hopper=HOPPER_BODIES[128]).items()}
+    want["nf4_dequant"] = 3 * (5 * reads + 3 * groups) // 2
+    ok = all(r.shape == (1, SEQ_MIXTRAL) and bool(torch.isfinite(r).all())
+             for r in rels)
+    print(f"NF4 Mixtral-8x7B L{L} B1x{SEQ_MIXTRAL} bf16 remat: init and quantize "
+          f"{t_init:.1f} s, nf4 codes and scales {qbytes / 2**30:.2f} GiB "
+          f"({qbytes / 1e9:.2f} GB; experts {ebytes / 1e9:.2f} GB); {REQUESTS} "
+          f"attributions, {rate:.4f} heatmaps/s ({1 / rate:.3f} s each), launches "
+          f"over them {launches} (expected {want}; group sizes read {reads} "
+          f"times, {groups / reads:.3f} non-empty experts a block), relevance "
+          f"finite and [1, {SEQ_MIXTRAL}]: {ok}, peak device memory {peak:.2f} GiB "
+          f"[{card}]", flush=True)
+    if not ok:
+        failures.append("NF4 Mixtral relevance not finite or misshapen")
+    if launches != want or reads != 2 * L * REQUESTS:
+        failures.append(f"NF4 Mixtral launches {launches}")
+
+    # dense control at MIXTRAL_CONTROL_LAYERS layers: the same NF4 leaves
+    # plainly dequantized to bf16, one (layer, expert) slice at a time,
+    # against the NF4 run of those layers
+    Lc = MIXTRAL_CONTROL_LAYERS
+    cfg_c = dataclasses.replace(cfg, num_layers=Lc)
+    nf4_c = dict(params, layers={n: t[:Lc] for n, t in params["layers"].items()})
+    dense = dict(nf4_c, layers=dict(nf4_c["layers"]))
+    for name in names:
+        qt = nf4_c["layers"][name]
+        w = torch.empty(qt.shape, dtype=torch.bfloat16, device="cuda")
+        for idx in itertools.product(*(range(n) for n in qt.q.shape[:-2])):
+            w[idx] = quant.nf4_dequant_ref(qt.q[idx], qt.scale[idx], qt.block,
+                                           torch.bfloat16)
+        dense["layers"][name] = w
+    rate_n, rels_n = serve_rate(runner(nf4_c, cfg_c), requests)
+    runner(dense, cfg_c)(requests[0])  # warm-up
+    rate_d, rels_d = serve_rate(runner(dense, cfg_c), requests)
+    d = max(nl2(a, b) for a, b in zip(rels_d, rels_n))
+    print(f"NF4 Mixtral-8x7B dense control L{Lc} (bf16 weights, plainly "
+          f"dequantized): {rate_d:.4f} heatmaps/s against the NF4 run's "
+          f"{rate_n:.4f} at L{Lc}; relevance against it: normalized L2 {d:.3g} "
+          f"(bar {DENSE_BAR}) [{card}]", flush=True)
+    if not (math.isfinite(d) and d <= DENSE_BAR):
+        failures.append("NF4 Mixtral dense control")
+    return failures, launches
+
+
+def phase_gpt2(card):
+    """Phase 13: GPT-2 XL under CP-LRP. The float32 gates at 6 layers;
+    three bf16 attributions at full depth, batch 8 x 1024, remat off; one
+    left-padded batch. Returns (failures, the launches of the three
+    attributions)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import gpt2
+    from lxt_tpu_torch.models.registry import AttributionModel
+    from lxt_tpu_torch.ops import flash_attention as fa
+    failures, fam, comp = [], "gpt2", lxt_tpu_torch.cp_lrp
+    cfg = gpt2.GPT2Config(**dict(GPT2_XL, num_layers=GPT2_GATE_LAYERS))
+    gen = torch.Generator("cuda").manual_seed(16)
+    params = gpt2.init_params(cfg, gen)
+    ids = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=gen, device="cuda")
+    fa.reset_launches()
+    logits_k, rel_k = attribute(params, cfg, ids, "auto", False, fam, composite=comp)
+    torch.cuda.synchronize()
+    rose = dict(fa.launches)
+    logits_e, rel_e = attribute(params, cfg, ids, "einsum", False, fam, composite=comp)
+    d_logits, d_rel = nl2(logits_k, logits_e), nl2(rel_k, rel_e)
+    finite = bool(torch.isfinite(rel_k).all() and torch.isfinite(logits_k).all())
+    want = expected_launches(cfg.num_layers, remat=False)
+    print(f"GPT-2 XL width float32 L{cfg.num_layers} B1x{SEQ} CP-LRP: kernels vs "
+          f"einsum normalized L2 logits {d_logits:.3g}, relevance {d_rel:.3g} (bar "
+          f"{PARITY_BAR}); launches per attribution {rose} (expected {want}) "
+          f"[{card}]", flush=True)
+    if not (finite and d_logits <= PARITY_BAR and d_rel <= PARITY_BAR):
+        failures.append("GPT-2 float32 parity")
+    if rose != want:
+        failures.append(f"GPT-2 float32 launches {rose}")
+    _, rel16 = attribute(cast(params, torch.bfloat16), cfg, ids, "auto", False, fam,
+                         composite=comp)
+    div = nl2(rel16.float(), rel_k)
+    print(f"GPT-2 XL width bf16 vs float32 relevance L{cfg.num_layers} B1x{SEQ}, "
+          f"kernels: normalized L2 {div:.4g} (bar {DIVERGENCE_BAR}) [{card}]",
+          flush=True)
+    if not (math.isfinite(div) and div <= DIVERGENCE_BAR):
+        failures.append("GPT-2 bf16 divergence")
+    del params, logits_e, rel_e
+    torch.cuda.empty_cache()
+
+    cfg = gpt2.GPT2Config(**GPT2_XL)
+    L = cfg.num_layers
+    params = gpt2.init_params(cfg, gen, dtype=torch.bfloat16)
+    requests = [torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SEQ), generator=gen,
+                              device="cuda") for _ in range(REQUESTS)]
+
+    def run(ids):
+        return attribute(params, cfg, ids, "auto", False, fam, composite=comp)[1]
+
+    run(requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rels = [run(ids) for ids in requests]
+    torch.cuda.synchronize()
+    rate = SERVE_BATCH * REQUESTS / (time.perf_counter() - t0)
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {n: REQUESTS * c for n, c in expected_launches(L, remat=False).items()}
+    ok = all(r.shape == (SERVE_BATCH, SEQ) and bool(torch.isfinite(r).all())
+             for r in rels)
+    print(f"GPT-2 XL L{L} B{SERVE_BATCH}x{SEQ} bf16 remat off CP-LRP, kernels: "
+          f"{REQUESTS} attributions, {rate:.3f} heatmaps/s, launches {launches} "
+          f"(expected {want}: no rotation pass), relevance finite and "
+          f"[{SERVE_BATCH}, {SEQ}]: {ok}, peak device memory {peak:.2f} GiB "
+          f"[{card}]", flush=True)
+    if not ok:
+        failures.append("GPT-2 relevance not finite or misshapen")
+    if launches != want:
+        failures.append(f"GPT-2 launches {launches}")
+
+    # left padding: row 0 padded by GPT2_PAD, against its tokens unpadded
+    model = AttributionModel(fam, cfg, params, comp, remat=False)
+    kv_begin = torch.zeros(SERVE_BATCH, dtype=torch.int32, device="cuda")
+    kv_begin[0] = GPT2_PAD
+    (_, rel_p), rose, _ = counted(lambda: model.attribute(requests[0], kv_begin=kv_begin))
+    _, rel_u = model.attribute(requests[0][:1, GPT2_PAD:])
+    d = nl2(rel_p[0, GPT2_PAD:].float(), rel_u[0].float())
+    pad_zero = bool((rel_p[0, :GPT2_PAD] == 0).all())
+    ok = (bool(torch.isfinite(rel_p).all()) and pad_zero and d <= PADDED_BAR
+          and rose == expected_launches(L, remat=False))
+    print(f"GPT-2 XL left-padded batch B{SERVE_BATCH}x{SEQ} (row 0 kv_begin "
+          f"{GPT2_PAD}): relevance finite, 0 on the padding {pad_zero}, row 0 "
+          f"against its {SEQ - GPT2_PAD} tokens unpadded: normalized L2 {d:.3g} "
+          f"(bar {PADDED_BAR}), launches {rose}" + (" PASS" if ok else " FAIL")
+          + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("GPT-2 left padding")
+    return failures, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1680,7 +1990,17 @@ def main():
     t_api = time.perf_counter()
     f, api_launches = phase_api(card)
     failures += f
-    print(f"phase 11 took {time.perf_counter() - t_api:.1f} s; phases 3-11 "
+    print(f"phase 11 took {time.perf_counter() - t_api:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    f, mixtral_launches = phase_mixtral(card)
+    failures += f
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    f, gpt2_launches = phase_gpt2(card)
+    failures += f
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s; phases 3-13 "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
@@ -1704,7 +2024,9 @@ def main():
          "launches_8b": nf4_launches[name],
          "launches_gemma": gemma_launches.get(name, 0),
          "launches_ring": ring_launches.get(name, 0),
-         "launches_api": api_launches.get(name, 0)}
+         "launches_api": api_launches.get(name, 0),
+         "launches_mixtral": mixtral_launches.get(name, 0),
+         "launches_gpt2": gpt2_launches.get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """lxt_tpu_torch — AttnLRP attribution for transformers in PyTorch, with
-hand-written Hopper (sm_90a) kernels.
+hand-written Hopper (sm_90a) kernels: Llama-family (Llama 2/3, TinyLlama,
+Qwen 2/3, Mistral, Phi-3), Gemma 3 text, GPT-2 and Mixtral models.
 
 The port of ``lxt_tpu`` (JAX on a TPU), which stays in this repository as
 the reference each ported part is tested against. Every LRP rule is an

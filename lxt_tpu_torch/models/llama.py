@@ -71,7 +71,7 @@ class LlamaConfig:
 
 
 def _sliding_window_spec(hf_config):
-    """The config's causal sliding window (Mistral, Phi-3). Qwen2/3's
+    """The config's causal sliding window (Mistral, Phi-3, Mixtral). Qwen2/3's
     layered window (``use_sliding_window``) is refused, not ignored."""
     sw = getattr(hf_config, "sliding_window", None)
     if sw is None:
@@ -83,7 +83,7 @@ def _sliding_window_spec(hf_config):
                 f"{mt} use_sliding_window=True (layered sliding window via "
                 f"max_window_layers) is not supported yet")
         return None
-    if mt in ("mistral", "phi3"):
+    if mt in ("mistral", "phi3", "mixtral"):
         return int(sw)
     return None
 

@@ -1,6 +1,7 @@
-"""One-call user surface: HF checkpoint or model of a Llama-family or
-Gemma-3 text model -> :class:`AttributionModel` (counterpart of
-``lxt_tpu/models/registry.py``, for the families the port has).
+"""One-call user surface: HF checkpoint or model of a Llama-family,
+Gemma-3 text, Mixtral or GPT-2 model -> :class:`AttributionModel`
+(counterpart of ``lxt_tpu/models/registry.py``, for the families the port
+has).
 
     import lxt_tpu_torch
     model = lxt_tpu_torch.from_pretrained("/path/to/llama-dir",
@@ -28,7 +29,8 @@ from lxt_tpu_torch import composites
 from lxt_tpu_torch.attribution import (_pick, input_relevance,
                                        latent_relevance, multi_token_relevance,
                                        select_logit, topk_relevance)
-from lxt_tpu_torch.models import gemma3, llama
+from lxt_tpu_torch.models import gemma3, gpt2, llama, mixtral
+from lxt_tpu_torch.ops.quant import QuantizedTensor
 
 _LLAMA = {"config": llama.LlamaConfig, "from_hf": llama.params_from_hf,
           "forward": llama.forward,
@@ -39,7 +41,14 @@ _GEMMA3 = {"config": gemma3.Gemma3Config, "from_hf": gemma3.params_from_hf,
 #: converter, forward and embedding (``embed(params, ids, cfg)``)
 FAMILIES = {"llama": _LLAMA, "qwen2": _LLAMA, "qwen3": _LLAMA,
             "mistral": _LLAMA, "phi3": _LLAMA, "gemma3": _GEMMA3,
-            "gemma3_text": _GEMMA3}
+            "gemma3_text": _GEMMA3,
+            "gpt2": {"config": gpt2.GPT2Config, "from_hf": gpt2.params_from_hf,
+                     "forward": gpt2.forward,
+                     "embed": lambda params, ids, cfg: gpt2.embed(params, ids)[0]},
+            "mixtral": {"config": mixtral.MixtralConfig,
+                        "from_hf": mixtral.params_from_hf,
+                        "forward": mixtral.forward,
+                        "embed": lambda params, ids, cfg: mixtral.embed(params, ids)}}
 SUPPORTED_FAMILIES = tuple(FAMILIES)
 
 _QWEN = dict(vocab_size=151936, hidden_size=4096, intermediate_size=22016,
@@ -83,6 +92,18 @@ _HF_DEFAULTS = {
                         query_pre_attn_scalar=256, sliding_window=4096,
                         layer_types=None, rope_scaling=None,
                         rope_local_base_freq=10000.0),
+    "mixtral": dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    rope_theta=1e6, rms_norm_eps=1e-5,
+                    tie_word_embeddings=False, num_local_experts=8,
+                    num_experts_per_tok=2, sliding_window=None,
+                    hidden_act="silu"),
+    "gpt2": dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+                 n_head=12, layer_norm_epsilon=1e-5,
+                 activation_function="gelu_new",
+                 scale_attn_by_inverse_layer_idx=False,
+                 reorder_and_upcast_attn=False, tie_word_embeddings=True),
 }
 
 
@@ -104,7 +125,7 @@ def _filled(raw):
         return types.SimpleNamespace(**raw)
     cfg = dict(_HF_DEFAULTS[mt])
     cfg.update(raw)
-    if cfg["num_key_value_heads"] is None:
+    if "num_key_value_heads" in cfg and cfg["num_key_value_heads"] is None:
         cfg["num_key_value_heads"] = cfg["num_attention_heads"]
     if mt == "llama" and cfg["head_dim"] is None:
         cfg["head_dim"] = cfg["hidden_size"] // cfg["num_attention_heads"]
@@ -167,7 +188,12 @@ class AttributionModel:
 
     @property
     def device(self):
-        return self.params["embed"].device
+        """The parameters' device: that of the first leaf, whatever the
+        family names its embedding."""
+        leaf = self.params
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        return leaf.q.device if isinstance(leaf, QuantizedTensor) else leaf.device
 
     def embed(self, input_ids):
         ids = _tensor(input_ids, self.device)
@@ -398,7 +424,9 @@ def _convert(state_dict, hf_config, composite, dtype, device, family=None):
     cfg = table["config"].from_hf(hf_config)
     params = table["from_hf"](state_dict, cfg, dtype=dtype or torch.float32,
                               device=device)
-    composite = composites.resolve(composite or composites.attnlrp)
+    if composite is None:
+        composite = composites.cp_lrp if family == "gpt2" else composites.attnlrp
+    composite = composites.resolve(composite)
     return AttributionModel(family=family, cfg=cfg, params=params,
                             composite=composite)
 
@@ -410,7 +438,8 @@ def from_hf(hf_model, composite: composites.Composite = None, dtype=None,
     ``device``.
     ``family`` forces a family for an out-of-registry ``model_type`` that
     is computationally one of :data:`SUPPORTED_FAMILIES`; exact Llama clones
-    are detected. The composite defaults to AttnLRP. ``canonizers``: an
+    are detected. The composite defaults to AttnLRP (CP-LRP for GPT-2, as
+    the reference recommends). ``canonizers``: an
     optional list of ``(params, cfg, family)`` pre-transforms applied to the
     converted model (:meth:`AttributionModel.canonize`)."""
     if not hasattr(hf_model, "config"):

@@ -506,3 +506,49 @@ def test_topk_maps_match_separate_attributions(D, dtype, bar):
         eps = torch.finfo(getattr(torch, dtype)).eps
         assert abs(float(values[k].float().sum()) - float(value)) <= (
             eps * abs(float(value)))
+
+
+@pytest.mark.parametrize("weights", ["dense", "nf4"])
+def test_mixtral_ragged_matches_dense_through_the_kernels(weights):
+    """Mixtral's ragged mixture (per-expert products on the sorted rows;
+    K3 for NF4 experts) against the dense one-hot mixture (every expert on
+    every token, plainly dequantized weights), float32 through the flash
+    kernels; the ragged run's launches: K1 and each K2 half once a layer,
+    K3 for the four attention projections, the router and three products
+    of every non-empty expert group, in the forward and the backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from lxt_tpu_torch import attribution, composites
+    from lxt_tpu_torch.models import mixtral as tmix
+    from lxt_tpu_torch.ops import quant as tq
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L, B, T = 2, 2, 256
+    cfg = tmix.MixtralConfig(vocab_size=512, hidden_size=512, intermediate_size=1024,
+                             num_layers=L, num_heads=8, num_kv_heads=2)
+    gen = torch.Generator("cuda").manual_seed(3)
+    params = tmix.init_params(cfg, gen, quantize_bits=None if weights == "dense" else "nf4")
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda")
+
+    def run(impl):
+        c = dataclasses.replace(cfg, moe_impl=impl)
+        return attribution.input_relevance(
+            lambda e: attribution.select_logit(tmix.forward(
+                params, c, e, composites.attnlrp, remat=False, logits_at=-1).logits),
+            tmix.embed(params, ids))
+
+    tfa.reset_launches()
+    tq.reset_launches()
+    tmix.reset_routing()
+    value, rel = run("ragged")
+    torch.cuda.synchronize()
+    counts = {**tfa.launches, **tq.launches}
+    reads, groups = tmix.routing["host_reads"], tmix.routing["nonempty_groups"]
+    assert reads == L and 0 < groups <= L * cfg.num_experts
+    k3 = 0 if weights == "dense" else 2 * (5 * reads + 3 * groups)
+    assert counts == {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                      "rope_rotate": 0, "nf4_dequant": k3}
+    value_d, rel_d = run("dense")
+    err = ((rel.double() - rel_d.double()).norm() / rel_d.double().norm()).item()
+    assert err <= 1e-4 and abs(float(value) - float(value_d)) <= 1e-4 * abs(float(value_d))

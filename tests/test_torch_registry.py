@@ -22,20 +22,26 @@ import pytest
 import torch
 from safetensors.numpy import save_file
 from safetensors.torch import save_file as save_torch
-from transformers import AutoConfig, Gemma3ForCausalLM, Gemma3TextConfig
+from transformers import (AutoConfig, Gemma3ForCausalLM, Gemma3TextConfig,
+                          GPT2Config, GPT2LMHeadModel, MixtralConfig,
+                          MixtralForCausalLM)
 from transformers.models.llama.modeling_llama import LlamaConfig, LlamaForCausalLM
 
 import lxt_tpu
 from lxt_tpu import io as jio
 from lxt_tpu.models import gemma3 as jgemma
+from lxt_tpu.models import gpt2 as jgpt2
 from lxt_tpu.models import llama as jllama
+from lxt_tpu.models import mixtral as jmix
 from lxt_tpu.models import registry as jreg
 from lxt_tpu.ops import quant as jq
 import lxt_tpu_torch
 from lxt_tpu_torch import io as tio
 from lxt_tpu_torch.convert import params_from_numpy
 from lxt_tpu_torch.models import gemma3 as tgemma
+from lxt_tpu_torch.models import gpt2 as tgpt2
 from lxt_tpu_torch.models import llama as tllama
+from lxt_tpu_torch.models import mixtral as tmix
 from lxt_tpu_torch.models import registry as treg
 from lxt_tpu_torch.ops import quant as tq
 
@@ -154,13 +160,13 @@ def test_from_hf_matches_lxt_tpu():
 
 
 def test_unsupported_family_lists_the_ported_ones(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gpt2"}))
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "bert"}))
     save_file({"x": np.zeros(2, np.float32)}, str(tmp_path / "model.safetensors"))
     with pytest.raises(ValueError, match="llama, qwen2, qwen3, mistral, phi3, "
-                                         "gemma3, gemma3_text"):
+                                         "gemma3, gemma3_text, gpt2, mixtral"):
         treg.from_pretrained(tmp_path, device="cpu")
     with pytest.raises(ValueError, match="family="):
-        treg.from_pretrained(tmp_path, family="gpt2", device="cpu")
+        treg.from_pretrained(tmp_path, family="bert", device="cpu")
 
 
 def test_llama_clone_detected_structurally(tmp_path):
@@ -265,7 +271,8 @@ def test_load_checkpoint_params_matches_from_hf(tmp_path):
 
 @pytest.mark.parametrize("name", ["from_pretrained", "from_hf", "params_from_hf",
                                   "params_from_numpy", "load_checkpoint_params",
-                                  "gemma3_params_from_hf"])
+                                  "gemma3_params_from_hf", "mixtral_params_from_hf",
+                                  "gpt2_params_from_hf"])
 def test_entry_points_default_to_the_card(tmp_path, name):
     """The port's loading entry points put parameters on the card unless
     the caller asks for the CPU: without a card a default call raises
@@ -274,7 +281,9 @@ def test_entry_points_default_to_the_card(tmp_path, name):
           "params_from_hf": tllama.params_from_hf,
           "params_from_numpy": params_from_numpy,
           "load_checkpoint_params": tio.load_checkpoint_params,
-          "gemma3_params_from_hf": tgemma.params_from_hf}[name]
+          "gemma3_params_from_hf": tgemma.params_from_hf,
+          "mixtral_params_from_hf": tmix.params_from_hf,
+          "gpt2_params_from_hf": tgpt2.params_from_hf}[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     hf = _hf_llama(seed=9)
     if name in ("from_pretrained", "load_checkpoint_params"):
@@ -289,6 +298,13 @@ def test_entry_points_default_to_the_card(tmp_path, name):
     elif name == "gemma3_params_from_hf":
         gm = _hf_gemma3(seed=9)
         call = lambda: fn(gm.state_dict(), tgemma.Gemma3Config.from_hf(gm.config))  # noqa: E731
+    elif name == "mixtral_params_from_hf":
+        hm = _hf_mixtral(seed=9)
+        call = lambda: fn(hm.state_dict(), tmix.MixtralConfig.from_hf(hm.config))  # noqa: E731
+    elif name == "gpt2_params_from_hf":
+        hm = _hf_gpt2(seed=9)
+        call = lambda: {"embed": fn(hm.state_dict(),  # noqa: E731
+                                    tgpt2.GPT2Config.from_hf(hm.config))["wte"]}
     else:
         call = lambda: fn({"embed": np.ones((2, 3), np.float32)})  # noqa: E731
     if torch.cuda.is_available():
@@ -423,3 +439,139 @@ def test_read_hf_config_gemma3_matches_autoconfig(tmp_path, name):
     assert got.hidden_activation == auto.hidden_activation
     if name == "text_pattern":
         assert want.layer_types.count("full_attention") == 2
+
+
+# ---------------------------------------------------------------------------
+# Mixtral and GPT-2
+# ---------------------------------------------------------------------------
+
+def _hf_mixtral(seed, **kw):
+    torch.manual_seed(seed)
+    cfg = dict(vocab_size=VOCAB, hidden_size=64, intermediate_size=96,
+               num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+               num_local_experts=4, num_experts_per_tok=2,
+               max_position_embeddings=512, tie_word_embeddings=False)
+    return MixtralForCausalLM(MixtralConfig(**dict(cfg, **kw),
+                                            attn_implementation="eager")).eval()
+
+
+def _hf_gpt2(seed, **kw):
+    torch.manual_seed(seed)
+    cfg = dict(vocab_size=VOCAB, n_embd=64, n_layer=2, n_head=4, n_positions=256)
+    return GPT2LMHeadModel(GPT2Config(**dict(cfg, **kw),
+                                      attn_implementation="eager")).eval()
+
+
+_HF_TINY = {"mixtral": _hf_mixtral, "gpt2": _hf_gpt2}
+
+
+def _same_cfg(tm, jm):
+    """The port's config equals lxt_tpu's (whose Mixtral has no window)."""
+    got = dataclasses.asdict(tm.cfg)
+    if tm.family == "mixtral":
+        assert got.pop("sliding_window") is None
+    assert got == dataclasses.asdict(jm.cfg)
+
+
+@pytest.mark.parametrize("family,kw", [
+    ("mixtral", {}), ("gpt2", {}),
+    ("gpt2", {"scale_attn_by_inverse_layer_idx": True})],
+    ids=["mixtral", "gpt2", "gpt2_inverse_layer_scale"])
+def test_mixtral_and_gpt2_from_hf_match_hf_and_lxt_tpu(family, kw):
+    """A loaded HF model through from_hf: logits within atol 3e-4 of HF's,
+    relevance within 1e-5 of lxt_tpu's; GPT-2 defaults to CP-LRP."""
+    hf = _HF_TINY[family](seed=21, **kw)
+    ids = np.random.RandomState(5).randint(0, VOCAB, (2, 128))
+    with torch.no_grad():
+        want = hf(input_ids=torch.as_tensor(ids), use_cache=False).logits.numpy()
+    jm, tm = lxt_tpu.from_hf(hf), lxt_tpu_torch.from_hf(hf, device="cpu")
+    assert tm.family == jm.family == family and tm.device == torch.device("cpu")
+    assert tm.composite == (lxt_tpu_torch.cp_lrp if family == "gpt2"
+                            else lxt_tpu_torch.attnlrp)
+    _same_cfg(tm, jm)
+    np.testing.assert_allclose(tm.logits(ids).numpy(), want, rtol=0, atol=3e-4)
+    jv, jrel = jm.attribute(ids)
+    tv, trel = tm.attribute(ids)
+    assert _nl2(tv.numpy(), jv) <= BAR
+    assert _nl2(trel.numpy(), jrel) <= BAR
+
+
+@pytest.mark.parametrize("family,bits", [("mixtral", None), ("mixtral", "nf4"),
+                                         ("gpt2", None)])
+def test_mixtral_and_gpt2_from_pretrained_match_lxt_tpu(tmp_path, family, bits):
+    _HF_TINY[family](seed=22).save_pretrained(tmp_path)
+    jm = jreg.from_pretrained(tmp_path, quantize_bits=bits)
+    tm = treg.from_pretrained(tmp_path, quantize_bits=bits, device="cpu")
+    assert tm.family == jm.family == family and tm.composite.name == jm.composite.name
+    _same_cfg(tm, jm)
+    for name, jl in jm.params["layers"].items():
+        tl = tm.params["layers"][name]
+        assert isinstance(tl, tq.QuantizedTensor) == isinstance(jl, jq.QuantizedTensor)
+        if isinstance(jl, jq.QuantizedTensor):
+            np.testing.assert_array_equal(tl.q.numpy(), np.asarray(jl.q))
+            np.testing.assert_array_equal(tl.scale.numpy(), np.asarray(jl.scale))
+        else:
+            np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    assert bits is None or isinstance(tm.params["layers"]["wg"], tq.QuantizedTensor)
+    ids = np.random.RandomState(6).randint(0, VOCAB, (2, 128))
+    assert _nl2(tm.logits(ids).numpy(), jm.logits(ids)) <= BAR
+    for kw in ({}, {"kv_begin": np.asarray([5, 0], np.int32)}):
+        jv, jrel = jm.attribute(ids, **kw)
+        tv, trel = tm.attribute(ids, **kw)
+        assert _nl2(tv.numpy(), jv) <= BAR, kw
+        assert _nl2(trel.numpy(), jrel) <= BAR, kw
+
+
+def test_mixtral_sliding_window_matches_hf():
+    """A Mixtral config with a sliding window (96, below T 256) explains
+    HF's model: the port applies the window on its einsum and flash paths,
+    as transformers does, and without it the logits move."""
+    hf = _hf_mixtral(seed=23, sliding_window=96)
+    ids = np.random.RandomState(7).randint(0, VOCAB, (1, 256))
+    with torch.no_grad():
+        want = hf(input_ids=torch.as_tensor(ids), use_cache=False).logits.numpy()
+    tm = lxt_tpu_torch.from_hf(hf, device="cpu")
+    assert tm.cfg.sliding_window == 96
+    e = tm.embed(ids)
+    for impl in ("einsum", "flash"):
+        with torch.no_grad():
+            got = tmix.forward(tm.params, tm.cfg, e, attn_impl=impl).logits.numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=3e-4, err_msg=impl)
+    with torch.no_grad():
+        unwindowed = tmix.forward(tm.params, dataclasses.replace(
+            tm.cfg, sliding_window=None), e).logits.numpy()
+    assert np.abs(unwindowed - want).max() > 1e-2
+
+
+MIXTRAL_GPT2_CONFIGS = {
+    "mixtral_bare": {"model_type": "mixtral"},
+    "mixtral_small": dict(_SMALL, model_type="mixtral", num_key_value_heads=2,
+                          num_local_experts=4, num_experts_per_tok=1,
+                          sliding_window=48, tie_word_embeddings=True),
+    "gpt2_bare": {"model_type": "gpt2"},
+    "gpt2_flags": {"model_type": "gpt2", "n_embd": 64, "n_layer": 3,
+                   "n_head": 4, "n_positions": 128,
+                   "scale_attn_by_inverse_layer_idx": True,
+                   "reorder_and_upcast_attn": True, "layer_norm_epsilon": 1e-6},
+}
+
+
+@pytest.mark.parametrize("name", sorted(MIXTRAL_GPT2_CONFIGS))
+def test_read_hf_config_mixtral_gpt2_matches_autoconfig(tmp_path, name):
+    """Keys left out of config.json take transformers' MixtralConfig /
+    GPT2Config defaults (Mixtral-8x7B's widths; GPT-2 small's)."""
+    raw = MIXTRAL_GPT2_CONFIGS[name]
+    (tmp_path / "config.json").write_text(json.dumps(raw))
+    auto = AutoConfig.from_pretrained(tmp_path)
+    got = treg.read_hf_config(tmp_path)
+    if raw["model_type"] == "mixtral":
+        want = dataclasses.asdict(jmix.MixtralConfig.from_hf(auto))
+        ours = dataclasses.asdict(tmix.MixtralConfig.from_hf(got))
+        assert ours.pop("sliding_window") == auto.sliding_window
+        assert got.hidden_act == auto.hidden_act
+    else:
+        want = dataclasses.asdict(jgpt2.GPT2Config.from_hf(auto))
+        ours = dataclasses.asdict(tgpt2.GPT2Config.from_hf(got))
+        assert got.activation_function == auto.activation_function
+    assert ours == want
+    assert got.tie_word_embeddings == auto.tie_word_embeddings
