@@ -8,8 +8,10 @@ Gemma-3-4B's text model at full width and depth through the kernels, the
 sequence-parallel ring (flash_attention_lse's calls) over four processes on
 the one card, the rest of the attribution API (multi-target and latent
 relevance, faithfulness, Integrated Gradients) at the main path's width,
-Mixtral-8x7B at full width and depth in NF4 (the routed expert products)
-and GPT-2 XL at full depth (no rotary embedding).
+Mixtral-8x7B at full width and depth in NF4 (the routed expert products),
+GPT-2 XL at full depth (no rotary embedding), BERT-base (bidirectional,
+right-padded by kv_end) and KV-cached decoding (generate, then
+attribute_response over the response).
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
@@ -29,11 +31,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the ring steps (offsets and an lse cotangent) at every (q_start,
      k_start) pair of a 4-way split and one pair off the tile grid, bf16,
      float16 and float32, head dim 64, 128 (window 300) and 256 (window
-     1024), on both bodies; then at the main path's call (B8 H32/4 T1024 D64), the
+     1024), on both bodies; BERT-base's call (B32 H12/12 T512 D64,
+     bidirectional, 8 rows with kv_end 300); then at the main path's call
+     (B8 H32/4 T1024 D64), the
      NF4 8B path's (B1 H32/8 T4096 D128; Mixtral-8x7B's too), Gemma-3-4B's
-     two (B1 H8/4 T4096 D256) and GPT-2 XL's (B8 H25/25 T1024 D64, no
-     rope), bf16, causal: each kernel's device time (CUDA-graph replays) and
-     body (Hopper or mma.sync) beside its plain version's time, its
+     two (B1 H8/4 T4096 D256), GPT-2 XL's (B8 H25/25 T1024 D64, no
+     rope) and BERT-base's (bidirectional: non-causal SDPA), bf16: each
+     kernel's device time (CUDA-graph replays) and body (Hopper or
+     mma.sync) beside its plain version's time, its
      roofline bound (fa.work: FLOPs over 989 TFLOP/s or bytes over 3.35
      TB/s, the larger) and the library's time for the same attention
      (scaled_dot_product_attention under its flash and cuDNN backends, and
@@ -127,20 +132,49 @@ Phases, each of which fails the run (non-zero exit, no result line):
      8 x 1024, remat off: three attributions (heatmaps/s, peak memory,
      launches of K1 and each K2 half L each with no rotation pass); one
      left-padded batch (row 0 kv_begin 128: finite, 0 on the padding,
-     within 0.02 of its tokens unpadded).
+     within 0.02 of its tokens unpadded);
+ 14. BERT-base (bert-base-uncased widths, 12 layers, 2 labels, random
+     weights): float32 at 2 x 512 with row 1 right-padded to 300, the kernel
+     path with kv_end against the einsum path with kv_end and with the
+     attention_mask (normalized L2 <= 1e-4), row 1 against its 300 tokens
+     unpadded (<= 1e-4, relevance exactly 0 on the padding), launches 12 of
+     each flash kernel and no rotation pass; bf16 against float32 (<= 0.1);
+     bf16 at 32 x 512, remat off, 8 rows right-padded: three attributions
+     (heatmaps/s, peak memory, finite relevance, 0 on the padding, launches
+     exact);
+ 15. decoding on phases 5-6's TinyLlama weights: float32 batch 2 x 256
+     (row 0 left-padded by 64), 32 new tokens, cached greedy tokens equal
+     to use_cache=False and each step's frontier logits within 1e-4 of the
+     full forward's; bf16 batch 8 x 896, 128 new tokens (eos id 0): the
+     prefill's ms and launches (22 of K1, nothing else), generate's tokens/s,
+     host reads of done, device kernels a step (torch.profiler), the steps'
+     logits against the float32 full forward's (max abs error at most 0.05
+     above the bf16 full forward's own); attribute_response over the
+     1024 tokens (K 128: maps/s, peak memory, launches 22 of K1 and 128 x 22
+     of each K2 half plus the rotation passes, maps 0, 63 and 127 within
+     1e-3 of separate attributions); attribute_response_latent at batch 1
+     (finite, input relevance within 0.02 of attribute_response's); cached
+     against uncached in float32 for Gemma-3-4B widths at 6 layers, GPT-2
+     XL widths at 6 layers and Mixtral-8x7B widths at 2 layers (batch
+     2 x 256, row 0 left-padded by 32, 16 tokens); the NF4 8B model of
+     phase 7 generating 16 tokens from 1 x 4096 (tokens/s, K3 7 x 32 a step).
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
 "at_gemma_local" / "at_gemma_global" at Gemma-3-4B's calls and "at_ring"
-at the ring step and "at_gpt2" at GPT-2 XL's call (where the call runs
-no rotation pass, the pass has no entry); a flash kernel's entry names its
+at the ring step, "at_gpt2" at GPT-2 XL's call and "at_bert" at BERT-base's
+(where the call runs no rotation pass, the pass has no entry); a flash
+kernel's entry names its
 "body" and, where a control ran, its mma.sync body's time "mma_ms".
 "launches", "launches_8b", "launches_gemma", "launches_mixtral" and
 "launches_gpt2" are each the count over its path's three timed
 attributions ("launches" of K3: the NF4 8B path's), "launches_ring" over
 the ring's three driven attributions, all four processes together, and
 "launches_api" over phase 11's calls of the API (not the separate
-attributions they are held against); the last line is
+attributions they are held against), "launches_bert" over phase 14's three
+bf16 attributions and "launches_decode" over phase 15's driven calls (the
+bf16 generate, attribute_response, attribute_response_latent and the NF4
+generate); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -200,6 +234,11 @@ CASES = {
     # window, global layers without one
     "gemma_local": (1, 8, 4, 4096, 256, {"window": 1024, "rope": True}),
     "gemma_global": (1, 8, 4, 4096, 256, {"rope": True}),
+    # BERT-base's call: bidirectional, MHA 12/12, head dim 64, no rope, a
+    # quarter of the rows right-padded to 300 (T 512 is off K1's 192-row q
+    # tile grid at D 64)
+    "bert_base": (32, 12, 12, 512, 64, {"causal": False,
+                                        "kv_end": [300] * 8 + [512] * 24}),
 }
 # ring steps (flash_attention_lse's calls): every (q_start, k_start) pair of
 # a 4-way split of 4 x T (keys in the past, on the diagonal and wholly in the
@@ -228,14 +267,16 @@ MAIN_CASE = (SERVE_BATCH, 32, 4, SEQ, 64, {"rope": True})
 CALLS = {"main": MAIN_CASE, "8b": (1, 32, 8, 4096, 128, {"rope": True}),
          "gemma_local": CASES["gemma_local"], "gemma_global": CASES["gemma_global"],
          "ring": (1, 32, 8, 2048, 128, {"q_start": 2048, "dlse": True}),
-         "gpt2": (SERVE_BATCH, 25, 25, SEQ, 64, {})}
+         "gpt2": (SERVE_BATCH, 25, 25, SEQ, 64, {}), "bert": CASES["bert_base"]}
 CALL_NAMES = {"main": "B8 H32/4 T1024 D64 causal rope",
               "8b": "B1 H32/8 T4096 D128 causal rope",
               "gemma_local": "B1 H8/4 T4096 D256 window 1024 causal rope",
               "gemma_global": "B1 H8/4 T4096 D256 causal rope",
               "ring": "B1 H32/8 T_local 2048 D128 ring step q_start 2048 k_start 0 "
                       "(full square) dlse",
-              "gpt2": "B8 H25/25 T1024 D64 causal, no rope"}
+              "gpt2": "B8 H25/25 T1024 D64 causal, no rope",
+              "bert": "B32 H12/12 T512 D64 bidirectional, kv_end 300 on 8 of 32 rows, "
+                      "no rope"}
 # peak rates of an H100 SXM (data sheet): bf16 tensor cores, float32 outside
 # them (the rotation pass's elementwise work), device memory
 PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
@@ -322,6 +363,32 @@ MIXTRAL_GATE, SEQ_MIXTRAL, MIXTRAL_CONTROL_LAYERS = (2, 1024), 4096, 4
 GPT2_XL = dict(vocab_size=50257, hidden_size=1600, num_layers=48, num_heads=25,
                max_positions=1024, ln_eps=1e-5)
 GPT2_GATE_LAYERS, GPT2_PAD, PADDED_BAR = 6, 128, 0.02
+# phase 14, BERT (bert-base-uncased config.json widths, 2 labels, random
+# weights, full depth): the float32 gates at 2 x 512 with row 1 right-padded
+# to 300; bf16 at 32 x 512, remat off, 8 of the 32 rows right-padded to 300
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, intermediate_size=3072,
+                 num_layers=12, num_heads=12, max_positions=512,
+                 type_vocab_size=2, num_labels=2)
+SEQ_BERT, BERT_BATCH, BERT_REAL = 512, 32, 300
+# phase 15, decoding: on phases 5-6's TinyLlama weights, float32 batch 2 x
+# 256 (row 0 left-padded by 64), 32 new tokens, cached against uncached
+# and each step's logits against the full forward's (<= 1e-4); bf16 batch
+# 8 x 896, 128 new tokens (eos id 0), its steps' logits against the full
+# forward's (tests/test_decode.py's bar of 0.05, see below); attribute_response over the
+# 1024 tokens (K 128), maps 0, 63 and 127 against separate attributions
+# (<= 1e-3); attribute_response_latent at batch 1 (<= 0.02). At this width
+# bf16 rounding alone moves logits (up to ~5, a bf16 ulp 0.031) by more than
+# 0.05: the bf16 full forward through the kernels and through the einsum
+# path differ by up to 0.1543 (H100, 700 W). So the steps' logits are held
+# to the float32 full forward's: their max abs error may exceed the bf16 full
+# forward's own by at most 0.05; the direct difference is printed. The other
+# families in float32 at reduced depth, batch 2 x 256, 16 new tokens; the
+# NF4 8B model of phase 7 generating 16 tokens from 1 x 4096
+DECODE_F32 = (2, 256, 32, 64)            # batch, prompt, new tokens, row 0 pad
+DECODE_BF16 = (SERVE_BATCH, 896, 128)    # batch, prompt, new tokens
+DECODE_BF16_BAR, RESPONSE_CHECKED = 0.05, (0, 63, 127)
+DECODE_OTHERS = (2, 256, 16, 32)         # batch, prompt, new tokens, row 0 pad
+DECODE_NF4 = (SEQ_8B, 16)                # prompt, new tokens
 
 
 def card_line():
@@ -471,6 +538,7 @@ def bound(name, case):
     B, H, Hkv, T, D, opt = case
     flops, moved = fa.work(name, B, H, Hkv, T, D, 2, window=opt.get("window"),
                            causal=opt.get("causal", True),
+                           kv_begin=opt.get("kv_begin"), kv_end=opt.get("kv_end"),
                            rope=bool(opt.get("rope")),
                            q_start=opt.get("q_start", 0),
                            k_start=opt.get("k_start", 0),
@@ -1935,6 +2003,349 @@ def phase_gpt2(card):
     return failures, launches
 
 
+def bert_attribute(params, cfg, ids, impl, **kw):
+    """BERT's classification attribution (the argmax label's logit summed
+    over the batch) through its forward with ``attn_impl=impl``: (logits,
+    relevance)."""
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import bert
+    held = {}
+
+    def target(x):
+        logits = bert.forward(params, cfg, x, lxt_tpu_torch.attnlrp, remat=False,
+                              attn_impl=impl, **kw).logits
+        held["logits"] = logits.detach()
+        return logits.max(dim=-1).values.sum()
+
+    _, rel = lxt_tpu_torch.input_relevance(target, bert.embed(params, ids))
+    return held["logits"], rel
+
+
+def phase_bert(card):
+    """Phase 14: BERT-base through the kernels (bidirectional, right-padded
+    by kv_end): the float32 gates against the einsum path (kv_end and
+    attention_mask) and the padded row against its tokens unpadded, bf16
+    against float32, then three bf16 attributions at 32 x 512. Returns
+    (failures, the launches of the three attributions)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import bert
+    from lxt_tpu_torch.models.registry import AttributionModel
+    failures = []
+    cfg = bert.BertConfig(**BERT_BASE)
+    L = cfg.num_layers
+    gen = torch.Generator("cuda").manual_seed(17)
+    params = bert.init_params(cfg, gen)
+    ids = torch.randint(0, cfg.vocab_size, (2, SEQ_BERT), generator=gen, device="cuda")
+    kv_end = torch.tensor([SEQ_BERT, BERT_REAL], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(SEQ_BERT, device="cuda")[None] < kv_end[:, None]).int()
+    (logits_k, rel_k), rose, _ = counted(
+        lambda: bert_attribute(params, cfg, ids, "auto", kv_end=kv_end))
+    want = expected_launches(L, remat=False)
+    logits_e, rel_e = bert_attribute(params, cfg, ids, "einsum", kv_end=kv_end)
+    logits_m, rel_m = bert_attribute(params, cfg, ids, "einsum", attention_mask=mask)
+    logits_u, rel_u = bert_attribute(params, cfg, ids[1:, :BERT_REAL], "auto")
+    d = {"einsum kv_end": (nl2(logits_k, logits_e), nl2(rel_k, rel_e)),
+         "einsum attention_mask": (nl2(logits_k, logits_m), nl2(rel_k, rel_m)),
+         f"row 1 against its {BERT_REAL} tokens unpadded": (
+             nl2(logits_k[1:], logits_u), nl2(rel_k[1, :BERT_REAL], rel_u[0]))}
+    pad_zero = bool((rel_k[1, BERT_REAL:] == 0).all())
+    finite = bool(torch.isfinite(rel_k).all() and torch.isfinite(logits_k).all())
+    ok = (finite and pad_zero and rose == want
+          and all(a <= PARITY_BAR and b <= PARITY_BAR for a, b in d.values()))
+    print(f"BERT-base float32 L{L} B2x{SEQ_BERT} (row 1 kv_end {BERT_REAL}), kernels "
+          f"against: " + "; ".join(f"{k} logits {a:.3g}, relevance {b:.3g}"
+                                   for k, (a, b) in d.items())
+          + f" (bar {PARITY_BAR}); relevance 0 on the padding {pad_zero}; launches "
+          f"{rose} (expected {want})" + (" PASS" if ok else " FAIL") + f" [{card}]",
+          flush=True)
+    if not ok:
+        failures.append("BERT float32 gates")
+    _, rel16 = bert_attribute(cast(params, torch.bfloat16), cfg, ids, "auto",
+                              kv_end=kv_end)
+    div = nl2(rel16.float(), rel_k)
+    print(f"BERT-base bf16 vs float32 relevance B2x{SEQ_BERT}, kernels: normalized "
+          f"L2 {div:.4g} (bar {DIVERGENCE_BAR}) [{card}]", flush=True)
+    if not (math.isfinite(div) and div <= DIVERGENCE_BAR):
+        failures.append("BERT bf16 divergence")
+    del params, logits_e, rel_e, logits_m, rel_m
+    torch.cuda.empty_cache()
+
+    model = AttributionModel("bert", cfg, bert.init_params(cfg, gen, dtype=torch.bfloat16),
+                             lxt_tpu_torch.attnlrp, remat=False)
+    ends = torch.full((BERT_BATCH,), SEQ_BERT, dtype=torch.int32, device="cuda")
+    ends[:BERT_BATCH // 4] = BERT_REAL
+    requests = [torch.randint(0, cfg.vocab_size, (BERT_BATCH, SEQ_BERT), generator=gen,
+                              device="cuda") for _ in range(REQUESTS)]
+    model.attribute(requests[0], kv_end=ends)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    rels, launches, secs = counted(
+        lambda: [model.attribute(ids, kv_end=ends)[1] for ids in requests])
+    rate = BERT_BATCH * REQUESTS / secs
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {n: REQUESTS * c for n, c in expected_launches(L, remat=False).items()}
+    ok = all(r.shape == (BERT_BATCH, SEQ_BERT) and bool(torch.isfinite(r).all())
+             and bool((r[:BERT_BATCH // 4, BERT_REAL:] == 0).all()) for r in rels)
+    print(f"BERT-base L{L} B{BERT_BATCH}x{SEQ_BERT} bf16 remat off ({BERT_BATCH // 4} "
+          f"rows kv_end {BERT_REAL}), kernels: {REQUESTS} attributions, {rate:.3f} "
+          f"heatmaps/s, launches {launches} (expected {want}: no rotation pass), "
+          f"relevance finite, [{BERT_BATCH}, {SEQ_BERT}] and 0 on the padding: {ok}, "
+          f"peak device memory {peak:.2f} GiB [{card}]", flush=True)
+    if not ok:
+        failures.append("BERT relevance not finite, misshapen or nonzero on padding")
+    if launches != want:
+        failures.append(f"BERT launches {launches}")
+    return failures, launches
+
+
+def kernels_per_step(step, steps=4):
+    """Device kernels a decode step launches, counted by torch.profiler over
+    ``steps`` calls of ``step()`` (None where it sees no device kernel)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n / steps if n else None
+
+
+def step_logits(model, ids, out, kv_begin=None):
+    """The cached path's frontier logits at every new position of ``out``
+    (``ids`` the prompt): the prefill's, then each decode step's; [N, B, V]."""
+    import torch
+    from lxt_tpu_torch.models.registry import FAMILIES
+    fns = FAMILIES[model.family]
+    T0, N = ids.shape[1], out.shape[1] - ids.shape[1]
+    with torch.no_grad():
+        logits, caches = fns["prefill"](model.params, model.cfg, model.embed(ids),
+                                        T0 + N, kv_begin=kv_begin,
+                                        composite=model.composite)
+        rows = [logits[:, 0]]
+        for k in range(1, N):
+            logits, caches = fns["decode_step"](
+                model.params, model.cfg, model.embed(out[:, T0 + k - 1:T0 + k]),
+                caches, T0 + k - 1, kv_begin=kv_begin, composite=model.composite)
+            rows.append(logits[:, 0])
+    return torch.stack(rows)
+
+
+def full_logits(model, out, kv_begin=None):
+    """The full forward's logits over ``out`` (no graph): [B, T, V]."""
+    import torch
+    from lxt_tpu_torch.models.registry import FAMILIES
+    with torch.no_grad():
+        return FAMILIES[model.family]["forward"](
+            model.params, model.cfg, model.embed(out), model.composite,
+            kv_begin=kv_begin, remat=False).logits
+
+
+def cached_equals_uncached(card, label, model, ids, n, kv_begin):
+    """Greedy tokens of the cached path against use_cache=False; returns
+    (ok, the cached tokens)."""
+    import torch
+    out = model.generate(ids, n, kv_begin=kv_begin)
+    ref = model.generate(ids, n, kv_begin=kv_begin, use_cache=False)
+    same = bool(torch.equal(out, ref))
+    print(f"decode {label}: {n} greedy tokens, cached equal to uncached "
+          f"(use_cache=False): {same}" + (" PASS" if same else " FAIL") + f" [{card}]",
+          flush=True)
+    return same, out
+
+
+def phase_decode(card):
+    """Phase 15: generate and attribute_response. Returns (failures, the
+    launches of the driven calls: the bf16 prefill and generate,
+    attribute_response, attribute_response_latent and the NF4 generate)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import decode, gemma3, gpt2, llama, mixtral
+    from lxt_tpu_torch.models.registry import AttributionModel
+    from lxt_tpu_torch.ops import quant
+    failures, total = [], {}
+
+    def add(launches):
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+
+    # float32: cached against uncached, each step's logits against the full
+    # forward's, one left-padded row
+    cfg32, params32, _ = main_weights()
+    L = cfg32.num_layers
+    model = AttributionModel("llama", cfg32, params32, lxt_tpu_torch.attnlrp, remat=False)
+    B, T0, N, pad = DECODE_F32
+    gen = torch.Generator("cuda").manual_seed(18)
+    ids = torch.randint(0, cfg32.vocab_size, (B, T0), generator=gen, device="cuda")
+    kv_begin = torch.tensor([pad] + [0] * (B - 1), dtype=torch.int32, device="cuda")
+    same, out = cached_equals_uncached(
+        card, f"TinyLlama width float32 L{L} B{B}x{T0} (row 0 kv_begin {pad})",
+        model, ids, N, kv_begin)
+    steps = step_logits(model, ids, out, kv_begin)
+    full = full_logits(model, out, kv_begin)[:, T0 - 1:-1].transpose(0, 1)
+    errs = [nl2(a, b) for a, b in zip(steps, full)]
+    ok = same and max(errs) <= PARITY_BAR
+    print(f"decode TinyLlama width float32: frontier logits of the prefill and "
+          f"{N - 1} steps against the full forward's, normalized L2 max "
+          f"{max(errs):.3g} (bar {PARITY_BAR})" + (" PASS" if ok else " FAIL")
+          + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("decode float32 cached against uncached")
+    model32 = model
+    del steps, full
+    torch.cuda.empty_cache()
+
+    # bf16 serving: prefill, then decode steps, through generate
+    cfg = llama.LlamaConfig(**MODEL, dtype="bfloat16")
+    model = AttributionModel("llama", cfg, cast(params32, torch.bfloat16),
+                             lxt_tpu_torch.attnlrp, remat=False)
+    B, T0, N = DECODE_BF16
+    ids = torch.randint(0, cfg.vocab_size, (B, T0), generator=gen, device="cuda")
+    model.generate(ids, 2)  # warm-up
+    (_, caches), rose, t_pre = counted(lambda: decode.prefill(
+        model.params, cfg, model.embed(ids), T0 + N))
+    want = {"flash_fwd": L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rope_rotate": 0}
+    t_pre = min(t_pre, counted(lambda: decode.prefill(
+        model.params, cfg, model.embed(ids), T0 + N))[2])
+    decode.reset_counters()
+    out, launches, t_gen = counted(lambda: model.generate(ids, N, eos_token_id=0))
+    add(launches)
+    reads, nsteps = decode.counters["done_reads"], decode.counters["steps"]
+    t_steps = t_gen - t_pre
+    per_step = kernels_per_step(lambda: decode.decode_step(
+        model.params, cfg, model.embed(out[:, T0:T0 + 1]), caches, T0))
+    ok = rose == want and launches == want and out.shape == (B, T0 + N)
+    print(f"decode TinyLlama width bf16 L{L} B{B}x{T0}, {N} new tokens (eos id 0): "
+          f"prefill {t_pre * 1e3:.2f} ms (launches {rose}, expected {want}); generate "
+          f"{t_gen:.3f} s, {nsteps} steps, {B * N / t_gen:.1f} tokens/s end to end, "
+          f"{B * nsteps / t_steps:.1f} tokens/s over the steps ({t_steps / nsteps * 1e3:.3f}"
+          f" ms a step); host reads of done {reads}; device kernels a step "
+          + (f"{per_step:.1f}" if per_step else "not measured (the profiler saw none)")
+          + f"; generate's launches {launches}" + (" PASS" if ok else " FAIL")
+          + f" [{card}]", flush=True)
+    if not ok:
+        failures.append(f"decode bf16 launches {rose} / {launches}")
+    del caches
+    steps = step_logits(model, ids, out).float()
+    full = full_logits(model, out)[:, T0 - 1:-1].transpose(0, 1).float()
+    truth = full_logits(model32, out)[:, T0 - 1:-1].transpose(0, 1)
+    err, own = ((steps - truth).abs().max().item(), (full - truth).abs().max().item())
+    direct = (steps - full).abs().max().item()
+    ok = math.isfinite(err) and err <= own + DECODE_BF16_BAR
+    print(f"decode TinyLlama width bf16: frontier logits of the prefill and {N - 1} "
+          f"steps against the float32 full forward's max abs {err:.4g}, the bf16 full "
+          f"forward's own {own:.4g} (bar: that + {DECODE_BF16_BAR}); normalized L2 "
+          f"{nl2(steps, truth):.4g} against the bf16 full forward's {nl2(full, truth):.4g};"
+          f" against the bf16 full forward (kernels) max abs {direct:.4g}"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("decode bf16 logits")
+    del steps, full, truth, model32, params32
+    torch.cuda.empty_cache()
+
+    # attribute_response: K maps through one forward and K pulls
+    K = N
+    torch.cuda.reset_peak_memory_stats()
+    (values, rel), launches, secs = counted(lambda: model.attribute_response(out, T0))
+    add(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expected_launches(L, False, HOPPER_BODIES[64], pulls=K)
+    errs = []
+    for k in RESPONSE_CHECKED:
+        _, sep = model.attribute(out, position=T0 + k - 1, token=out[:, T0 + k])
+        errs.append(nl2(rel[k], sep))
+    ok = (rel.shape == (K, B, T0 + N) and bool(torch.isfinite(rel).all())
+          and max(errs) <= API_BF16_BAR and launches == want)
+    print(f"attribute_response TinyLlama width bf16 B{B}x{T0 + N}, K {K}: "
+          f"{K * B / secs:.3f} maps/s ({secs:.3f} s), peak device memory {peak:.2f} "
+          f"GiB, maps {list(RESPONSE_CHECKED)} against separate attributions "
+          f"{[f'{e:.3g}' for e in errs]} (bar {API_BF16_BAR}), launches {launches} "
+          f"(expected {want})" + (" PASS" if ok else " FAIL") + f" [{card}]",
+          flush=True)
+    if not ok:
+        failures.append("attribute_response")
+    del values, rel
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (values, rel_in, latent), launches, secs = counted(
+        lambda: model.attribute_response_latent(out[:1], T0))
+    add(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, rel1 = model.attribute_response(out[:1], T0)
+    d = nl2(rel_in, rel1)
+    ok = (latent.shape == (K, L, 1, T0 + N) and bool(torch.isfinite(latent).all())
+          and d <= LATENT_BAR and launches == expected_launches(
+              L, False, HOPPER_BODIES[64], pulls=K))
+    print(f"attribute_response_latent TinyLlama width bf16 B1x{T0 + N}, K {K}: latent "
+          f"{list(latent.shape)} finite, {secs:.3f} s, peak {peak:.2f} GiB, input "
+          f"relevance against attribute_response's {d:.3g} (bar {LATENT_BAR}), "
+          f"launches {launches}" + (" PASS" if ok else " FAIL") + f" [{card}]",
+          flush=True)
+    if not ok:
+        failures.append("attribute_response_latent")
+    del model, values, rel_in, latent
+    torch.cuda.empty_cache()
+
+    # the other families, float32 at reduced depth
+    B, T0, N, pad = DECODE_OTHERS
+    kv_begin = torch.tensor([pad] + [0] * (B - 1), dtype=torch.int32, device="cuda")
+    others = {
+        "gemma3_text": (gemma3.Gemma3Config(**dict(GEMMA3_4B,
+                                                   num_layers=GEMMA_PARITY_LAYERS)),
+                        gemma3.init_params, "Gemma-3-4B width L6 (one global)"),
+        "gpt2": (gpt2.GPT2Config(**dict(GPT2_XL, num_layers=GPT2_GATE_LAYERS)),
+                 gpt2.init_params, "GPT-2 XL width L6"),
+        "mixtral": (mixtral.MixtralConfig(**dict(MIXTRAL_8X7B,
+                                                 num_layers=MIXTRAL_GATE[0])),
+                    mixtral.init_params, "Mixtral-8x7B width L2 ragged")}
+    for family, (cfg_o, init, label) in others.items():
+        params = init(cfg_o, torch.Generator("cuda").manual_seed(19))
+        model = AttributionModel(family, cfg_o, params,
+                                 lxt_tpu_torch.cp_lrp if family == "gpt2"
+                                 else lxt_tpu_torch.attnlrp)
+        ids = torch.randint(0, cfg_o.vocab_size, (B, T0), generator=gen, device="cuda")
+        same, _ = cached_equals_uncached(
+            card, f"{label} float32 B{B}x{T0} (row 0 kv_begin {pad})", model, ids, N,
+            kv_begin)
+        if not same:
+            failures.append(f"decode {family} cached against uncached")
+        del model, params
+        torch.cuda.empty_cache()
+
+    # NF4 Llama-3-8B at full width and depth (phase 7's weights)
+    cfg = llama.LlamaConfig(**LLAMA3_8B, dtype="bfloat16")
+    model = AttributionModel("llama", cfg, llama.init_params(
+        cfg, torch.Generator("cuda").manual_seed(8), quantize_bits="nf4"), lxt_tpu_torch.attnlrp)
+    T0, N = DECODE_NF4
+    ids = torch.randint(0, cfg.vocab_size, (1, T0), generator=gen, device="cuda")
+    model.generate(ids, 2)  # warm-up
+    quant.reset_launches()
+    _, rose, t_pre = counted(lambda: decode.prefill(model.params, cfg, model.embed(ids),
+                                                    T0 + N))
+    k3_prefill = quant.launches["nf4_dequant"]
+    quant.reset_launches()
+    decode.reset_counters()
+    out, launches, t_gen = counted(lambda: model.generate(ids, N))
+    launches["nf4_dequant"] = quant.launches["nf4_dequant"]
+    add(launches)
+    nsteps = decode.counters["steps"]
+    per_step = (launches["nf4_dequant"] - k3_prefill) / nsteps
+    want_step = len(PROJECTIONS) * cfg.num_layers
+    ok = (k3_prefill == want_step and per_step == want_step
+          and launches["flash_fwd"] == cfg.num_layers and out.shape == (1, T0 + N))
+    print(f"decode NF4 Llama-3-8B width L{cfg.num_layers} B1x{T0}, {N} new tokens: "
+          f"prefill {t_pre * 1e3:.1f} ms, generate {t_gen:.3f} s, "
+          f"{N / t_gen:.2f} tokens/s end to end, {nsteps / (t_gen - t_pre):.2f} tokens/s "
+          f"over the steps; K3 launches {k3_prefill} in the prefill and {per_step:g} a "
+          f"step (expected {want_step}); flash launches {rose}"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append(f"decode NF4 8B launches {launches}")
+    return failures, total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2000,14 +2411,24 @@ def main():
     t_phase = time.perf_counter()
     f, gpt2_launches = phase_gpt2(card)
     failures += f
-    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s; phases 3-13 "
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    f, bert_launches = phase_bert(card)
+    failures += f
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    f, decode_launches = phase_decode(card)
+    failures += f
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s; phases 3-15 "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
 
     # each kernel's numbers at the main path's call (K3: at wg), at the NF4
-    # 8B path's call (K3: at wd) and at Gemma-3-4B's two (not K3)
+    # 8B path's call (K3: at wd) and at the other paths' calls (not K3)
     at = {name: {call: timing[call][name] for call in CALLS if name in timing[call]}
           for name in FLASH}
     at["nf4_dequant"] = {"main": k3_times[K3_TIMED[0]], "8b": k3_times[K3_TIMED[1]]}
@@ -2026,7 +2447,9 @@ def main():
          "launches_ring": ring_launches.get(name, 0),
          "launches_api": api_launches.get(name, 0),
          "launches_mixtral": mixtral_launches.get(name, 0),
-         "launches_gpt2": gpt2_launches.get(name, 0)}
+         "launches_gpt2": gpt2_launches.get(name, 0),
+         "launches_bert": bert_launches.get(name, 0),
+         "launches_decode": decode_launches.get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,12 @@
     state = load_checkpoint_state_dict("/path/to/llama-dir")
     params = load_checkpoint_params("/path/to/llama-dir", cfg,
                                     llama.params_from_hf)  # on the card
+
+``dtype`` is the target of the 16-bit tensors: float32 (the default)
+widens bf16 / f16 to numpy float32; a 16-bit target keeps a tensor stored
+in that type as a view of its bits (no float32 on the way) and casts the
+other 16-bit type to it. float32 and integer tensors stay as stored, as
+``lxt_tpu.io`` keeps them.
 """
 
 import json
@@ -46,11 +52,23 @@ def _widen(raw_u16, st_dtype):
     return raw_u16.view(np.float16).astype(np.float32)
 
 
-def load_safetensors(path):
-    """Read one ``.safetensors`` file -> ``{name: np.ndarray}``.
+def _half(raw_u16, st_dtype, dtype):
+    """bf16 / f16 bits -> a ``dtype`` tensor: a view of the bits when the
+    file stores ``dtype``, else widened and cast."""
+    stored = torch.bfloat16 if st_dtype == "BF16" else torch.float16
+    if stored == dtype:
+        return torch.from_numpy(raw_u16.view(np.int16).copy()).view(stored)
+    return torch.from_numpy(_widen(raw_u16, st_dtype)).to(dtype)
 
-    bf16 / f16 tensors are widened to float32 (numpy has no bf16); every
-    other dtype is copied as stored. The file is memory-mapped."""
+
+def load_safetensors(path, dtype=torch.float32):
+    """Read one ``.safetensors`` file -> ``{name: array}``.
+
+    bf16 / f16 tensors become numpy float32 for a float32 ``dtype`` (numpy
+    has no bf16), else ``dtype`` tensors (see the module docstring); every
+    other dtype is copied as stored into a numpy array. The file is
+    memory-mapped."""
+    dtype = torch.float32 if dtype is None else dtype
     mm = np.memmap(path, np.uint8, mode="r")
     if mm.size < 8:
         raise ValueError(f"{path}: truncated safetensors (< 8 bytes)")
@@ -67,7 +85,9 @@ def load_safetensors(path):
         begin, end = info["data_offsets"]
         _validate_tensor(name, st_dtype, shape, begin, end, data.size)
         raw = data[begin:end]
-        if st_dtype in ("BF16", "F16"):
+        if st_dtype in ("BF16", "F16") and dtype != torch.float32:
+            arr = _half(raw.view(np.uint16), st_dtype, dtype).reshape(shape)
+        elif st_dtype in ("BF16", "F16"):
             arr = _widen(raw.view(np.uint16), st_dtype).reshape(shape)
         else:
             arr = np.array(raw.view(_DTYPES[st_dtype][0]).reshape(shape))
@@ -75,20 +95,21 @@ def load_safetensors(path):
     return out
 
 
-def load_checkpoint_state_dict(model_dir):
+def load_checkpoint_state_dict(model_dir, dtype=torch.float32):
     """Load an HF checkpoint directory (one ``model.safetensors`` or shards
-    under ``model.safetensors.index.json``) into ``{name: np.ndarray}``."""
+    under ``model.safetensors.index.json``) into ``{name: array}``, the
+    16-bit tensors in ``dtype`` (see :func:`load_safetensors`)."""
     model_dir = Path(model_dir)
     index = model_dir / "model.safetensors.index.json"
     if index.exists():
         shards = sorted(set(json.loads(index.read_text())["weight_map"].values()))
         state = {}
         for shard in shards:
-            state.update(load_safetensors(model_dir / shard))
+            state.update(load_safetensors(model_dir / shard, dtype))
         return state
     single = model_dir / "model.safetensors"
     if single.exists():
-        return load_safetensors(single)
+        return load_safetensors(single, dtype)
     raise FileNotFoundError(f"no safetensors checkpoint in {model_dir}")
 
 
@@ -97,6 +118,7 @@ def load_checkpoint_params(model_dir, cfg, converter, dtype=torch.float32,
     """Checkpoint directory -> parameter dict through a family converter
     (e.g. ``lxt_tpu_torch.models.llama.params_from_hf``), in ``dtype`` on
     ``device`` (the card unless the caller asks for the CPU, like the other
-    loading entry points)."""
-    state = load_checkpoint_state_dict(model_dir)
+    loading entry points); the checkpoint's 16-bit tensors are read in
+    ``dtype``."""
+    state = load_checkpoint_state_dict(model_dir, dtype)
     return converter(state, cfg, dtype=dtype, device=device)

@@ -192,16 +192,23 @@ def forward(
 
     h, hiddens = common.run_layers(layer, inputs_embeds, cfg.num_layers, remat,
                                    keep_hidden=output_hidden_states)
-    h = gemma_rms_norm(h, params["final_norm"], eps, composite)
+    logits = forward_head(params, cfg, h, composite, logits_at=logits_at)
+    if output_hidden_states:
+        hiddens = torch.cat([inputs_embeds[None], hiddens], dim=0)
+    return ModelOutputs(logits=logits, hidden_states=hiddens)
+
+
+def forward_head(params, cfg: Gemma3Config, h, composite=composites.attnlrp, *,
+                 logits_at=None):
+    """Final Gemma norm + head on a hidden state ``h`` (the tied embedding
+    when there is no ``lm_head``)."""
+    h = gemma_rms_norm(h, params["final_norm"], cfg.rms_eps, composite)
     if logits_at is not None:
         h = common.take_frontier(h, logits_at)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = composite.linear(h, head)
-    if output_hidden_states:
-        hiddens = torch.cat([inputs_embeds[None], hiddens], dim=0)
-    return ModelOutputs(logits=logits, hidden_states=hiddens)
+    return composite.linear(h, head)
 
 
 # ---------------------------------------------------------------------------

@@ -155,13 +155,19 @@ def forward(
 
     h, hiddens = common.run_layers(layer, h0, cfg.num_layers, remat,
                                    keep_hidden=output_hidden_states)
-    h = composite.layer_norm(h, params["lnf_w"], params["lnf_b"], cfg.ln_eps)
-    if logits_at is not None:
-        h = common.take_frontier(h, logits_at)
-    logits = composite.linear(h, params["wte"].T, site="wte")
+    logits = forward_head(params, cfg, h, composite, logits_at=logits_at)
     if output_hidden_states:
         hiddens = torch.cat([h0[None], hiddens], dim=0)
     return ModelOutputs(logits=logits, hidden_states=hiddens)
+
+
+def forward_head(params, cfg: GPT2Config, h, composite=composites.cp_lrp, *,
+                 logits_at=None):
+    """Final LayerNorm + the head tied to ``wte`` on a hidden state ``h``."""
+    h = composite.layer_norm(h, params["lnf_w"], params["lnf_b"], cfg.ln_eps)
+    if logits_at is not None:
+        h = common.take_frontier(h, logits_at)
+    return composite.linear(h, params["wte"].T, site="wte")
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.common import ACTIVATIONS, ModelOutputs
-from lxt_tpu_torch.models.llama import _sliding_window_spec, _torch_dtype
+from lxt_tpu_torch.models.llama import _sliding_window_spec, _torch_dtype, forward_head
 from lxt_tpu_torch.ops.attention import attention
 from lxt_tpu_torch.ops.quant import QuantizedTensor, dequantize, quant_matmul
 from lxt_tpu_torch.ops.rules import stop_gradient
@@ -283,13 +283,7 @@ def forward(
 
     h, hiddens = common.run_layers(layer, inputs_embeds, cfg.num_layers, remat,
                                    keep_hidden=output_hidden_states)
-    h = composite.rms_norm(h, params["final_norm"], cfg.rms_eps)
-    if logits_at is not None:
-        h = common.take_frontier(h, logits_at)
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
-    logits = composite.linear(h, head)
+    logits = forward_head(params, cfg, h, composite, logits_at=logits_at)
     if output_hidden_states:
         hiddens = torch.cat([inputs_embeds[None], hiddens], dim=0)
     return ModelOutputs(logits=logits, hidden_states=hiddens)

@@ -1,5 +1,5 @@
 """One-call user surface: HF checkpoint or model of a Llama-family,
-Gemma-3 text, Mixtral or GPT-2 model -> :class:`AttributionModel`
+Gemma-3 text, Mixtral, GPT-2 or BERT model -> :class:`AttributionModel`
 (counterpart of ``lxt_tpu/models/registry.py``, for the families the port
 has).
 
@@ -7,6 +7,8 @@ has).
     model = lxt_tpu_torch.from_pretrained("/path/to/llama-dir",
                                           quantize_bits="nf4", device="cuda")
     value, relevance = model.attribute(input_ids)
+    out = model.generate(input_ids, 32)          # KV-cached decoding
+    values, maps = model.attribute_response(out, input_ids.shape[1])
 
 ``from_pretrained`` reads ``config.json`` with :mod:`json` and the weights
 with the numpy safetensors reader (:mod:`lxt_tpu_torch.io`): it needs
@@ -27,29 +29,45 @@ import torch
 
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.attribution import (_pick, input_relevance,
-                                       latent_relevance, multi_token_relevance,
-                                       select_logit, topk_relevance)
-from lxt_tpu_torch.models import gemma3, gpt2, llama, mixtral
+                                       latent_relevance,
+                                       multi_site_latent_relevance,
+                                       multi_site_relevance,
+                                       multi_token_relevance, topk_relevance)
+from lxt_tpu_torch.models import bert, decode, gemma3, gpt2, llama, mixtral
 from lxt_tpu_torch.ops.quant import QuantizedTensor
 
 _LLAMA = {"config": llama.LlamaConfig, "from_hf": llama.params_from_hf,
           "forward": llama.forward,
-          "embed": lambda params, ids, cfg: llama.embed(params, ids)}
+          "embed": lambda params, ids, cfg: llama.embed(params, ids),
+          "prefill": decode.prefill, "decode_step": decode.decode_step}
 _GEMMA3 = {"config": gemma3.Gemma3Config, "from_hf": gemma3.params_from_hf,
-           "forward": gemma3.forward, "embed": gemma3.embed}
+           "forward": gemma3.forward, "embed": gemma3.embed,
+           "prefill": decode.gemma3_prefill,
+           "decode_step": decode.gemma3_decode_step}
 #: the families the port has a model for: family -> config class, HF
-#: converter, forward and embedding (``embed(params, ids, cfg)``)
+#: converter, forward and embedding (``embed(params, ids, cfg)``), and for
+#: the causal LMs the KV-cached ``prefill`` and ``decode_step``
 FAMILIES = {"llama": _LLAMA, "qwen2": _LLAMA, "qwen3": _LLAMA,
             "mistral": _LLAMA, "phi3": _LLAMA, "gemma3": _GEMMA3,
             "gemma3_text": _GEMMA3,
             "gpt2": {"config": gpt2.GPT2Config, "from_hf": gpt2.params_from_hf,
                      "forward": gpt2.forward,
-                     "embed": lambda params, ids, cfg: gpt2.embed(params, ids)[0]},
+                     "embed": lambda params, ids, cfg: gpt2.embed(params, ids)[0],
+                     "prefill": decode.gpt2_prefill,
+                     "decode_step": decode.gpt2_decode_step},
+            "bert": {"config": bert.BertConfig, "from_hf": bert.params_from_hf,
+                     "forward": bert.forward,
+                     "embed": lambda params, ids, cfg: bert.embed(params, ids)},
             "mixtral": {"config": mixtral.MixtralConfig,
                         "from_hf": mixtral.params_from_hf,
                         "forward": mixtral.forward,
-                        "embed": lambda params, ids, cfg: mixtral.embed(params, ids)}}
+                        "embed": lambda params, ids, cfg: mixtral.embed(params, ids),
+                        "prefill": decode.mixtral_prefill,
+                        "decode_step": decode.mixtral_decode_step}}
 SUPPORTED_FAMILIES = tuple(FAMILIES)
+#: the families whose forward returns ``[B, num_labels]`` classification
+#: logits (no positions, no ``logits_at``)
+CLASSIFIERS = ("bert",)
 
 _QWEN = dict(vocab_size=151936, hidden_size=4096, intermediate_size=22016,
              num_hidden_layers=32, num_attention_heads=32,
@@ -104,6 +122,10 @@ _HF_DEFAULTS = {
                  activation_function="gelu_new",
                  scale_attn_by_inverse_layer_idx=False,
                  reorder_and_upcast_attn=False, tie_word_embeddings=True),
+    "bert": dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=512, type_vocab_size=2,
+                 layer_norm_eps=1e-12, hidden_act="gelu", num_labels=2),
 }
 
 
@@ -134,6 +156,9 @@ def _filled(raw):
     rs = cfg.get("rope_scaling")
     if mt == "phi3" and rs and rs.get("type") in ("su", "yarn"):
         cfg["rope_scaling"] = dict(rs, type="longrope")
+    if mt == "bert" and raw.get("id2label"):
+        # transformers derives num_labels from the label map it saves
+        cfg["num_labels"] = len(raw["id2label"])
     if mt == "gemma3_text" and cfg["layer_types"] is None:
         # configs on the Hub may carry only the older integer pattern
         pattern = cfg.get("sliding_window_pattern", 6)
@@ -149,24 +174,70 @@ def _tensor(x, device):
     return (x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))).to(device)
 
 
-def _padding_args(kv_begin, attention_mask, kv_end, device):
-    """Validated padding keywords for a batch of left-padded prompts:
-    ``kv_begin [B]`` (each row's first real index; the flash kernels stay
-    eligible) or an arbitrary ``attention_mask [B, T]`` (an additive bias).
-    ``kv_end`` is the right-padded (BERT) convention, which no ported
-    family takes."""
-    if kv_end is not None:
-        raise ValueError(
-            "kv_end is the BERT (right-padded) convention; causal families "
-            "take kv_begin=[first real index per row] or attention_mask")
+def _padding_args(family, kv_begin, attention_mask, kv_end, device):
+    """Validated padding keywords for a batch of variable-length prompts.
+
+    Causal families are left-padded (the serving layout): ``kv_begin [B]``
+    is each row's first real index (structural: the flash kernels stay
+    eligible), or an arbitrary ``attention_mask [B, T]`` (an additive
+    bias). BERT is right-padded (the HF convention): ``kv_end [B]`` is each
+    row's count of real tokens, or ``attention_mask``."""
     kw = {}
-    if kv_begin is not None:
-        kw["kv_begin"] = _tensor(kv_begin, device).to(torch.int32)
+    if family in CLASSIFIERS:
+        if kv_begin is not None:
+            raise ValueError(
+                "BERT batches are right-padded (HF convention): pass "
+                "kv_end=[#real tokens per row] or attention_mask, "
+                "not kv_begin")
+        if kv_end is not None:
+            kw["kv_end"] = _tensor(kv_end, device).to(torch.int32)
+    else:
+        if kv_end is not None:
+            raise ValueError(
+                "kv_end is the BERT (right-padded) convention; causal "
+                "families take kv_begin=[first real index per row] or "
+                "attention_mask")
+        if kv_begin is not None:
+            kw["kv_begin"] = _tensor(kv_begin, device).to(torch.int32)
     if attention_mask is not None:
         if kw:
-            raise ValueError("pass attention_mask OR kv_begin, not both")
+            raise ValueError("pass attention_mask OR kv_begin/kv_end, not both")
         kw["attention_mask"] = _tensor(attention_mask, device)
     return kw
+
+
+def _fill_after_eos(buf, T0, eos_token_id):
+    """The positions after each row's first ``eos_token_id`` become eos: the
+    steps write them so, and this covers the slots that an early stop
+    never reached."""
+    gen = buf[:, T0:]
+    is_eos = (gen == eos_token_id).to(torch.int32)
+    gen[(torch.cumsum(is_eos, dim=1) - is_eos) > 0] = eos_token_id
+    return buf
+
+
+def _greedy_update(buf, done, logits, pos, eos_token_id, generator=None,
+                   temperature: float = 0.0, top_k=None):
+    """One decode step's bookkeeping: the next token from the frontier
+    logits ``[B, 1, V]`` (argmax, or with ``generator`` a temperature /
+    top-k draw), eos latched on rows that already emitted it, written into
+    ``buf`` at ``pos`` in place. Returns the updated ``done``."""
+    row = logits[:, 0, :]
+    if generator is None:
+        nxt = row.argmax(-1)
+    else:
+        logt = row.float() / temperature
+        if top_k is not None:
+            kth = torch.topk(logt, int(top_k), dim=-1).values[:, -1:]
+            logt = logt.masked_fill(logt < kth, float("-inf"))
+        nxt = torch.multinomial(torch.softmax(logt, -1), 1,
+                                generator=generator)[:, 0]
+    nxt = nxt.to(buf.dtype)
+    if eos_token_id is not None:
+        nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
+        done = done | (nxt == eos_token_id)
+    buf[:, pos] = nxt
+    return done
 
 
 @dataclasses.dataclass
@@ -207,9 +278,22 @@ class AttributionModel:
         forward = FAMILIES[self.family]["forward"]
         params, cfg = self.params, self.cfg
         composite = composites.resolve(composite or self.composite)
-        kw.update(_padding_args(kv_begin, attention_mask, kv_end, self.device),
-                  remat=self.remat)
+        kw.update(_padding_args(self.family, kv_begin, attention_mask, kv_end,
+                                self.device), remat=self.remat)
         return lambda e, **more: forward(params, cfg, e, composite, **kw, **more)
+
+    def _at(self, position):
+        """The forward keywords that compute the logits at ``position``
+        alone (none for a classifier, whose logits have no positions)."""
+        return {} if self.family in CLASSIFIERS else {"logits_at": position}
+
+    def _row(self, run, position):
+        """``row(embeds) -> [B, V]``: the logits at ``position``, or a
+        classifier's ``[B, num_labels]``."""
+        def row(e):
+            logits = run(e, **self._at(position)).logits
+            return logits if logits.dim() == 2 else logits[:, -1, :]
+        return row
 
     def canonize(self, *canonizers):
         """A copy with ``canonizers`` applied to (params, cfg): the
@@ -231,18 +315,23 @@ class AttributionModel:
         """Per-token input relevance, one forward and one backward.
 
         Default target: the argmax logit at ``position`` (only that row's
-        logits are computed), or the ``token [B]`` ids there; ``target``
-        maps the full ``[B, T, V]`` logits to a scalar instead. Returns
-        ``(target_value, relevance [B, T])``. ``kv_begin`` /
-        ``attention_mask`` mark left padding (see :func:`_padding_args`)."""
+        logits are computed), or the ``token [B]`` ids there; for a
+        classifier (BERT), the argmax label's logit summed over the batch,
+        or the ``token`` labels'. ``target`` maps the full logits to a
+        scalar instead. Returns ``(target_value, relevance [B, T])``.
+        ``kv_begin`` / ``attention_mask`` mark left padding, ``kv_end`` /
+        ``attention_mask`` BERT's right padding (see
+        :func:`_padding_args`)."""
         run = self._forward(composite, kv_begin, attention_mask, kv_end)
+        row = self._row(run, position)
         tok = None if token is None else _tensor(token, self.device)
 
         def tgt(e):
             if target is not None:
                 return target(run(e).logits)
-            return select_logit(run(e, logits_at=position).logits,
-                                position=-1, token=tok)
+            if tok is None:
+                return row(e).max(dim=-1).values.sum()
+            return _pick(row(e), tok).sum()
 
         return input_relevance(tgt, self.embed(input_ids))
 
@@ -251,7 +340,8 @@ class AttributionModel:
         """Input relevance and per-layer latent relevance in ONE backward
         (reference docs/latent-feature-attribution-efficient.rst). Returns
         ``(value, input_rel [B, T], latent_rel [L, B, T, D])``; the default
-        target computes only the row at ``position``."""
+        target (as :meth:`attribute`'s) computes only the row at
+        ``position``."""
         run = self._forward(composite, output_hidden_states=True)
         embeds = self.embed(input_ids)
 
@@ -259,8 +349,9 @@ class AttributionModel:
             if target is not None:
                 out = run(e, probes=probes)
                 return target(out.logits), out.hidden_states
-            out = run(e, probes=probes, logits_at=position)
-            return select_logit(out.logits, position=-1), out.hidden_states
+            out = run(e, probes=probes, **self._at(position))
+            logits = out.logits if out.logits.dim() == 2 else out.logits[:, -1]
+            return logits.max(dim=-1).values.sum(), out.hidden_states
 
         return latent_relevance(forward_with_probes, embeds,
                                 (self.cfg.num_layers, *embeds.shape))
@@ -276,8 +367,8 @@ class AttributionModel:
         Padding as in :meth:`attribute`."""
         run = self._forward(composite, kv_begin, attention_mask, kv_end)
         return multi_token_relevance(
-            lambda e: run(e, logits_at=position).logits,
-            self.embed(input_ids), _tensor(tokens, self.device), via=via)
+            self._row(run, position), self.embed(input_ids),
+            _tensor(tokens, self.device), via=via)
 
     def attribute_topk(self, input_ids, k: int = 5, *, position: int = -1,
                        composite=None, kv_begin=None, attention_mask=None,
@@ -286,8 +377,8 @@ class AttributionModel:
         forward: ``(tokens [K, B], values [K, B], relevance [K, B, T])``.
         Padding as in :meth:`attribute`."""
         run = self._forward(composite, kv_begin, attention_mask, kv_end)
-        return topk_relevance(lambda e: run(e, logits_at=position).logits,
-                              self.embed(input_ids), k, via=via)
+        return topk_relevance(self._row(run, position), self.embed(input_ids),
+                              k, via=via)
 
     def faithfulness(self, input_ids, *, steps: int = 10, position: int = -1,
                      token=None, composite=None, kv_begin=None,
@@ -316,8 +407,7 @@ class AttributionModel:
         pinned = {"token": None if token is None
                   else _tensor(token, self.device).reshape(-1)}
 
-        def rows(e):                          # [B, vocab] at the position
-            return run(e, logits_at=position).logits[:, -1, :]
+        rows = self._row(run, position)       # [B, vocab] at the position
 
         def target(e):
             row = rows(e)
@@ -330,6 +420,126 @@ class AttributionModel:
             lambda e: _pick(rows(e), pinned["token"]), embeds, rel,
             steps=steps, baseline=baseline, valid_mask=valid,
             generator=generator)
+
+    def generate(self, input_ids, max_new_tokens: int, *,
+                 eos_token_id: Optional[int] = None, kv_begin=None,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 use_cache: bool = True):
+        """Decode a continuation, so that a checkpoint alone can produce the
+        response it then explains (``attribute_response(out,
+        input_ids.shape[1])``). Greedy by default; with a ``generator`` (a
+        ``torch.Generator`` on the model's device, where ``lxt_tpu`` takes a
+        key) and ``temperature > 0`` (optionally ``top_k``) it samples.
+
+        KV-cached (``models/decode.py``): one prefill over the prompt, then
+        one single-token step per new token; ``use_cache=False`` runs the
+        full forward over the whole buffer per token instead (exact by
+        causal masking: the zero-filled tail cannot reach the frontier).
+        A Python loop over the steps, which stops once every row has
+        emitted ``eos_token_id``: that costs one host read of the rows'
+        ``done`` flags a step (``decode.counters["done_reads"]``). Rows
+        that emitted eos keep emitting it. ``kv_begin [B]`` marks left
+        padding. Returns ids ``[B, T0 + max_new_tokens]``."""
+        if self.family in CLASSIFIERS:
+            raise ValueError("generate needs a causal LM head; "
+                             "BERT is an encoder")
+        if generator is not None and not temperature > 0:
+            raise ValueError("sampling (generator=) needs temperature > 0")
+        N = int(max_new_tokens)
+        if N < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {N}")
+        table = FAMILIES[self.family]
+        params, cfg = self.params, self.cfg
+        comp = composites.resolve(self.composite)
+        ids0 = _tensor(input_ids, self.device).long()
+        B, T0 = ids0.shape
+        kb = None if kv_begin is None else _tensor(kv_begin, self.device).to(torch.int32)
+        buf = torch.cat([ids0, ids0.new_zeros((B, N))], dim=1)
+        done = torch.zeros(B, dtype=torch.bool, device=ids0.device)
+
+        def pick(logits, pos, done):
+            return _greedy_update(buf, done, logits, pos, eos_token_id,
+                                  generator=generator,
+                                  temperature=float(temperature), top_k=top_k)
+
+        def finished():
+            if eos_token_id is None:
+                return False
+            decode.counters["done_reads"] += 1
+            return bool(done.all())
+
+        with torch.no_grad():
+            if use_cache and "prefill" in table:
+                logits, caches = table["prefill"](
+                    params, cfg, self.embed(ids0), T0 + N, kv_begin=kb,
+                    composite=comp)
+                done = pick(logits, T0, done)
+                for k in range(1, N):
+                    if finished():
+                        break
+                    logits, caches = table["decode_step"](
+                        params, cfg, self.embed(buf[:, T0 + k - 1:T0 + k]),
+                        caches, T0 + k - 1, kv_begin=kb, composite=comp)
+                    done = pick(logits, T0 + k, done)
+            else:
+                for k in range(N):
+                    if finished():
+                        break
+                    logits = table["forward"](
+                        params, cfg, self.embed(buf), comp, kv_begin=kb,
+                        remat=False, logits_at=T0 + k - 1).logits
+                    done = pick(logits, T0 + k, done)
+        return buf if eos_token_id is None else _fill_after_eos(buf, T0, eos_token_id)
+
+    def _response_sites(self, ids, response_start):
+        """Map k of a response explains ``ids[:, response_start + k]`` at
+        the position that predicted it: ``(positions [K], tokens [K, B])``."""
+        T = ids.shape[1]
+        if not 1 <= response_start < T:
+            raise ValueError(f"response_start must be in [1, T), got "
+                             f"{response_start} for T={T}")
+        return (list(range(response_start - 1, T - 1)),
+                ids[:, response_start:].T)
+
+    def attribute_response(self, input_ids, response_start: int, *,
+                           composite=None, kv_begin=None,
+                           contrastive: bool = False, via: str = "scan"):
+        """One relevance map per response token, all from one forward.
+
+        ``input_ids [B, T]`` is prompt + continuation and ``response_start``
+        the first continuation position. Map k explains the logit of
+        ``input_ids[:, response_start + k]`` at ``response_start + k - 1``:
+        one forward and K pulls of its graph
+        (:func:`lxt_tpu_torch.attribution.multi_site_relevance`).
+        ``contrastive``: each map explains the margin over the strongest
+        other token; ``values`` become the margins. ``kv_begin [B]`` marks
+        left padding. Returns ``(values [K, B], relevance [K, B, T])``,
+        ``K = T - response_start``."""
+        ids = _tensor(input_ids, self.device).long()
+        positions, tokens = self._response_sites(ids, int(response_start))
+        run = self._forward(composite, kv_begin)
+        return multi_site_relevance(lambda e: run(e).logits, self.embed(ids),
+                                    positions, tokens, contrastive=contrastive,
+                                    via=via)
+
+    def attribute_response_latent(self, input_ids, response_start: int, *,
+                                  composite=None, via: str = "scan"):
+        """Per-layer relevance of every response token from one forward:
+        map k's probe gradients times the shared hidden states. Returns
+        ``(values [K, B], input_rel [K, B, T], latent_rel [K, L, B, T])``."""
+        ids = _tensor(input_ids, self.device).long()
+        positions, tokens = self._response_sites(ids, int(response_start))
+        run = self._forward(composite, output_hidden_states=True)
+        embeds = self.embed(ids)
+
+        def forward(e, probes):
+            out = run(e, probes=probes)
+            return out.logits, out.hidden_states
+
+        return multi_site_latent_relevance(
+            forward, embeds, positions, tokens,
+            (self.cfg.num_layers, *embeds.shape), via=via)
 
 
 def _llama_structural_match(hf_config, state_dict) -> bool:
@@ -467,7 +677,9 @@ def from_pretrained(model_dir, composite: composites.Composite = None,
     from lxt_tpu_torch.ops.quant import ingest_bnb_state_dict, quantize_params
 
     hf_config = read_hf_config(model_dir)
-    state = load_checkpoint_state_dict(model_dir)
+    # the 16-bit tensors read in the target dtype: a bf16 checkpoint widened
+    # to a float32 host dict only to be cast back would double its bytes
+    state = load_checkpoint_state_dict(model_dir, dtype)
     had_8bit = any(k.endswith(".SCB") for k in state)
     if ingest_bnb_state_dict(state) and quantize_bits is None:
         quantize_bits = 8 if had_8bit else "nf4"

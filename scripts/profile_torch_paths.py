@@ -4,11 +4,15 @@ paths chip_smoke.py drives: the main path (bf16 Llama at TinyLlama-1.1B
 widths, 22 layers, batch 8 x 1024, remat off), the NF4 path (Llama-3-8B
 widths and depth, batch 1 x 4096, remat), Gemma-3-4B's text model (bf16,
 full width and depth, batch 1 x 4096, remat off), NF4 Mixtral-8x7B
-(full width and depth, bf16 activations, batch 1 x 4096, remat) and GPT-2
-XL (bf16, full depth, batch 8 x 1024, remat off, CP-LRP). Random weights
-from a seed.
+(full width and depth, bf16 activations, batch 1 x 4096, remat), GPT-2
+XL (bf16, full depth, batch 8 x 1024, remat off, CP-LRP), BERT-base (bf16,
+batch 32 x 512, 8 rows right-padded to 300, remat off) and decoding at
+TinyLlama-1.1B widths (bf16, batch 8 x 896: one prefill, generate's
+prefill and 128 steps, one attribute_response over the 1024 tokens, K 128).
+Random weights from a seed.
 
-    python3 scripts/profile_torch_paths.py [--paths main,nf4_8b,gemma,mixtral,gpt2]
+    python3 scripts/profile_torch_paths.py \
+        [--paths main,nf4_8b,gemma,mixtral,gpt2,bert,decode]
 
 The default is the first three. For each path: the wall time of three
 unprofiled attributions after a warm-up, then one attribution under
@@ -20,9 +24,10 @@ of kernel intervals over the span from the first kernel's start to the last
 one's end), and the operators whose kernels take the most device time.
 For Mixtral also the GEMMs of the expert products apart (the
 cuBLAS kernels of matrix products with an operand of the intermediate
-width), the host reads of the router's group sizes (device-to-host copies)
-and the device idle that follows them. Needs a CUDA device; prints the
-card's nvidia-smi name and power limit first.
+width); for Mixtral and decoding the host reads (device-to-host copies:
+the router's group sizes, generate's done flags) and the device idle that
+follows them. Needs a CUDA device; prints the card's nvidia-smi name and
+power limit first.
 """
 
 import os
@@ -88,17 +93,18 @@ def host_read_idle(kernels):
     return n, idle
 
 
-def profile(run, label, card, expert_width=None):
+def profile(run, label, card, expert_width=None, host_reads=False, reps=3,
+            unit="attribution"):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     run()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(reps):
         run()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 3 * 1e3
+    wall = (time.perf_counter() - t0) / reps * 1e3
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA],
                                 record_shapes=expert_width is not None) as prof:
@@ -117,7 +123,7 @@ def profile(run, label, card, expert_width=None):
                 by[name][0] += (e.time_range.end - e.time_range.start) / 1e3
                 by[name][1] += 1
                 break
-    print(f"{label}: wall {wall:.1f} ms per attribution unprofiled; profiled "
+    print(f"{label}: wall {wall:.1f} ms per {unit} unprofiled; profiled "
           f"window {window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle "
           f"{1 - busy / window:.1%} [{card}]", flush=True)
     for name, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0]):
@@ -132,6 +138,7 @@ def profile(run, label, card, expert_width=None):
         ms, n = expert_gemms(prof, expert_width)
         print(f"  of the cuBLAS GEMMs, the expert products: {ms:.2f} ms, {n} "
               f"launches", flush=True)
+    if expert_width is not None or host_reads:
         n, idle = host_read_idle(kernels)
         print(f"  device-to-host copies {n}, device idle after them {idle:.2f} ms",
               flush=True)
@@ -150,6 +157,7 @@ def main():
     card = cs.card_line()
     print(card, flush=True)
     from lxt_tpu_torch.models import gemma3, gpt2, llama, mixtral
+    from lxt_tpu_torch.models.registry import AttributionModel
     from lxt_tpu_torch.ops import _build
     _build.library()
     if "main" in paths:
@@ -216,6 +224,44 @@ def main():
                                      composite=lxt_tpu_torch.cp_lrp),
                 f"GPT-2 XL L{cfg.num_layers} B{cs.SERVE_BATCH}x{cs.SEQ} bf16 "
                 f"remat off CP-LRP", card)
+        del params
+        torch.cuda.empty_cache()
+    if "bert" in paths:
+        import lxt_tpu_torch
+        from lxt_tpu_torch.models import bert
+        cfg = bert.BertConfig(**cs.BERT_BASE)
+        gen = torch.Generator("cuda").manual_seed(17)
+        model = AttributionModel("bert", cfg, bert.init_params(cfg, gen, dtype=torch.bfloat16),
+                                 lxt_tpu_torch.attnlrp, remat=False)
+        ids = torch.randint(0, cfg.vocab_size, (cs.BERT_BATCH, cs.SEQ_BERT),
+                            generator=gen, device="cuda")
+        ends = torch.full((cs.BERT_BATCH,), cs.SEQ_BERT, dtype=torch.int32,
+                          device="cuda")
+        ends[:cs.BERT_BATCH // 4] = cs.BERT_REAL
+        profile(lambda: model.attribute(ids, kv_end=ends),
+                f"BERT-base L{cfg.num_layers} B{cs.BERT_BATCH}x{cs.SEQ_BERT} bf16 "
+                f"remat off ({cs.BERT_BATCH // 4} rows kv_end {cs.BERT_REAL})", card)
+        del model
+        torch.cuda.empty_cache()
+    if "decode" in paths:
+        import lxt_tpu_torch
+        from lxt_tpu_torch.models import decode
+        cfg = llama.LlamaConfig(**cs.MODEL, dtype="bfloat16")
+        gen = torch.Generator("cuda").manual_seed(0)
+        model = AttributionModel("llama", cfg, llama.init_params(cfg, gen),
+                                 lxt_tpu_torch.attnlrp, remat=False)
+        B, T0, N = cs.DECODE_BF16
+        ids = torch.randint(0, cfg.vocab_size, (B, T0), generator=gen, device="cuda")
+        label = f"TinyLlama width bf16 L{cfg.num_layers} B{B}x{T0}"
+        profile(lambda: decode.prefill(model.params, cfg, model.embed(ids), T0 + N),
+                f"prefill {label}", card, unit="prefill")
+        profile(lambda: model.generate(ids, N + 1, eos_token_id=0),
+                f"generate {label}, {N + 1} new tokens (the prefill and {N} steps)",
+                card, host_reads=True, reps=1, unit="generate")
+        out = model.generate(ids, N)
+        profile(lambda: model.attribute_response(out, T0),
+                f"attribute_response {label} + {N}, K {N}", card, reps=1,
+                unit="call")
     return 0
 
 

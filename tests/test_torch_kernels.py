@@ -71,6 +71,8 @@ HOPPER_CASES = {
     # a window narrower than a tile, so it cuts across tiles
     "window_across_tiles_hd64": (1, 4, 2, 512, 64, {"window": 40, "rope": True}),
     "window_across_tiles_hd128": (1, 8, 2, 384, 128, {"window": 150}),
+    "kv_end_bidirectional_hd64": (2, 12, 12, 512, 64, {"kv_end": [512, 300],
+                                                       "causal": False}),
     "kv_end_bidirectional_hd128": (2, 4, 2, 256, 128, {"kv_end": [256, 77],
                                                        "causal": False}),
     "kv_begin_hd64": (2, 8, 8, 256, 64, {"kv_begin": [0, 130], "rope": True}),
@@ -552,3 +554,74 @@ def test_mixtral_ragged_matches_dense_through_the_kernels(weights):
     value_d, rel_d = run("dense")
     err = ((rel.double() - rel_d.double()).norm() / rel_d.double().norm()).item()
     assert err <= 1e-4 and abs(float(value) - float(value_d)) <= 1e-4 * abs(float(value_d))
+
+
+@pytest.mark.parametrize("dtype,bar", [("bfloat16", 0.1), ("float32", 1e-4)])
+def test_bert_through_the_kernels_matches_einsum(dtype, bar):
+    """BERT (bidirectional, head dim 64, right-padded by kv_end) through K1
+    and both K2 halves against the einsum path with the same kv_end: the
+    launches once a layer each and no rotation pass; relevance exactly 0
+    on the padding (bf16 held against the float32 einsum run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import bert as tbert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L, B, T = 2, 2, 512
+    cfg = tbert.BertConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                           num_layers=L, num_heads=4)
+    gen = torch.Generator("cuda").manual_seed(5)
+    params = tbert.init_params(cfg, gen)
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda")
+    kv_end = torch.tensor([T, 300], dtype=torch.int32, device="cuda")
+
+    def run(p, impl):
+        return lxt_tpu_torch.input_relevance(
+            lambda e: tbert.forward(p, cfg, e, remat=False, attn_impl=impl,
+                                    kv_end=kv_end).logits.max(-1).values.sum(),
+            tbert.embed(p, ids))[1]
+
+    want = run(params, "einsum")
+    tfa.reset_launches()
+    got = run({k: ({n: t.to(getattr(torch, dtype)) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(getattr(torch, dtype)))
+               for k, v in params.items()}, "auto")
+    torch.cuda.synchronize()
+    assert dict(tfa.launches) == {"flash_fwd": L, "flash_bwd_dq": L,
+                                  "flash_bwd_dkv": L, "rope_rotate": 0}
+    assert (got[1, 300:] == 0).all()
+    err = ((got.double() - want.double()).norm() / want.double().norm()).item()
+    assert err <= bar, err
+
+
+@pytest.mark.parametrize("T0,route", [(256, "flash"), (200, "einsum")])
+def test_cached_decode_matches_uncached_through_k1(T0, route):
+    """generate's prefill through K1 when the prompt is on the 128-row grid,
+    through the einsum path off it (the eligibility rule is unchanged);
+    either way the cached tokens equal use_cache=False's, and the decode
+    steps launch no flash kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import decode as tdecode
+    from lxt_tpu_torch.models import llama as tllama
+    from lxt_tpu_torch.models import registry as treg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L, N = 2, 8
+    cfg = tllama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                             num_layers=L, num_heads=4, num_kv_heads=2)
+    gen = torch.Generator("cuda").manual_seed(T0)
+    model = treg.AttributionModel("llama", cfg, tllama.init_params(cfg, gen),
+                                  lxt_tpu_torch.attnlrp)
+    ids = torch.randint(0, cfg.vocab_size, (2, T0), generator=gen, device="cuda")
+    kv_begin = torch.tensor([17, 0], dtype=torch.int32, device="cuda")
+    tfa.reset_launches()
+    tdecode.prefill(model.params, cfg, model.embed(ids), T0 + N, kv_begin=kv_begin)
+    torch.cuda.synchronize()
+    assert tfa.launches["flash_fwd"] == (L if route == "flash" else 0)
+    tfa.reset_launches()
+    out = model.generate(ids, N, kv_begin=kv_begin)
+    torch.cuda.synchronize()
+    assert tfa.launches["flash_fwd"] == (L if route == "flash" else 0)
+    assert tfa.launches["flash_bwd_dq"] == tfa.launches["flash_bwd_dkv"] == 0
+    assert torch.equal(out, model.generate(ids, N, kv_begin=kv_begin, use_cache=False))

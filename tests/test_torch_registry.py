@@ -22,9 +22,9 @@ import pytest
 import torch
 from safetensors.numpy import save_file
 from safetensors.torch import save_file as save_torch
-from transformers import (AutoConfig, Gemma3ForCausalLM, Gemma3TextConfig,
-                          GPT2Config, GPT2LMHeadModel, MixtralConfig,
-                          MixtralForCausalLM)
+from transformers import (AutoConfig, BertConfig, BertForSequenceClassification,
+                          Gemma3ForCausalLM, Gemma3TextConfig, GPT2Config,
+                          GPT2LMHeadModel, MixtralConfig, MixtralForCausalLM)
 from transformers.models.llama.modeling_llama import LlamaConfig, LlamaForCausalLM
 
 import lxt_tpu
@@ -38,6 +38,7 @@ from lxt_tpu.ops import quant as jq
 import lxt_tpu_torch
 from lxt_tpu_torch import io as tio
 from lxt_tpu_torch.convert import params_from_numpy
+from lxt_tpu_torch.models import bert as tbert
 from lxt_tpu_torch.models import gemma3 as tgemma
 from lxt_tpu_torch.models import gpt2 as tgpt2
 from lxt_tpu_torch.models import llama as tllama
@@ -160,13 +161,13 @@ def test_from_hf_matches_lxt_tpu():
 
 
 def test_unsupported_family_lists_the_ported_ones(tmp_path):
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": "bert"}))
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "vit"}))
     save_file({"x": np.zeros(2, np.float32)}, str(tmp_path / "model.safetensors"))
     with pytest.raises(ValueError, match="llama, qwen2, qwen3, mistral, phi3, "
-                                         "gemma3, gemma3_text, gpt2, mixtral"):
+                                         "gemma3, gemma3_text, gpt2, bert, mixtral"):
         treg.from_pretrained(tmp_path, device="cpu")
     with pytest.raises(ValueError, match="family="):
-        treg.from_pretrained(tmp_path, family="bert", device="cpu")
+        treg.from_pretrained(tmp_path, family="vit", device="cpu")
 
 
 def test_llama_clone_detected_structurally(tmp_path):
@@ -272,7 +273,7 @@ def test_load_checkpoint_params_matches_from_hf(tmp_path):
 @pytest.mark.parametrize("name", ["from_pretrained", "from_hf", "params_from_hf",
                                   "params_from_numpy", "load_checkpoint_params",
                                   "gemma3_params_from_hf", "mixtral_params_from_hf",
-                                  "gpt2_params_from_hf"])
+                                  "gpt2_params_from_hf", "bert_params_from_hf"])
 def test_entry_points_default_to_the_card(tmp_path, name):
     """The port's loading entry points put parameters on the card unless
     the caller asks for the CPU: without a card a default call raises
@@ -283,7 +284,8 @@ def test_entry_points_default_to_the_card(tmp_path, name):
           "load_checkpoint_params": tio.load_checkpoint_params,
           "gemma3_params_from_hf": tgemma.params_from_hf,
           "mixtral_params_from_hf": tmix.params_from_hf,
-          "gpt2_params_from_hf": tgpt2.params_from_hf}[name]
+          "gpt2_params_from_hf": tgpt2.params_from_hf,
+          "bert_params_from_hf": tbert.params_from_hf}[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     hf = _hf_llama(seed=9)
     if name in ("from_pretrained", "load_checkpoint_params"):
@@ -305,6 +307,12 @@ def test_entry_points_default_to_the_card(tmp_path, name):
         hm = _hf_gpt2(seed=9)
         call = lambda: {"embed": fn(hm.state_dict(),  # noqa: E731
                                     tgpt2.GPT2Config.from_hf(hm.config))["wte"]}
+    elif name == "bert_params_from_hf":
+        hm = BertForSequenceClassification(BertConfig(
+            vocab_size=VOCAB, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=128)).eval()
+        call = lambda: {"embed": fn(hm.state_dict(),  # noqa: E731
+                                    tbert.BertConfig.from_hf(hm.config))["word_emb"]}
     else:
         call = lambda: fn({"embed": np.ones((2, 3), np.float32)})  # noqa: E731
     if torch.cuda.is_available():
