@@ -10,11 +10,14 @@ the one card, the rest of the attribution API (multi-target and latent
 relevance, faithfulness, Integrated Gradients) at the main path's width,
 Mixtral-8x7B at full width and depth in NF4 (the routed expert products),
 GPT-2 XL at full depth (no rotary embedding), BERT-base (bidirectional,
-right-padded by kv_end) and KV-cached decoding (generate, then
-attribute_response over the response).
+right-padded by kv_end), KV-cached decoding (generate, then
+attribute_response over the response) and the HTTP server
+(AttributionServer over AttributionPipeline, a checkpoint loaded with
+from_pretrained).
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
+    python3 chip_smoke.py --serve     # phases 1-2 and 16 only, no result line
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -157,7 +160,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against uncached in float32 for Gemma-3-4B widths at 6 layers, GPT-2
      XL widths at 6 layers and Mixtral-8x7B widths at 2 layers (batch
      2 x 256, row 0 left-padded by 32, 16 tokens); the NF4 8B model of
-     phase 7 generating 16 tokens from 1 x 4096 (tokens/s, K3 7 x 32 a step).
+     phase 7 generating 16 tokens from 1 x 4096 (tokens/s, K3 7 x 32 a step);
+ 16. serving: a checkpoint of TinyLlama-1.1B widths and depth (HF Llama
+     names, random bf16 weights) written here and loaded with
+     from_pretrained(dtype=bfloat16) (seconds, GB/s, weights bit-equal),
+     remat off, behind AttributionServer(max_batch=8, max_wait_ms=10) and
+     http_server on 127.0.0.1 (a crc32 whitespace tokenizer): 32 POST
+     /v1/attribute from 16 client threads, prompts of 640-1024 words
+     (heatmaps/s, p50/p99 latency, coalesced batch sizes; the launches of
+     K1 and each K2 half exactly batches x one attribution's, and no
+     rotation pass: a left-padded batch's per-example rope positions are
+     applied before the kernels), each served map within 0.02 (bf16) of its prompt
+     attributed alone, and within 1e-4 in float32 at 2 layers; a top-3
+     request (map 0 within 1e-3 of the topk=1 map); 4 concurrent greedy
+     POST /v1/respond of 32 tokens coalesced into one respond (tokens equal
+     to generate on the same left-padded batch, launches exact, maps 0 and
+     31 of row 0 within 1e-3 of separate attributions) and a sampled
+     request sent twice (identical tokens); then --bits 8 and --bits 4 at
+     Llama-3-8B widths and depth (remat, one prompt of 4096 tokens through
+     the pipeline: heatmaps/s, GiB of codes and scales, peak) against a
+     dense bf16 control of the same weights (int8 <= 1e-3; int4 <= 0.02,
+     and at 4 layers within 0.1 of a float32 run of its weights, the
+     control's own distance from it printed).
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
@@ -174,12 +198,14 @@ the ring's three driven attributions, all four processes together, and
 attributions they are held against), "launches_bert" over phase 14's three
 bf16 attributions and "launches_decode" over phase 15's driven calls (the
 bf16 generate, attribute_response, attribute_response_latent and the NF4
-generate); the last line is
+generate), "launches_serve" over phase 16's 32 served attribute requests;
+the last line is
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -389,6 +415,43 @@ DECODE_BF16 = (SERVE_BATCH, 896, 128)    # batch, prompt, new tokens
 DECODE_BF16_BAR, RESPONSE_CHECKED = 0.05, (0, 63, 127)
 DECODE_OTHERS = (2, 256, 16, 32)         # batch, prompt, new tokens, row 0 pad
 DECODE_NF4 = (SEQ_8B, 16)                # prompt, new tokens
+# phase 16, serving: a checkpoint of TinyLlama-1.1B widths and depth
+# (TinyLlama's config.json values, HF Llama names, random bf16 weights from
+# a seed) written here and loaded with from_pretrained(dtype=bfloat16),
+# remat off, behind AttributionServer(max_batch=8, max_wait_ms=10) and
+# http_server on 127.0.0.1 with a whitespace tokenizer (ids by crc32).
+# Attribute traffic: 32 single-prompt requests from 16 client threads,
+# prompts of 640-1024 words (each batch pads to a multiple of 128); each
+# served map against the prompt attributed alone (bf16: the padded-rows
+# bar; float32 at 2 layers, 8 requests from 8 threads: the parity bar);
+# one top-3 request. Respond traffic: 4 concurrent greedy requests of 32
+# new tokens (prompts of 256-512 words) coalesced into one respond, and one
+# sampled request sent twice. Then the server's --bits 8 / --bits 4 paths
+# at Llama-3-8B widths and depth (remat on, one prompt of 4096 tokens)
+# against dense controls of the same weights
+TINYLLAMA_CONFIG = dict(
+    model_type="llama", vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+    num_hidden_layers=22, num_attention_heads=32, num_key_value_heads=4,
+    rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=2048,
+    tie_word_embeddings=False, hidden_act="silu", torch_dtype="bfloat16")
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_WORDS = 32, 16, (640, 1024)
+SERVE_MAX_BATCH, SERVE_WAIT_MS = 8, 10.0
+SERVE_F32 = (2, 8)                       # layers, requests
+SERVE_TOPK, TOPK_BAR = 3, 1e-3
+RESPOND_REQUESTS, RESPOND_TOKENS, RESPOND_WORDS = 4, 32, (256, 512)
+RESPOND_CHECKED, SAMPLED = (0, RESPOND_TOKENS - 1), dict(temperature=0.8, top_k=40,
+                                                         seed=7)
+# int4 against its dense control: int4 multiplies the exact integer planes
+# in bf16 (two half products and their sum, each rounded; the backward
+# rounds g * scale first) where the control multiplies q * scale rounded to
+# bf16, so the two are one function in different bf16 roundings. The
+# control's own rounding already exceeds DENSE_BAR: at 4 layers it reads
+# 0.006596 against a float32 run of the same weights, and int4 against the
+# control 0.01643 there, 0.01207 at 32 layers (H100, 700 W). So int4 is
+# held to the bar of two bf16 computations apart in rounding (the padded
+# rows' and the ring's, 0.02), and to DIVERGENCE_BAR against float32 at 4
+# layers; int8 dequantizes to bf16 before its product, as the control does
+BITS_CONTROL_LAYERS, INT4_BAR = 4, 0.02
 
 
 def card_line():
@@ -1644,12 +1707,20 @@ def phase_api(card):
 
 def write_safetensors(path, tensors):
     """A minimal safetensors writer (the card's machine has no safetensors
-    package): 8-byte header length, JSON header, raw little-endian data."""
+    package): 8-byte header length, JSON header, raw little-endian data.
+    Tensors are numpy float32 / uint8 arrays or torch bf16 tensors."""
     kinds = {np.dtype(np.float32): "F32", np.dtype(np.uint8): "U8"}
     header, blobs, offset = {}, [], 0
     for name, arr in tensors.items():
-        raw = np.ascontiguousarray(arr).tobytes()
-        header[name] = {"dtype": kinds[arr.dtype], "shape": list(arr.shape),
+        if isinstance(arr, np.ndarray):
+            kind, raw = kinds[arr.dtype], np.ascontiguousarray(arr).tobytes()
+        else:   # a torch bf16 tensor: its bits
+            import torch
+            if arr.dtype != torch.bfloat16:
+                raise ValueError(f"{name}: {arr.dtype} is not written")
+            kind = "BF16"
+            raw = arr.detach().contiguous().cpu().view(torch.int16).numpy().tobytes()
+        header[name] = {"dtype": kind, "shape": list(arr.shape),
                         "data_offsets": [offset, offset + len(raw)]}
         blobs.append(raw)
         offset += len(raw)
@@ -2346,6 +2417,481 @@ def phase_decode(card):
     return failures, total
 
 
+class WordTokenizer:
+    """Whitespace words -> ids by crc32 (Python's ``hash`` is salted per
+    process); 0 pads, 1 ends a sequence. What a served checkpoint's
+    AutoTokenizer provides to the pipeline, built without transformers."""
+
+    pad_token_id, eos_token_id = 0, 1
+
+    def __init__(self, vocab_size):
+        self.vocab_size = vocab_size
+
+    def __call__(self, text):
+        import zlib
+        return {"input_ids": [2 + zlib.crc32(w.encode()) % (self.vocab_size - 2)
+                              for w in text.split()]}
+
+    def convert_ids_to_tokens(self, ids):
+        return [f"t{int(i)}" for i in ids]
+
+    def decode(self, ids):
+        return " ".join(self.convert_ids_to_tokens(ids))
+
+
+def words(rng, bounds, n):
+    """``n`` prompts of a length drawn in ``bounds`` (inclusive)."""
+    return [" ".join(f"w{int(i)}" for i in rng.integers(0, 10**6, int(k)))
+            for k in rng.integers(bounds[0], bounds[1] + 1, n)]
+
+
+def post(port, path, body):
+    """(status, JSON reply, seconds) of one POST to the local server."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            code, out = resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        code, out = e.code, json.loads(e.read())
+    return code, out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def served(pipeline):
+    """An AttributionServer over ``pipeline`` (max_batch 8, max_wait 10 ms)
+    behind http_server on 127.0.0.1, a free port; yields (server, port) and
+    stops both."""
+    import threading
+    from lxt_tpu_torch.serve import AttributionServer, http_server
+    server = AttributionServer(pipeline, max_batch=SERVE_MAX_BATCH,
+                               max_wait_ms=SERVE_WAIT_MS)
+    httpd = http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server, httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        thread.join(timeout=60)
+
+
+def concurrent_posts(port, path, bodies, clients):
+    """``bodies`` POSTed from ``clients`` threads released together:
+    [(status, reply, seconds)] in order, and the host clock (perf_counter,
+    one clock for every process of the machine) before the first request
+    and after the last reply."""
+    import concurrent.futures
+    import threading
+    start = threading.Barrier(min(clients, len(bodies)))
+
+    def one(body):
+        if len(bodies) <= clients:
+            start.wait(timeout=60)
+        return post(port, path, body)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(clients) as ex:
+        out = list(ex.map(one, bodies))
+    return out, t0, time.perf_counter()
+
+
+def client_process(port, path, bodies, clients, out):
+    """A process of its own for the traffic's clients (a server's clients
+    do not share its interpreter lock): one GET /healthz first (the
+    process's first request imports and builds urllib's machinery), then
+    puts concurrent_posts' result on ``out``."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+        r.read()
+    out.put(concurrent_posts(port, path, bodies, clients))
+
+
+def remote_posts(port, path, bodies, clients):
+    """concurrent_posts from a spawned client process."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=client_process, args=(port, path, bodies, clients, out))
+    proc.start()
+    try:
+        return out.get(timeout=600)
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def hf_llama_state(params, cfg):
+    """The port's stacked Llama parameters -> an HF Llama state dict
+    ([out, in] weights), bf16 tensors on the host."""
+    state = {"model.embed_tokens.weight": params["embed"],
+             "model.norm.weight": params["final_norm"],
+             "lm_head.weight": params["lm_head"].T}
+    names = {"ln1": "input_layernorm", "ln2": "post_attention_layernorm",
+             "wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "wg": "mlp.gate_proj", "wu": "mlp.up_proj", "wd": "mlp.down_proj"}
+    for ours, hf in names.items():
+        for i in range(cfg.num_layers):
+            w = params["layers"][ours][i]
+            state[f"model.layers.{i}.{hf}.weight"] = w if w.dim() == 1 else w.T
+    return {k: v.contiguous().cpu() for k, v in state.items()}
+
+
+def served_maps_gate(card, label, results, prompts, pipe, bar):
+    """Each served map (the JSON of /v1/attribute) against
+    ``pipe([prompt])`` of its prompt alone: tokens equal, value and
+    relevance finite, normalized L2 of the relevance <= ``bar``. Returns
+    (ok, the direct maps)."""
+    errs, dvals, ok = [], [], True
+    direct = []
+    for (code, reply, _), prompt in zip(results, prompts):
+        want = pipe([prompt])[0]
+        direct.append(want)
+        if code != 200:
+            ok = False
+            continue
+        (got,) = reply["heatmaps"]
+        rel = np.asarray(got["relevance"], np.float64)
+        ok = ok and got["tokens"] == want.tokens and bool(np.isfinite(rel).all())
+        ok = ok and math.isfinite(got["value"])
+        errs.append(float(np.linalg.norm(rel - want.relevance)
+                          / np.linalg.norm(want.relevance)))
+        dvals.append(abs(got["value"] - want.value))
+    ok = ok and len(errs) == len(prompts) and max(errs) <= bar
+    print(f"serve {label}: {len(prompts)} served maps against each prompt "
+          f"alone, normalized L2 max {max(errs, default=math.inf):.4g} (bar {bar}), "
+          f"value max abs diff {max(dvals, default=math.inf):.4g}, tokens equal, "
+          f"finite" + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    return ok, direct
+
+
+def phase_serve(card):
+    """Phase 16: a TinyLlama-width checkpoint loaded with from_pretrained
+    and served over HTTP. Returns (failures, the flash launches of the 32
+    attribute requests)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models.registry import AttributionModel
+    from lxt_tpu_torch.ops import flash_attention as fa
+    from lxt_tpu_torch.pipeline import AttributionPipeline
+    failures = []
+    gc.collect()    # earlier phases' cycles: no collector pause mid-traffic
+    cfg = llama.LlamaConfig(**MODEL, dtype="bfloat16")
+    L = cfg.num_layers
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(20))
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(TINYLLAMA_CONFIG, f)
+        path = os.path.join(tmp, "model.safetensors")
+        t0 = time.perf_counter()
+        write_safetensors(path, hf_llama_state(params, cfg))
+        t_write, size = time.perf_counter() - t0, os.path.getsize(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = lxt_tpu_torch.from_pretrained(tmp, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    loaded = model.params
+    exact = (model.cfg.num_layers == L and all(
+        torch.equal(loaded["layers"][n], params["layers"][n]) for n in params["layers"])
+        and all(torch.equal(loaded[n], params[n])
+                for n in ("embed", "final_norm", "lm_head")))
+    print(f"serve load: TinyLlama-1.1B width L{L} bf16 checkpoint "
+          f"{size / 1e9:.3f} GB written in {t_write:.2f} s; from_pretrained "
+          f"(dtype=bfloat16, device {model.device}) {t_load:.2f} s, "
+          f"{size / 1e9 / t_load:.3f} GB/s; "
+          f"weights bit-equal to the written ones: {exact}"
+          + (" PASS" if exact else " FAIL") + f" [{card}]", flush=True)
+    if not exact:
+        failures.append("serve checkpoint load")
+    del params, loaded
+    model = dataclasses.replace(model, remat=False)
+    tok = WordTokenizer(cfg.vocab_size)
+    calls = []
+
+    class TimedPipeline(AttributionPipeline):
+        """Records each call's (start, end) on the host's clock: the
+        worker's busy spans (a call ends with its results on the host)."""
+
+        def __call__(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = super().__call__(*args, **kw)
+            calls.append((t0, time.perf_counter()))
+            return out
+
+    pipe = TimedPipeline(model, tok)
+    if pipe.pad_multiple != 128:
+        failures.append(f"serve pad_multiple {pipe.pad_multiple}")
+    rng = np.random.default_rng(21)
+    prompts = words(rng, SERVE_WORDS, SERVE_REQUESTS)
+    # a left-padded batch takes per-example rope positions (kv_begin, the
+    # HF convention), so RoPE is applied before the kernels (3-D tables)
+    # and no rotation pass runs
+    want = expected_launches(L, remat=False)
+    with served(pipe) as (server, port):
+        # warm-up: one batch of the traffic's shape
+        concurrent_posts(port, "/v1/attribute",
+                         [{"prompt": p} for p in prompts[:SERVE_MAX_BATCH]],
+                         SERVE_MAX_BATCH)
+        torch.cuda.synchronize()
+        first = len(server.batch_sizes)
+        fa.reset_launches()
+        calls.clear()
+        results, t_first, t_last = remote_posts(
+            port, "/v1/attribute", [{"prompt": p} for p in prompts], SERVE_CLIENTS)
+        wall = t_last - t_first
+        launches = dict(fa.launches)
+        batches = list(server.batch_sizes)[first:]
+        spans = [round((e - s_) * 1e3, 1) for s_, e in calls]
+        gaps = [round((b - a) * 1e3, 1) for (_, a), (b, _) in zip(calls, calls[1:])]
+        lat = np.asarray([sec for _, _, sec in results])
+        codes_ok = all(code == 200 for code, _, _ in results)
+        expect = {n: len(batches) * c for n, c in want.items()}
+        ok = codes_ok and launches == expect and sum(batches) == SERVE_REQUESTS
+        print(f"serve attribute: {SERVE_REQUESTS} POST /v1/attribute from "
+              f"{SERVE_CLIENTS} clients, prompts {SERVE_WORDS[0]}-{SERVE_WORDS[1]} "
+              f"words, bf16 L{L} remat off: {SERVE_REQUESTS / wall:.3f} heatmaps/s "
+              f"({wall:.3f} s), latency p50 {np.percentile(lat, 50):.3f} s, p99 "
+              f"{np.percentile(lat, 99):.3f} s, coalesced batches {batches}, the "
+              f"worker's pipeline calls {spans} ms with {gaps} ms between them, the "
+              f"first begun {(calls[0][0] - t_first) * 1e3:.1f} ms after the first "
+              f"request left, the last reply in {(t_last - calls[-1][1]) * 1e3:.1f} "
+              f"ms after the last call's end; launches "
+              f"{launches} (expected {len(batches)} batches x {want})"
+              + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+        if not ok:
+            failures.append(f"serve attribute launches {launches} / batches {batches}")
+        ok, direct = served_maps_gate(card, f"bf16 L{L}", results, prompts, pipe,
+                                      PADDED_BAR)
+        if not ok:
+            failures.append("serve bf16 maps")
+
+        post(port, "/v1/attribute", {"prompt": prompts[1], "topk": SERVE_TOPK})
+        code, reply, sec = post(port, "/v1/attribute",
+                                {"prompt": prompts[0], "topk": SERVE_TOPK})
+        cands = reply.get("heatmaps", [[]])[0] if code == 200 else []
+        err = (nl2(torch.tensor(cands[0]["relevance"]),
+                   torch.from_numpy(direct[0].relevance)) if cands else math.inf)
+        ok = (len(cands) == SERVE_TOPK and err <= TOPK_BAR
+              and cands[0]["target_token_id"] is not None
+              and [c["value"] for c in cands] == sorted(
+                  (c["value"] for c in cands), reverse=True))
+        print(f"serve topk: one POST /v1/attribute with topk {SERVE_TOPK}: "
+              f"{len(cands)} maps in {sec:.3f} s, map 0 against the topk=1 map "
+              f"{err:.3g} (bar {TOPK_BAR})" + (" PASS" if ok else " FAIL")
+              + f" [{card}]", flush=True)
+        if not ok:
+            failures.append("serve topk")
+
+        # respond: 4 concurrent greedy requests, coalesced into one respond
+        rprompts = words(rng, RESPOND_WORDS, RESPOND_REQUESTS)
+        post(port, "/v1/respond", {"prompt": rprompts[0], "max_new_tokens": 2})
+        torch.cuda.synchronize()
+        first = len(server.batch_sizes)
+        fa.reset_launches()
+        rres, t_first, t_last = remote_posts(
+            port, "/v1/respond",
+            [{"prompt": p, "max_new_tokens": RESPOND_TOKENS} for p in rprompts],
+            RESPOND_REQUESTS)
+        rlaunches = dict(fa.launches)
+        rwall = t_last - t_first
+        rbatches = list(server.batch_sizes)[first:]
+        sampled = [post(port, "/v1/respond", {"prompt": rprompts[0],
+                                              "max_new_tokens": RESPOND_TOKENS,
+                                              **SAMPLED}) for _ in range(2)]
+
+    ids, kv_begin, seqs = pipe._encode(rprompts)
+    T0 = ids.shape[1]
+    out = model.generate(ids, RESPOND_TOKENS, eos_token_id=tok.eos_token_id,
+                         kv_begin=kv_begin)
+    same = all(code == 200 for code, _, _ in rres)
+    for i, (code, reply, _) in enumerate(rres):
+        gen = out[i, T0:].tolist()
+        if tok.eos_token_id in gen:
+            gen = gen[:gen.index(tok.eos_token_id) + 1]
+        got = ([h["target_token_id"] for h in reply["responses"][0]["heatmaps"]]
+               if code == 200 else None)
+        same = same and got == gen
+    # the prefill launches K1 once a layer; the maps, over prompt +
+    # response right-padded to the grid, one forward and one pull per
+    # token through the kernels; rope applied outside them throughout
+    rwant = expected_launches(L, False, pulls=RESPOND_TOKENS)
+    rwant["flash_fwd"] += L
+    ok = same and rbatches == [RESPOND_REQUESTS] and rlaunches == rwant
+    print(f"serve respond: {RESPOND_REQUESTS} concurrent POST /v1/respond, "
+          f"{RESPOND_TOKENS} new tokens greedy, prompts {RESPOND_WORDS[0]}-"
+          f"{RESPOND_WORDS[1]} words (T0 {T0}): coalesced batches {rbatches}, "
+          f"{rwall:.3f} s, latency {[round(sec, 3) for _, _, sec in rres]} s; tokens "
+          f"equal to generate on the same left-padded batch: {same}; launches "
+          f"{rlaunches} (expected {rwant})"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("serve respond tokens / coalescing")
+    if same:
+        # maps 0 and 31 of row 0 against separate attributions at those
+        # sites, on the ids right-padded as the pipeline pads them
+        T = out.shape[1]
+        Tp = -(-T // pipe.pad_multiple) * pipe.pad_multiple
+        padded = torch.cat([out, out.new_full((out.shape[0], Tp - T), tok.pad_token_id)], 1)
+        maps = rres[0][1]["responses"][0]["heatmaps"]
+        lo, keep, errs = T0 - len(seqs[0]), len(maps), []
+        for k in RESPOND_CHECKED:
+            k = min(k, keep - 1)
+            _, sep = model.attribute(padded, position=T0 + k - 1,
+                                     token=padded[:, T0 + k], kv_begin=kv_begin)
+            r = sep[0, lo:T0 + keep].float().cpu()
+            errs.append(nl2(torch.tensor(maps[k]["relevance"]),
+                            r / (r.abs().max() + 1e-12)))
+        ok = max(errs) <= API_BF16_BAR
+        print(f"serve respond maps {list(RESPOND_CHECKED)} of row 0 against separate "
+              f"attributions: normalized L2 {[f'{e:.3g}' for e in errs]} (bar "
+              f"{API_BF16_BAR})" + (" PASS" if ok else " FAIL") + f" [{card}]",
+              flush=True)
+        if not ok:
+            failures.append("serve respond maps")
+    toks = [[h["target_token_id"] for h in reply["responses"][0]["heatmaps"]]
+            if code == 200 else None for code, reply, _ in sampled]
+    ok = toks[0] is not None and toks[0] == toks[1]
+    print(f"serve respond sampled ({SAMPLED}), sent twice: {len(toks[0] or [])} "
+          f"tokens, identical: {ok}, latency {[round(sec, 3) for _, _, sec in sampled]} "
+          f"s" + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("serve sampled respond")
+
+    # float32 at 2 layers: the served maps within the parity bar
+    n_layers, n_req = SERVE_F32
+    p32 = cast(model.params, torch.float32)
+    p32["layers"] = {n: t[:n_layers] for n, t in p32["layers"].items()}
+    del model, pipe
+    torch.cuda.empty_cache()
+    m32 = AttributionModel("llama", llama.LlamaConfig(**dict(MODEL, num_layers=n_layers)),
+                           p32, lxt_tpu_torch.attnlrp, remat=False)
+    pipe32 = AttributionPipeline(m32, tok)
+    with served(pipe32) as (server, port):
+        results, _, _ = concurrent_posts(port, "/v1/attribute",
+                                      [{"prompt": p} for p in prompts[:n_req]], n_req)
+        batches = list(server.batch_sizes)
+    ok, _ = served_maps_gate(card, f"float32 L{n_layers} (coalesced batches "
+                             f"{batches})", results, prompts[:n_req], pipe32, PARITY_BAR)
+    if not ok:
+        failures.append("serve float32 maps")
+    del m32, pipe32, p32, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures += phase_serve_bits(card)
+    return failures, launches
+
+
+def phase_serve_bits(card):
+    """The server's --bits 8 / --bits 4 paths: Llama-3-8B widths and depth,
+    init_params(quantize_bits=...), remat on, one prompt of 4096 tokens
+    through the pipeline, against a dense bf16 control of the same weights
+    (each projection plainly dequantized). int8's product dequantizes to
+    bf16 first, so its control computes the same; int4's multiplies the
+    integer planes and scales the float32 output, while the control rounds
+    q * scale to bf16. So int4 is also run at BITS_CONTROL_LAYERS layers
+    against a float32 run of the same dequantized weights, beside the
+    control's own distance from it."""
+    import torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models.registry import AttributionModel
+    from lxt_tpu_torch.ops import quant
+    from lxt_tpu_torch.pipeline import AttributionPipeline
+    import lxt_tpu_torch
+    failures = []
+    cfg = llama.LlamaConfig(**LLAMA3_8B, dtype="bfloat16")
+    tok = WordTokenizer(cfg.vocab_size)
+    ids = np.random.default_rng(22).integers(2, cfg.vocab_size, SEQ_8B).tolist()
+
+    def heatmap(params, c=cfg):
+        pipe = AttributionPipeline(AttributionModel("llama", c, params,
+                                                    lxt_tpu_torch.attnlrp), tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hm = pipe([ids])[0]
+        return hm.raw_relevance, time.perf_counter() - t0
+
+    def dense(params, dtype, layers=None):
+        out = dict(params, layers=dict(params["layers"]))
+        for name in PROJECTIONS:
+            qt = params["layers"][name]
+            n = layers or qt.q.shape[0]
+            out["layers"][name] = torch.stack([quant.dequantize(qt[i], dtype)
+                                               for i in range(n)])
+        if layers:
+            out["layers"] = {n: t[:layers] for n, t in out["layers"].items()}
+        return cast(out, dtype) if dtype != torch.bfloat16 else out
+
+    for bits in (8, 4):
+        t0 = time.perf_counter()
+        params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(23),
+                                   quantize_bits=bits)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        qbytes = sum(t.numel() * t.element_size() for n in PROJECTIONS
+                     for t in (params["layers"][n].q, params["layers"][n].scale))
+        resident = torch.cuda.memory_allocated() / 2**30
+        heatmap(params)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        rel, secs = heatmap(params)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        finite = bool(np.isfinite(rel).all()) and rel.shape == (SEQ_8B,)
+        ctrl = dense(params, torch.bfloat16)
+        heatmap(ctrl)  # warm-up
+        rel_c, secs_c = heatmap(ctrl)
+        d = float(np.linalg.norm(rel - rel_c) / np.linalg.norm(rel_c))
+        del ctrl
+        torch.cuda.empty_cache()
+        line = (f"serve --bits {bits}: Llama-3-8B width L{cfg.num_layers} B1x{SEQ_8B} "
+                f"bf16 remat, init and quantize {t_init:.1f} s, int{bits} codes and "
+                f"scales {qbytes / 2**30:.2f} GiB; {1 / secs:.4f} heatmaps/s "
+                f"({secs:.3f} s), peak device memory {peak:.2f} GiB ({resident:.2f} "
+                f"GiB resident before it), relevance "
+                f"finite: {finite}; dense bf16 control {1 / secs_c:.4f} heatmaps/s, "
+                f"relevance against it: normalized L2 {d:.4g}")
+        if bits == 8:
+            ok = finite and d <= DENSE_BAR
+            line += f" (bar {DENSE_BAR})"
+        else:
+            # the control's own bf16 rounding, at reduced depth: each of
+            # int4 and the bf16 control against float32 on the same weights
+            n = BITS_CONTROL_LAYERS
+            c_n = llama.LlamaConfig(**dict(LLAMA3_8B, num_layers=n), dtype="bfloat16")
+            cut = dict(params, layers={k: (v[:n] if not isinstance(v, quant.QuantizedTensor)
+                                          else quant.QuantizedTensor(v.q[:n], v.scale[:n],
+                                                                     v.bits, v.block))
+                                       for k, v in params["layers"].items()})
+            r4, _ = heatmap(cut, c_n)
+            rb, _ = heatmap(dense(params, torch.bfloat16, n), c_n)
+            r32, _ = heatmap(dense(params, torch.float32, n),
+                             llama.LlamaConfig(**dict(LLAMA3_8B, num_layers=n)))
+
+            def dist(a, b):
+                return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+            d4, db, d4b = dist(r4, r32), dist(rb, r32), dist(r4, rb)
+            ok = finite and d <= INT4_BAR and d4 <= DIVERGENCE_BAR
+            line += (f" (bar {INT4_BAR}); at L{n}: the bf16 control against float32 "
+                     f"{db:.4g}, int4 against float32 {d4:.4g} (bar "
+                     f"{DIVERGENCE_BAR}), int4 against the control {d4b:.4g}")
+        print(line + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+        if not ok:
+            failures.append(f"serve --bits {bits}")
+        del params
+        torch.cuda.empty_cache()
+    return failures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2372,6 +2918,10 @@ def main():
     for line in ptxas_report():
         print(line, flush=True)
 
+    if "--serve" in sys.argv[1:]:
+        failures, _ = phase_serve(card)
+        print(f"failures: {failures}", flush=True)
+        return 1 if failures else 0
     t_start = time.perf_counter()
     failures, errs, timing = phase_kernels(card)
     if "--kernels" in sys.argv[1:]:
@@ -2421,7 +2971,12 @@ def main():
     t_phase = time.perf_counter()
     f, decode_launches = phase_decode(card)
     failures += f
-    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s; phases 3-15 "
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    f, serve_launches = phase_serve(card)
+    failures += f
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; phases 3-16 "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
@@ -2449,7 +3004,8 @@ def main():
          "launches_mixtral": mixtral_launches.get(name, 0),
          "launches_gpt2": gpt2_launches.get(name, 0),
          "launches_bert": bert_launches.get(name, 0),
-         "launches_decode": decode_launches.get(name, 0)}
+         "launches_decode": decode_launches.get(name, 0),
+         "launches_serve": serve_launches.get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ nvcc at first use); on CPU tensors they run their plain PyTorch versions.
 ``QuantizedTensor``, ``flash_attention_lse``, the sequence-parallel ring
 (``ring_flash_attention``, ``attribute_sequence_parallel``), the
 multi-target and latent attribution functions, the faithfulness
-evaluation, the gradient baselines and the canonizers are imported on
-first access.
+evaluation, the gradient baselines, the canonizers, the batched pipeline
+(``AttributionPipeline``) and the server (``AttributionServer``,
+``http_server``; ``python -m lxt_tpu_torch.serve``) are imported on first
+access.
 """
 
 import importlib
@@ -46,6 +48,8 @@ _LAZY = {
                     "lxt_tpu_torch.baselines"),
     **dict.fromkeys(("apply_canonizers", "fold_norm_scales"),
                     "lxt_tpu_torch.canonizers"),
+    "AttributionPipeline": "lxt_tpu_torch.pipeline",
+    **dict.fromkeys(("AttributionServer", "http_server"), "lxt_tpu_torch.serve"),
 }
 
 __all__ = [

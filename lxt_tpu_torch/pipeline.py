@@ -1,0 +1,260 @@
+"""Batched heatmap pipeline: prompts in, per-token relevances out
+(counterpart of ``lxt_tpu/pipeline.py``).
+
+Tokenizes a list of prompts, left-pads them into one batch, runs one
+forward and one backward over it, and returns per-prompt tokens and
+normalized relevance. Left padding keeps every prompt's target at the last
+position; it is passed as per-example ``kv_begin`` indices, so the flash
+kernels stay engaged (padded key blocks are skipped in-kernel) and rope
+positions follow the HF convention. ``pad_multiple`` rounds the padded
+length up (128 on a CUDA device) so that the batch stays on the kernels.
+
+PyTorch runs eagerly, so ``lxt_tpu``'s program cache (``jit_cache_size``)
+has no counterpart; ``mesh=`` (data parallelism) waits for the port of
+``parallel/mesh.py``.
+"""
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from lxt_tpu_torch import composites
+from lxt_tpu_torch.attribution import (input_relevance, multi_site_relevance,
+                                      topk_relevance)
+from lxt_tpu_torch.models.registry import CLASSIFIERS
+
+
+@dataclasses.dataclass
+class Heatmap:
+    tokens: List[str]
+    relevance: np.ndarray       # [len(tokens)], normalized to [-1, 1]
+    raw_relevance: np.ndarray   # unnormalized
+    value: float                # this prompt's explained logit value
+    #: set by ``topk>1`` calls and by ``respond``: which token this map
+    #: explains
+    target_token: Optional[str] = None
+    target_token_id: Optional[int] = None
+
+
+@dataclasses.dataclass
+class ResponseAttribution:
+    """:meth:`AttributionPipeline.respond` result for one prompt: the
+    continuation plus one :class:`Heatmap` PER generated token (map k
+    explains why token k was generated; its ``relevance`` spans prompt +
+    response, causally zero after the predicting position)."""
+    prompt_tokens: List[str]
+    response_tokens: List[str]
+    response_text: str
+    heatmaps: List[Heatmap]
+
+
+def _normalized(r):
+    return r / (np.abs(r).max() + 1e-12)
+
+
+class AttributionPipeline:
+    """``pipeline(prompts)`` -> list of :class:`Heatmap`.
+
+    ``model`` is an :class:`~lxt_tpu_torch.models.registry.AttributionModel`
+    of a causal-LM family (Llama / Qwen / Mistral / Phi-3, Gemma-3, GPT-2,
+    Mixtral); a classifier (BERT) has no next token to explain and is
+    refused. The batch runs on the model's device.
+
+    ``pad_multiple`` defaults to 128 when the model lives on a CUDA device,
+    else 1: ``ops.attention.attention`` takes the flash kernels only when
+    the sequence length is a multiple of 128, so a batch padded to any
+    other length would run the einsum path on the card.
+    ``bucket_batch`` rounds the batch up to the next power of two with
+    fully padded dummy rows (``kv_begin = T``); the results are unchanged.
+    ``mesh`` must be None: data parallelism is not ported yet.
+    """
+
+    def __init__(self, model, tokenizer, composite=None, mesh=None,
+                 pad_multiple: Optional[int] = None,
+                 bucket_batch: bool = False):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (data parallelism) needs lxt_tpu's parallel/mesh.py, "
+                "which is not ported to lxt_tpu_torch yet (ROADMAP.md, "
+                "queue 1, multi-device)")
+        if model.family in CLASSIFIERS:
+            raise NotImplementedError(
+                f"AttributionPipeline explains a causal LM's next token; "
+                f"{model.family!r} is a classifier (call "
+                f"AttributionModel.attribute with kv_end instead)")
+        self.model = model
+        self.tokenizer = tokenizer
+        self.composite = composites.resolve(composite or model.composite)
+        if pad_multiple is None:
+            pad_multiple = 128 if model.device.type == "cuda" else 1
+        self.pad_multiple = int(pad_multiple)
+        self.bucket_batch = bucket_batch
+
+    def _pad_id(self):
+        pad = getattr(self.tokenizer, "pad_token_id", None)
+        if pad is None:
+            pad = getattr(self.tokenizer, "eos_token_id", 0) or 0
+        return pad
+
+    def _encode(self, prompts):
+        # items may be pre-tokenized id lists (the serving layer tokenizes
+        # once for its length guard and passes the ids through)
+        seqs = [self.tokenizer(p)["input_ids"] if isinstance(p, str)
+                else list(p) for p in prompts]
+        T = max(len(s) for s in seqs)
+        m = self.pad_multiple
+        T = -(-T // m) * m
+        B = len(seqs)
+        if self.bucket_batch:
+            B = 1 << (B - 1).bit_length()   # next power of two
+        ids = np.full((B, T), self._pad_id(), np.int64)
+        kv_begin = np.full((B,), T, np.int32)  # dummy rows: fully padded
+        for i, s in enumerate(seqs):
+            ids[i, T - len(s):] = s            # left padding
+            kv_begin[i] = T - len(s)
+        return ids, kv_begin, seqs
+
+    def _tokens_of(self, s):
+        return (self.tokenizer.convert_ids_to_tokens(s)
+                if hasattr(self.tokenizer, "convert_ids_to_tokens")
+                else [str(t) for t in s])
+
+    def respond(self, prompts, max_new_tokens: int, composite=None,
+                eos_token_id="auto", temperature: float = 0.0,
+                top_k: Optional[int] = None, seed: int = 0,
+                contrastive: bool = False) -> List[ResponseAttribution]:
+        """Generate a continuation per prompt AND explain every token of
+        it: ``generate`` (KV-cached), then ``attribute_response`` (one
+        forward, one pull per generated token; the ids right-padded to
+        ``pad_multiple``), batched across prompts.
+        Greedy by default; ``temperature > 0`` samples (optionally
+        ``top_k``-truncated) from a ``torch.Generator`` on the model's
+        device seeded with ``seed``, so a seed gives the same tokens.
+
+        ``eos_token_id="auto"`` reads the tokenizer; pass ``None`` to
+        always emit ``max_new_tokens``. Rows that hit eos are trimmed (the
+        eos token itself keeps its map). ``contrastive``: each map explains
+        the margin over the strongest rival token; ``Heatmap.value`` becomes
+        that margin."""
+        N = int(max_new_tokens)
+        if N < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {N}")
+        if eos_token_id == "auto":
+            eos_token_id = getattr(self.tokenizer, "eos_token_id", None)
+        composite = composites.resolve(composite or self.composite)
+        sample_kw = {}
+        if temperature > 0:
+            generator = torch.Generator(device=self.model.device)
+            sample_kw = dict(temperature=float(temperature), top_k=top_k,
+                             generator=generator.manual_seed(int(seed)))
+        ids, kv_begin, seqs = self._encode(prompts)
+        T0 = ids.shape[1]
+        out_dev = self.model.generate(ids, N, eos_token_id=eos_token_id,
+                                      kv_begin=kv_begin, **sample_kw)
+        values, rel = self._response_maps(out_dev, T0, kv_begin, composite,
+                                          contrastive)
+        # post-processing on the host: one copy of each result, then numpy
+        out = out_dev.cpu().numpy()
+        values, rel = values.float().cpu().numpy(), rel.cpu().numpy()
+
+        results = []
+        for i, s in enumerate(seqs):
+            gen = out[i, T0:]
+            keep = N
+            if eos_token_id is not None:
+                hits = np.nonzero(gen == eos_token_id)[0]
+                if hits.size:
+                    keep = int(hits[0]) + 1     # trim AFTER the first eos
+            resp_ids = [int(t) for t in gen[:keep]]
+            prompt_tokens = self._tokens_of(s)
+            resp_tokens = self._tokens_of(resp_ids)
+            tokens = prompt_tokens + resp_tokens
+            lo = T0 - len(s)
+            maps = []
+            for k in range(keep):
+                r = rel[k, i, lo:T0 + keep]
+                maps.append(Heatmap(
+                    tokens=tokens, relevance=_normalized(r), raw_relevance=r,
+                    value=float(values[k, i]), target_token=resp_tokens[k],
+                    target_token_id=resp_ids[k]))
+            text = (self.tokenizer.decode(resp_ids)
+                    if hasattr(self.tokenizer, "decode")
+                    else " ".join(resp_tokens))
+            results.append(ResponseAttribution(
+                prompt_tokens=prompt_tokens, response_tokens=resp_tokens,
+                response_text=text, heatmaps=maps))
+        return results
+
+    def _response_maps(self, out, T0, kv_begin, composite, contrastive):
+        """``AttributionModel.attribute_response(out, T0)`` over ``out``
+        right-padded to a multiple of ``pad_multiple``, so that the prompt
+        plus its response stays on the flash kernels' grid. The pad tokens
+        follow every explained position, so causal attention keeps them out
+        of every map. Returns ``(values [N, B], relevance [N, B, T])`` for
+        ``out [B, T]``, ``N = T - T0``."""
+        B, T = out.shape
+        Tp = -(-T // self.pad_multiple) * self.pad_multiple
+        padded = torch.cat([out, out.new_full((B, Tp - T), self._pad_id())], 1)
+        run = self.model._forward(composite, kv_begin)
+        values, rel = multi_site_relevance(
+            lambda e: run(e).logits, self.model.embed(padded),
+            list(range(T0 - 1, T - 1)), out[:, T0:].T, contrastive=contrastive)
+        return values, rel[..., :T]
+
+    def _attribute(self, ids, kv_begin, composite, topk):
+        """One forward with logits only at the last position, then one
+        backward (``topk == 1``: the per-example max logits, summed, whose
+        gradients are disjoint) or ``topk`` pulls of its graph. Returns
+        ``(tokens [K, B] or None, values, relevance)`` on the host."""
+        row = self.model._row(self.model._forward(composite, kv_begin), -1)
+        embeds = self.model.embed(ids)
+        if topk > 1:
+            toks, value, rel = topk_relevance(row, embeds, topk)
+            toks = toks.cpu().numpy()
+        else:
+            held = {}
+
+            def target(e):
+                per_example = row(e).max(dim=-1).values
+                held["value"] = per_example.detach()
+                return per_example.sum()
+
+            _, rel = input_relevance(target, embeds)
+            toks, value = None, held["value"]
+        return toks, value.float().cpu().numpy(), rel.cpu().numpy()
+
+    def __call__(self, prompts, composite=None, topk: int = 1):
+        """``topk=1`` (default): list of :class:`Heatmap`, one per prompt,
+        explaining the argmax next token. ``topk>1``: list of LISTS, the k
+        candidate heatmaps per prompt, all k sharing one forward pass
+        (:func:`lxt_tpu_torch.attribution.topk_relevance`), each tagged with
+        its ``target_token``."""
+        composite = composites.resolve(composite or self.composite)
+        topk = int(topk)
+        if topk < 1:
+            raise ValueError(f"topk must be >= 1, got {topk}")
+        ids, kv_begin, seqs = self._encode(prompts)
+        toks, value, rel = self._attribute(ids, kv_begin, composite, topk)
+
+        out = []
+        for i, s in enumerate(seqs):
+            tokens = self._tokens_of(s)
+            lo = ids.shape[1] - len(s)
+            if topk > 1:
+                cands = []
+                for k in range(topk):
+                    r = rel[k, i, lo:]
+                    tid = int(toks[k, i])
+                    cands.append(Heatmap(
+                        tokens=tokens, relevance=_normalized(r),
+                        raw_relevance=r, value=float(value[k, i]),
+                        target_token=self._tokens_of([tid])[0],
+                        target_token_id=tid))
+                out.append(cands)
+            else:
+                r = rel[i, lo:]
+                out.append(Heatmap(tokens=tokens, relevance=_normalized(r),
+                                   raw_relevance=r, value=float(value[i])))
+        return out

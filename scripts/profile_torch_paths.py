@@ -8,11 +8,13 @@ full width and depth, batch 1 x 4096, remat off), NF4 Mixtral-8x7B
 XL (bf16, full depth, batch 8 x 1024, remat off, CP-LRP), BERT-base (bf16,
 batch 32 x 512, 8 rows right-padded to 300, remat off) and decoding at
 TinyLlama-1.1B widths (bf16, batch 8 x 896: one prefill, generate's
-prefill and 128 steps, one attribute_response over the 1024 tokens, K 128).
-Random weights from a seed.
+prefill and 128 steps, one attribute_response over the 1024 tokens, K 128),
+and serving (one coalesced batch of 8 prompts of 640-1024 words through
+AttributionServer at TinyLlama-1.1B widths, bf16, remat off). Random
+weights from a seed.
 
     python3 scripts/profile_torch_paths.py \
-        [--paths main,nf4_8b,gemma,mixtral,gpt2,bert,decode]
+        [--paths main,nf4_8b,gemma,mixtral,gpt2,bert,decode,serve]
 
 The default is the first three. For each path: the wall time of three
 unprofiled attributions after a warm-up, then one attribution under
@@ -26,8 +28,11 @@ For Mixtral also the GEMMs of the expert products apart (the
 cuBLAS kernels of matrix products with an operand of the intermediate
 width); for Mixtral and decoding the host reads (device-to-host copies:
 the router's group sizes, generate's done flags) and the device idle that
-follows them. Needs a CUDA device; prints the card's nvidia-smi name and
-power limit first.
+follows them. For serving also the host's own time in tokenization (the
+server's submit), in normalising the maps (the pipeline's) and in JSON
+(the HTTP frontend's), each timed apart on the batch's prompts and maps.
+Needs a CUDA device; prints the card's nvidia-smi name and power limit
+first.
 """
 
 import os
@@ -131,9 +136,10 @@ def profile(run, label, card, expert_width=None, host_reads=False, reps=3,
             print(f"  {name:27s} {ms:9.2f} ms  {n:5d} launches", flush=True)
     ops = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CPU),
                  key=lambda a: -a.self_device_time_total)
-    print("  ops by the device time of the kernels they launch: " + ", ".join(
+    print("  ops by the device time of the kernels they launch: " + (", ".join(
         f"{a.key} {a.self_device_time_total / 1e3:.2f} ms ({a.count})"
-        for a in ops[:TOP_OPS] if a.self_device_time_total > 0), flush=True)
+        for a in ops[:TOP_OPS] if a.self_device_time_total > 0)
+        or "none attributed (launched from another thread)"), flush=True)
     if expert_width is not None:
         ms, n = expert_gemms(prof, expert_width)
         print(f"  of the cuBLAS GEMMs, the expert products: {ms:.2f} ms, {n} "
@@ -262,7 +268,63 @@ def main():
         profile(lambda: model.attribute_response(out, T0),
                 f"attribute_response {label} + {N}, K {N}", card, reps=1,
                 unit="call")
+    if "serve" in paths:
+        profile_serve(card)
     return 0
+
+
+def profile_serve(card):
+    """One coalesced batch of 8 through AttributionServer (submit, the
+    worker's pipeline call, the futures), and the host's parts of a served
+    request timed apart."""
+    import json
+
+    import lxt_tpu_torch
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from lxt_tpu_torch import pipeline as pl
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models.registry import AttributionModel
+    from lxt_tpu_torch.serve import AttributionServer, _result_json
+    cfg = llama.LlamaConfig(**cs.MODEL, dtype="bfloat16")
+    model = AttributionModel("llama", cfg, llama.init_params(
+        cfg, torch.Generator("cuda").manual_seed(20)), lxt_tpu_torch.attnlrp,
+        remat=False)
+    tok = cs.WordTokenizer(cfg.vocab_size)
+    pipe = pl.AttributionPipeline(model, tok)
+    prompts = cs.words(np.random.default_rng(21), cs.SERVE_WORDS, cs.SERVE_MAX_BATCH)
+    server = AttributionServer(pipe, max_batch=cs.SERVE_MAX_BATCH,
+                               max_wait_ms=cs.SERVE_WAIT_MS)
+    maps = {}
+
+    def run():
+        first = len(server.batch_sizes)
+        maps["out"] = [f.result() for f in [server.submit(p) for p in prompts]]
+        maps["batches"] = list(server.batch_sizes)[first:]
+
+    try:
+        profile(run, f"serve TinyLlama width bf16 L{cfg.num_layers}, "
+                f"{cs.SERVE_MAX_BATCH} prompts of {cs.SERVE_WORDS[0]}-"
+                f"{cs.SERVE_WORDS[1]} words", card, unit="coalesced batch")
+    finally:
+        server.close()
+    out = maps["out"]
+
+    def host_ms(fn, reps=20):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    t_tok = host_ms(lambda: [tok(p) for p in prompts])
+    t_norm = host_ms(lambda: [pl._normalized(h.raw_relevance) for h in out])
+    t_json = host_ms(lambda: [json.dumps({"heatmaps": [_result_json(h)]})
+                              for h in out])
+    print(f"  host: tokenization {t_tok:.3f} ms, normalisation {t_norm:.3f} ms, "
+          f"JSON {t_json:.3f} ms for the batch's {len(out)} requests "
+          f"(T {max(len(h.tokens) for h in out)}); coalesced batches of the "
+          f"profiled run {maps['batches']}", flush=True)
 
 
 if __name__ == "__main__":
