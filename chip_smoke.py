@@ -11,13 +11,15 @@ relevance, faithfulness, Integrated Gradients) at the main path's width,
 Mixtral-8x7B at full width and depth in NF4 (the routed expert products),
 GPT-2 XL at full depth (no rotary embedding), BERT-base (bidirectional,
 right-padded by kv_end), KV-cached decoding (generate, then
-attribute_response over the response) and the HTTP server
+attribute_response over the response), the HTTP server
 (AttributionServer over AttributionPipeline, a checkpoint loaded with
-from_pretrained).
+from_pretrained), and vision: the explicit rules, ViT-B/16, OpenCLIP
+ViT-L/14 and Gemma-3-4B with one 896 x 896 image at full width and depth.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
     python3 chip_smoke.py --serve     # phases 1-2 and 16 only, no result line
+    python3 chip_smoke.py --vision    # phases 1-2 and 17 only, no result line
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -181,7 +183,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the pipeline: heatmaps/s, GiB of codes and scales, peak) against a
      dense bf16 control of the same weights (int8 <= 1e-3; int4 <= 0.02,
      and at 4 layers within 0.1 of a float32 run of its weights, the
-     control's own distance from it printed).
+     control's own distance from it printed);
+ 17. vision: (a) each explicit rule (gamma 0.25, alpha-beta (2, 1), z+,
+     flat, w-square, z-box (-3, 3)) at ViT-B/16's patch embedding (conv)
+     and w_fc (linear), batch 8, float32 on the card against float64 on
+     the CPU (<= 1e-5; gamma, whose denominators cross 0, within twice
+     the CPU float32's own distance); (b) ViT-B/16 (torchvision vit_b_16
+     geometry, random weights) bf16 batch 64 under cp_lrp with gamma
+     (conv 0.25, linear 0.05): logits bit-equal across attnlrp, cp_lrp
+     and the gamma composite, three batches (heatmaps/s, peak memory,
+     finite maps, no flash launch: the towers attend on einsum), bf16
+     against float32 on the same bf16 weights, pixels and labels (<= 0.1
+     under cp_lrp and under cp_lrp with the conv gamma; the whole gamma
+     composite's printed: gamma on the linears is ill-conditioned),
+     attribute_topk k 5 against five
+     attribute_image(label=) calls (<= 1e-3); (c) OpenCLIP ViT-L/14 bf16
+     batch 32 towards a random unit direction (maps/s, peak memory);
+     (d) Gemma-3-4B image + text (gemma-3-4b-it's SigLIP at 896 and text
+     model, 256 image tokens in a prompt of 512, random weights): at 2
+     vision and 6 text layers in float32 the text side on the kernels
+     against einsum (<= 1e-4, launches exact), bf16 against float32
+     (<= 0.1), cached greedy tokens equal to uncached; at full depth
+     (27 + 34 layers) bf16, text remat off, three joint maps (heatmaps/s,
+     peak memory, launches per map 34 / 34 / 34 / 102, finite token and
+     pixel relevance), generate 32 tokens (K1 34, nothing else), and
+     attribute_response over the 544 tokens padded to 640 (K 32: launches
+     exact, map 0 within 1e-3 of a separate attribute).
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
@@ -198,8 +225,10 @@ the ring's three driven attributions, all four processes together, and
 attributions they are held against), "launches_bert" over phase 14's three
 bf16 attributions and "launches_decode" over phase 15's driven calls (the
 bf16 generate, attribute_response, attribute_response_latent and the NF4
-generate), "launches_serve" over phase 16's 32 served attribute requests;
-the last line is
+generate), "launches_serve" over phase 16's 32 served attribute requests,
+"launches_vision" over phase 17's ViT and OpenCLIP calls and
+"launches_multimodal" over its full-depth Gemma-3 calls (three attribute,
+generate, attribute_response); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -452,6 +481,40 @@ RESPOND_CHECKED, SAMPLED = (0, RESPOND_TOKENS - 1), dict(temperature=0.8, top_k=
 # rows' and the ring's, 0.02), and to DIVERGENCE_BAR against float32 at 4
 # layers; int8 dequantizes to bf16 before its product, as the control does
 BITS_CONTROL_LAYERS, INT4_BAR = 4, 0.02
+# phase 17, vision. (a) the explicit rules at ViT-B/16's patch embedding
+# (conv 16 x 16, stride 16, 3 -> 768 over 224 x 224 normalized pixels) and
+# its w_fc (768 -> 3072 over 197 LayerNorm-like rows), batch 8, float32 on
+# the card against the same call in float64 on the CPU. The gamma rule's
+# denominators z = x (w + g w+) + b cross 0 on such inputs, so float32
+# itself lands far from float64 there; gamma is held to twice the CPU's own
+# float32
+# distance (printed), the other specs to RULE_BAR.
+RULE_BATCH, RULE_BAR, RULE_GAMMA_FACTOR = 8, 1e-5, 2.0
+RULE_SPECS = {"gamma 0.25": ("gamma", 0.25), "alphabeta (2, 1)": ("alphabeta", 2.0, 1.0),
+              "zplus": "zplus", "flat": "flat", "wsquare": "wsquare",
+              "zbox (-3, 3)": ("zbox", -3.0, 3.0)}
+# (b) ViT-B/16, torchvision vit_b_16's geometry: bf16, batch 64, the gamma
+# composite of examples/vision_one_call.py; (c) OpenCLIP ViT-L/14
+# (open_clip's ViT-L-14.json): bf16, batch 32, one random unit direction
+VIT_B16 = dict(image_size=224, patch_size=16, hidden_size=768, intermediate_size=3072,
+               num_layers=12, num_heads=12, num_classes=1000, ln_eps=1e-6,
+               act="gelu_exact")
+OPENCLIP_L14 = dict(image_size=224, patch_size=14, hidden_size=1024,
+                    intermediate_size=4096, num_layers=24, num_heads=16, ln_eps=1e-5,
+                    act="quick_gelu", openclip=True, proj_dim=768)
+VIT_BATCH, CLIP_BATCH, TOPK_VIT = 64, 32, 5
+# (d) Gemma-3-4B image + text: google/gemma-3-4b-it's vision_config (SigLIP
+# so400m at 896: 27 layers, D 1152, 16 heads of 72), mm_tokens_per_image
+# 256 (a 4 x 4 pool of the 64 x 64 patch grid) and the text model of phase
+# 9, all 34 layers; bf16, attnlrp, text remat off, one image's 256 tokens
+# between boi and eoi in a prompt of 512. The gates at 2 vision and 6 text
+# layers; then generate 32 tokens and attribute_response over prompt +
+# response right-padded to 640
+SIGLIP_896 = dict(image_size=896, patch_size=14, hidden_size=1152,
+                  intermediate_size=4304, num_layers=27, num_heads=16, ln_eps=1e-6)
+MM_TOKENS, IMAGE_TOKEN, BOI, EOI = 256, 262144, 255999, 256000
+SEQ_MM, MM_IMAGE_AT, MM_NEW = 512, 128, 32
+MM_GATE = (2, 6)                          # vision layers, text layers
 
 
 def card_line():
@@ -1315,8 +1378,10 @@ def ring_ids(T, vocab):
 
 
 def cast(params, dtype):
-    return {k: ({n: t.to(dtype) for n, t in v.items()} if isinstance(v, dict)
-                else v.to(dtype)) for k, v in params.items()}
+    """A copy of the parameter tree ``params`` in ``dtype``."""
+    if isinstance(params, dict):
+        return {k: cast(v, dtype) for k, v in params.items()}
+    return params.to(dtype)
 
 
 def ring_rank(rank, store, out_dir, tokens):
@@ -2892,6 +2957,402 @@ def phase_serve_bits(card):
     return failures
 
 
+def rule_inputs(kind, device, dtype):
+    """Phase 17 (a)'s inputs at ViT-B/16's shapes from a fixed seed, made
+    on the CPU: (x, w, b, cotangent)."""
+    import torch
+    gen = torch.Generator().manual_seed(40)
+    if kind == "conv":
+        x = (torch.rand(RULE_BATCH, 224, 224, 3, generator=gen, dtype=torch.float64)
+             - 0.45) / 0.25
+        w = 0.02 * torch.randn(16, 16, 3, 768, generator=gen, dtype=torch.float64)
+        out_shape = (RULE_BATCH, 14, 14, 768)
+    else:
+        x = torch.randn(RULE_BATCH, 197, 768, generator=gen, dtype=torch.float64)
+        w = 0.02 * torch.randn(768, 3072, generator=gen, dtype=torch.float64)
+        out_shape = (RULE_BATCH, 197, 3072)
+    b = 0.02 * torch.randn(w.shape[-1], generator=gen, dtype=torch.float64)
+    cot = torch.randn(out_shape, generator=gen, dtype=torch.float64)
+    return tuple(t.to(device=device, dtype=dtype) for t in (x, w, b, cot))
+
+
+def rule_relevance(spec, kind, device, dtype):
+    """x * grad of one rule call (the spec on linear and conv alike)."""
+    import torch
+    import lxt_tpu_torch
+    comp = lxt_tpu_torch.cp_lrp.with_rules(linear=spec, conv=spec)
+    x, w, b, cot = rule_inputs(kind, device, dtype)
+    x.requires_grad_(True)
+
+    def run():
+        out = (comp.conv2d(x, w, b, (16, 16)) if kind == "conv"
+               else comp.linear(x, w, b))
+        return torch.autograd.grad(out, x, cot)[0]
+
+    grad = run()
+    ms = cuda_ms(run, iters=5) if device == "cuda" else None
+    return (x.detach() * grad).double().cpu(), ms
+
+
+def phase_rules(card):
+    """Phase 17 (a): each rule spec on the card in float32 against float64
+    on the CPU."""
+    import torch
+    failures = []
+    for name, spec in RULE_SPECS.items():
+        for kind in ("conv", "linear"):
+            ref, _ = rule_relevance(spec, kind, "cpu", torch.float64)
+            got, ms = rule_relevance(spec, kind, "cuda", torch.float32)
+            d = nl2(got, ref)
+            bar, note = RULE_BAR, ""
+            if spec[0] == "gamma":
+                own = nl2(rule_relevance(spec, kind, "cpu", torch.float32)[0], ref)
+                bar, note = RULE_GAMMA_FACTOR * own, f" (CPU float32: {own:.4g})"
+            ok = math.isfinite(d) and d <= bar
+            shape = ("conv 16x16/16 3->768 over 224x224" if kind == "conv"
+                     else "linear 768->3072 over 197 rows")
+            print(f"rule {name} {shape} B{RULE_BATCH} float32 on the card vs "
+                  f"float64 on the CPU: normalized L2 {d:.4g} (bar {bar:.4g}){note}; "
+                  f"forward + backward {ms:.3f} ms" + (" PASS" if ok else " FAIL")
+                  + f" [{card}]", flush=True)
+            if not ok:
+                failures.append(f"rule {name} {kind}")
+    return failures
+
+
+def vision_images(gen, batch, size, dtype):
+    """Normalized random pixels, NHWC, on the card."""
+    import torch
+    x = torch.rand(batch, size, size, 3, generator=gen, device="cuda")
+    return ((x - 0.45) / 0.25).to(dtype)
+
+
+def phase_vit(card):
+    """Phase 17 (b) and (c): ViT-B/16 and OpenCLIP ViT-L/14. Returns
+    (failures, flash launches over the driven calls)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import vit
+    from lxt_tpu_torch.models.registry import VisionAttributionModel
+    from lxt_tpu_torch.ops import flash_attention as fa
+    failures, launches = [], {n: 0 for n in fa.launches}
+
+    def add(counts):
+        for n, c in counts.items():
+            launches[n] += c
+
+    cfg = vit.ViTConfig(**VIT_B16)
+    gen = torch.Generator("cuda").manual_seed(30)
+    params32 = vit.init_params(cfg, gen)
+    params16 = cast(params32, torch.bfloat16)
+    gamma = lxt_tpu_torch.cp_lrp.with_gamma(conv_gamma=0.25, linear_gamma=0.05)
+    model = VisionAttributionModel("vit", cfg, params16, gamma)
+    requests = [vision_images(gen, VIT_BATCH, 224, torch.bfloat16)
+                for _ in range(REQUESTS)]
+    logits = {c.name: model.logits(requests[0], composite=c)
+              for c in (lxt_tpu_torch.attnlrp, lxt_tpu_torch.cp_lrp, gamma)}
+    same = all(torch.equal(v, logits[gamma.name]) for v in logits.values())
+    print(f"ViT-B/16 bf16 B{VIT_BATCH}: logits bit-equal across "
+          f"{sorted(logits)}: {same}" + (" PASS" if same else " FAIL") + f" [{card}]",
+          flush=True)
+    if not same:
+        failures.append("ViT-B/16 logits differ across composites")
+    model.attribute_image(requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    outs, counts, secs = counted(lambda: [model.attribute_image(x) for x in requests])
+    add(counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = VIT_BATCH * REQUESTS / secs
+    ok = all(h.shape == (VIT_BATCH, 224, 224) and bool(torch.isfinite(h).all())
+             for _, h in outs) and not any(counts.values())
+    print(f"ViT-B/16 L{cfg.num_layers} B{VIT_BATCH} bf16 {gamma.name} (conv gamma "
+          f"0.25, linear gamma 0.05), remat: {REQUESTS} calls, {rate:.2f} heatmaps/s "
+          f"({secs / REQUESTS:.4f} s a batch), peak device memory {peak:.2f} GiB, "
+          f"heatmaps finite and [{VIT_BATCH}, 224, 224], flash launches {counts}"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("ViT-B/16 heatmaps or launches")
+    # bf16 against float32 on the same (bf16-rounded) weights and pixels,
+    # each image explaining the class the bf16 logits pick (random weights
+    # leave near-ties among 1000 classes, which the two precisions may break
+    # apart), gated under cp_lrp and under cp_lrp with the conv gamma (the
+    # conv's inputs are the pixels, the same in both runs); the gamma rule
+    # on the linears is ill-conditioned (its denominators z = x (w + g w+)
+    # + b cross 0, and bf16 activations move them), so the whole gamma
+    # composite's distance is printed, not gated (phase 17 (a) measures
+    # the rule's own float32 error)
+    del params32
+    up = cast(params16, torch.float32)
+    conv_gamma = lxt_tpu_torch.cp_lrp.with_gamma(conv_gamma=0.25)
+    labels = logits[gamma.name].argmax(-1)
+    flips = int((VisionAttributionModel("vit", cfg, up, gamma).logits(
+        requests[0].float()).argmax(-1) != labels).sum())
+
+    def div(comp, h16=None):
+        if h16 is None:
+            h16 = VisionAttributionModel("vit", cfg, params16, comp).attribute_image(
+                requests[0], label=labels)[1]
+        h32 = VisionAttributionModel("vit", cfg, up, comp).attribute_image(
+            requests[0].float(), label=labels)[1]
+        return nl2(h16, h32)
+
+    d_cp, d_conv, d_gamma = (div(lxt_tpu_torch.cp_lrp), div(conv_gamma),
+                             div(gamma, outs[0][1]))
+    ok = all(math.isfinite(d) and d <= DIVERGENCE_BAR for d in (d_cp, d_conv))
+    print(f"ViT-B/16 bf16 vs float32 heatmaps B{VIT_BATCH}, the same bf16 weights, "
+          f"pixels and labels (the float32 argmax differs on {flips} of "
+          f"{VIT_BATCH}): normalized L2 cp_lrp {d_cp:.4g}, cp_lrp with conv gamma "
+          f"0.25 {d_conv:.4g} (bar {DIVERGENCE_BAR}); {gamma.name} (conv 0.25, "
+          f"linear 0.05) {d_gamma:.4g} (not gated: gamma on the linears)"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("ViT-B/16 bf16 divergence")
+    del up
+    (labels, values, maps), counts, secs = counted(
+        lambda: model.attribute_topk(requests[1], TOPK_VIT))
+    add(counts)
+    t0 = time.perf_counter()
+    sep = [model.attribute_image(requests[1], label=labels[k]) for k in range(TOPK_VIT)]
+    torch.cuda.synchronize()
+    t_sep = time.perf_counter() - t0
+    d = max(nl2(maps[k], h) for k, (_, h) in enumerate(sep))
+    ok = d <= API_BF16_BAR and not any(counts.values())
+    print(f"ViT-B/16 attribute_topk k {TOPK_VIT} B{VIT_BATCH}: {secs:.4f} s "
+          f"({TOPK_VIT * VIT_BATCH / secs:.2f} maps/s) against {TOPK_VIT} "
+          f"attribute_image(label=) calls {t_sep:.4f} s; worst map normalized L2 "
+          f"{d:.3g} (bar {API_BF16_BAR}), flash launches {counts}"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("ViT-B/16 attribute_topk")
+    del model, params16, requests, outs, maps, sep
+    torch.cuda.empty_cache()
+
+    cfg = vit.ViTConfig(**OPENCLIP_L14)
+    params = vit.init_params(cfg, gen, dtype=torch.bfloat16)
+    model = VisionAttributionModel("openclip", cfg, params, lxt_tpu_torch.cp_lrp)
+    direction = torch.randn(cfg.proj_dim, generator=gen, device="cuda")
+    direction = (direction / direction.norm()).to(torch.bfloat16)
+    requests = [vision_images(gen, CLIP_BATCH, 224, torch.bfloat16)
+                for _ in range(REQUESTS)]
+    model.attribute_image(requests[0], target=direction)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    outs, counts, secs = counted(
+        lambda: [model.attribute_image(x, target=direction) for x in requests])
+    add(counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ok = all(h.shape == (CLIP_BATCH, 224, 224) and bool(torch.isfinite(h).all())
+             for _, h in outs) and not any(counts.values())
+    print(f"OpenCLIP ViT-L/14 L{cfg.num_layers} B{CLIP_BATCH} bf16 cp_lrp, remat, "
+          f"a unit direction of {cfg.proj_dim}: {REQUESTS} calls, "
+          f"{CLIP_BATCH * REQUESTS / secs:.2f} maps/s, peak device memory "
+          f"{peak:.2f} GiB, maps finite, flash launches {counts}"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("OpenCLIP ViT-L/14 maps or launches")
+    return failures, launches
+
+
+def mm_config(vision_layers=None, text_layers=None):
+    """Gemma-3-4B image + text (phase 17 (d)), cut in depth if asked."""
+    from lxt_tpu_torch.models import gemma3, siglip
+    vision = siglip.SiglipConfig(**dict(SIGLIP_896, num_layers=vision_layers
+                                        or SIGLIP_896["num_layers"]))
+    text = gemma3.Gemma3Config(**dict(GEMMA3_4B, num_layers=text_layers
+                                      or GEMMA3_4B["num_layers"]))
+    return gemma3.Gemma3MultimodalConfig(text=text, vision=vision,
+                                         mm_tokens_per_image=MM_TOKENS,
+                                         image_token_id=IMAGE_TOKEN)
+
+
+def mm_weights(mmcfg, gen, dtype):
+    """Random image + text weights from ``gen``: SigLIP, the projector and
+    the text model (its norms 0, a multiplier of 1)."""
+    import torch
+    from lxt_tpu_torch.models import common, gemma3, siglip
+    Dv, Dt = mmcfg.vision.hidden_size, mmcfg.text.hidden_size
+    return {"vision": siglip.init_params(mmcfg.vision, gen, dtype=dtype),
+            "mm_proj": common.uniform_init(gen, (Dv, Dt), dtype=dtype, device="cuda"),
+            "mm_norm": torch.zeros(Dv, dtype=dtype, device="cuda"),
+            "text": gemma3.init_params(mmcfg.text, gen, dtype=dtype)}
+
+
+def mm_prompt(gen, dtype):
+    """One request: ids [1, SEQ_MM], text tokens around boi, the image's
+    MM_TOKENS placeholders and eoi; pixels [1, 896, 896, 3] in [-1, 1]."""
+    import torch
+    ids = torch.randint(0, BOI, (1, SEQ_MM), generator=gen, device="cuda")
+    ids[:, MM_IMAGE_AT - 1] = BOI
+    ids[:, MM_IMAGE_AT:MM_IMAGE_AT + MM_TOKENS] = IMAGE_TOKEN
+    ids[:, MM_IMAGE_AT + MM_TOKENS] = EOI
+    pix = torch.rand(1, 896, 896, 3, generator=gen, device="cuda") * 2 - 1
+    return ids, pix.to(dtype)
+
+
+def mm_attribute(params, mmcfg, ids, pix, impl):
+    """The joint map of the argmax logit at the last position through
+    multimodal_forward with the text attention on ``impl``, remat off:
+    (logits [1, 1, V], token relevance [1, T], pixel heatmap [1, H, W])."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import gemma3
+    mask = ids == mmcfg.image_token_id
+    e = gemma3.embed(params["text"], ids, mmcfg.text).detach().requires_grad_(True)
+    p = pix.detach().requires_grad_(True)
+    with torch.enable_grad():
+        logits = gemma3.multimodal_forward(
+            params, mmcfg, e, p, mask, lxt_tpu_torch.attnlrp, remat=False,
+            attn_impl=impl, logits_at=-1).logits
+        ge, gp = torch.autograd.grad(lxt_tpu_torch.select_logit(logits), (e, p))
+    return (logits.detach(), (e.detach().float() * ge.float()).sum(-1),
+            (p.detach().float() * gp.float()).sum(-1))
+
+
+def phase_multimodal(card):
+    """Phase 17 (d): the gates at reduced depth, then Gemma-3-4B image +
+    text at full width and depth. Returns (failures, flash launches over
+    the driven calls)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models.registry import MultimodalAttributionModel
+    from lxt_tpu_torch.ops import flash_attention as fa
+    failures, launches = [], {n: 0 for n in fa.launches}
+    gen = torch.Generator("cuda").manual_seed(50)
+    Lv, Lt = MM_GATE
+    mmcfg = mm_config(Lv, Lt)
+    params = mm_weights(mmcfg, gen, torch.float32)
+    ids, pix = mm_prompt(gen, torch.float32)
+    label = f"Gemma-3-4B image + text width, {Lv} vision / {Lt} text layers, B1x{SEQ_MM}"
+    fa.reset_launches()
+    k_out = mm_attribute(params, mmcfg, ids, pix, "auto")
+    torch.cuda.synchronize()
+    rose = dict(fa.launches)
+    e_out = mm_attribute(params, mmcfg, ids, pix, "einsum")
+    d = [nl2(a, b) for a, b in zip(k_out, e_out)]
+    finite = all(bool(torch.isfinite(t).all()) for t in k_out)
+    want = expected_launches(Lt, remat=False)
+    ok = finite and max(d) <= PARITY_BAR and rose == want
+    print(f"{label} float32: text side on the kernels vs einsum normalized L2 "
+          f"logits {d[0]:.3g}, token relevance {d[1]:.3g}, pixel heatmap {d[2]:.3g} "
+          f"(bar {PARITY_BAR}); finite {finite}; launches {rose} (expected {want})"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("multimodal float32 parity")
+    out16 = mm_attribute(cast(params, torch.bfloat16), mmcfg, ids,
+                         pix.to(torch.bfloat16), "auto")
+    d16 = [nl2(a, b) for a, b in zip(out16[1:], k_out[1:])]
+    finite = all(bool(torch.isfinite(t).all()) for t in out16)
+    ok = finite and max(d16) <= DIVERGENCE_BAR
+    print(f"{label} bf16 vs float32, kernels: token relevance {d16[0]:.4g}, pixel "
+          f"heatmap {d16[1]:.4g} (bar {DIVERGENCE_BAR}); finite {finite}"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("multimodal bf16 divergence")
+    model = MultimodalAttributionModel(mmcfg, params, lxt_tpu_torch.attnlrp, remat=False)
+    cached = model.generate(ids, pix, MM_NEW)
+    same = bool(torch.equal(cached, model.generate(ids, pix, MM_NEW, use_cache=False)))
+    print(f"{label} float32 generate {MM_NEW} greedy tokens: cached equal to "
+          f"uncached {same}" + (" PASS" if same else " FAIL") + f" [{card}]", flush=True)
+    if not same:
+        failures.append("multimodal cached tokens differ from uncached")
+    del model, params, k_out, e_out, out16
+    torch.cuda.empty_cache()
+
+    mmcfg = mm_config()
+    t0 = time.perf_counter()
+    params = mm_weights(mmcfg, gen, torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in iter_leaves(params))
+    model = MultimodalAttributionModel(mmcfg, params, lxt_tpu_torch.attnlrp, remat=False)
+    requests = [mm_prompt(gen, torch.bfloat16) for _ in range(REQUESTS)]
+    Lt = mmcfg.text.num_layers
+    label = (f"Gemma-3-4B image + text, {mmcfg.vision.num_layers} vision / {Lt} text "
+             f"layers, B1x{SEQ_MM} with one 896x896 image ({MM_TOKENS} tokens), bf16")
+    model.attribute(*requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    outs, counts, secs = counted(lambda: [model.attribute(*r) for r in requests])
+    for n, c in counts.items():
+        launches[n] += c
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per = {n: c / REQUESTS for n, c in counts.items()}
+    want = expected_launches(Lt, remat=False, hopper=HOPPER_BODIES[256])
+    ok = all(t.shape == (1, SEQ_MM) and p.shape == (1, 896, 896)
+             and bool(torch.isfinite(t).all() and torch.isfinite(p).all())
+             for _, t, p in outs)
+    print(f"{label}, text remat off: {n_params / 1e9:.3f} B parameters, init "
+          f"{t_init:.3f} s; {REQUESTS} joint maps, {REQUESTS / secs:.4f} heatmaps/s "
+          f"({secs / REQUESTS:.4f} s each), launches per map {per} (expected {want}), "
+          f"token relevance [1, {SEQ_MM}] and pixel heatmap [1, 896, 896] finite: "
+          f"{ok}, peak device memory {peak:.2f} GiB" + (" PASS" if ok and per == want
+                                                        else " FAIL")
+          + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("multimodal relevance not finite or misshapen")
+    if per != want:
+        failures.append(f"multimodal launches per map {per}")
+
+    ids, pix = requests[0]
+    out, counts, secs = counted(lambda: model.generate(ids, pix, MM_NEW))
+    for n, c in counts.items():
+        launches[n] += c
+    want = {n: (Lt if n == "flash_fwd" else 0) for n in counts}
+    uncached = model.generate(ids, pix, MM_NEW, use_cache=False)
+    agree = int((uncached == out).all(0).sum()) - SEQ_MM
+    ok = counts == want
+    print(f"{label}: generate {MM_NEW} tokens cached {secs:.3f} s "
+          f"({MM_NEW / secs:.2f} tokens/s, the image encoded once), launches "
+          f"{counts} (expected {want}); bf16 uncached agrees on {agree} of {MM_NEW} "
+          f"tokens (not gated: bf16 ties; the float32 gate above)"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append(f"multimodal generate launches {counts}")
+    T = out.shape[1]
+    padded = -(-T // 128) * 128
+    torch.cuda.reset_peak_memory_stats()
+    (values, rel_tok, rel_pix), counts, secs = counted(
+        lambda: model.attribute_response(out, pix, SEQ_MM))
+    for n, c in counts.items():
+        launches[n] += c
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expected_launches(Lt, remat=False, hopper=HOPPER_BODIES[256], pulls=MM_NEW)
+    _, tok0, pix0 = model.attribute(out[:, :SEQ_MM], pix, token=out[:, SEQ_MM])
+    d = max(nl2(rel_tok[0, :, :SEQ_MM], tok0), nl2(rel_pix[0], pix0))
+    ok = (counts == want and d <= API_BF16_BAR and rel_tok.shape == (MM_NEW, 1, T)
+          and bool(torch.isfinite(rel_tok).all() and torch.isfinite(rel_pix).all()))
+    print(f"{label}: attribute_response over {SEQ_MM} + {MM_NEW} tokens padded to "
+          f"{padded}, K {MM_NEW}: {secs:.3f} s ({MM_NEW / secs:.3f} maps/s), peak "
+          f"device memory {peak:.2f} GiB, launches {counts} (expected {want}), map 0 "
+          f"against a separate attribute normalized L2 {d:.3g} (bar {API_BF16_BAR})"
+          + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    if not ok:
+        failures.append("multimodal attribute_response")
+    return failures, launches
+
+
+def iter_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_leaves(v)
+    else:
+        yield tree
+
+
+def phase_vision(card):
+    """Phase 17: the rules, the vision towers, Gemma-3-4B image + text.
+    Returns (failures, {"vision": launches, "multimodal": launches})."""
+    import torch
+    t0 = time.perf_counter()
+    failures = phase_rules(card)
+    f, vision = phase_vit(card)
+    failures += f
+    torch.cuda.empty_cache()
+    f, multimodal = phase_multimodal(card)
+    failures += f
+    torch.cuda.empty_cache()
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return failures, {"vision": vision, "multimodal": multimodal}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2920,6 +3381,10 @@ def main():
 
     if "--serve" in sys.argv[1:]:
         failures, _ = phase_serve(card)
+        print(f"failures: {failures}", flush=True)
+        return 1 if failures else 0
+    if "--vision" in sys.argv[1:]:
+        failures, _ = phase_vision(card)
         print(f"failures: {failures}", flush=True)
         return 1 if failures else 0
     t_start = time.perf_counter()
@@ -2976,8 +3441,11 @@ def main():
     t_phase = time.perf_counter()
     f, serve_launches = phase_serve(card)
     failures += f
-    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; phases 3-16 "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    f, vision_launches = phase_vision(card)
+    failures += f
+    print(f"phases 3-17 took {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -3005,7 +3473,9 @@ def main():
          "launches_gpt2": gpt2_launches.get(name, 0),
          "launches_bert": bert_launches.get(name, 0),
          "launches_decode": decode_launches.get(name, 0),
-         "launches_serve": serve_launches.get(name, 0)}
+         "launches_serve": serve_launches.get(name, 0),
+         "launches_vision": vision_launches["vision"].get(name, 0),
+         "launches_multimodal": vision_launches["multimodal"].get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """lxt_tpu_torch — AttnLRP attribution for transformers in PyTorch, with
 hand-written Hopper (sm_90a) kernels: Llama-family (Llama 2/3, TinyLlama,
 Qwen 2/3, Mistral, Phi-3), Gemma 3 text, GPT-2, Mixtral and BERT models,
-and KV-cached decoding of the causal ones (``AttributionModel.generate``,
-then ``attribute_response`` explains each generated token).
+KV-cached decoding of the causal ones (``AttributionModel.generate``, then
+``attribute_response`` explains each generated token), the vision towers
+(torchvision ViT, OpenCLIP, SigLIP: pixel heatmaps) and Gemma 3 image +
+text (joint token and pixel relevance).
 
 The port of ``lxt_tpu`` (JAX on a TPU), which stays in this repository as
 the reference each ported part is tested against. Every LRP rule is an
@@ -11,7 +13,9 @@ autograd Function or a stop-gradient inside the model forward, so
 dequantization on CUDA tensors run the kernels in ``csrc/`` (built with
 nvcc at first use); on CPU tensors they run their plain PyTorch versions.
 
-``from_pretrained``, ``from_hf``, ``load_checkpoint_params``,
+``from_pretrained``, ``from_hf``, ``from_torchvision``, ``from_openclip``,
+``from_siglip``, ``VisionAttributionModel``, ``MultimodalAttributionModel``,
+``load_checkpoint_params``,
 ``quantize_params``,
 ``QuantizedTensor``, ``flash_attention_lse``, the sequence-parallel ring
 (``ring_flash_attention``, ``attribute_sequence_parallel``), the
@@ -30,8 +34,10 @@ from lxt_tpu_torch.attribution import input_relevance, select_logit
 from lxt_tpu_torch.composites import Composite, attnlrp, cp_lrp, vanilla_gradient
 
 _LAZY = {
-    "from_pretrained": "lxt_tpu_torch.models.registry",
-    "from_hf": "lxt_tpu_torch.models.registry",
+    **dict.fromkeys(("from_pretrained", "from_hf", "from_torchvision",
+                     "from_openclip", "from_siglip", "VisionAttributionModel",
+                     "MultimodalAttributionModel"),
+                    "lxt_tpu_torch.models.registry"),
     "load_checkpoint_params": "lxt_tpu_torch.io",
     "quantize_params": "lxt_tpu_torch.ops.quant",
     "QuantizedTensor": "lxt_tpu_torch.ops.quant",

@@ -1,7 +1,8 @@
 """Model zoo: LRP-aware transformers + HF weight conversion (the ported
 families of ``lxt_tpu.models``: Llama 2/3 / TinyLlama, Qwen 2/3, Mistral,
-Phi-3, Gemma 3 text, GPT-2, Mixtral and BERT), and ``decode``, the
-KV-cached prefill and decode steps of the causal families.
+Phi-3, Gemma 3 (text, and image + text), GPT-2, Mixtral, BERT, the ViT /
+OpenCLIP and SigLIP vision towers), and ``decode``, the KV-cached prefill
+and decode steps of the causal families.
 
 The family modules and the registry's ``SUPPORTED_FAMILIES``,
 ``AttributionModel``, ``detect_family`` and ``from_hf`` are imported on
@@ -12,7 +13,8 @@ first access (``from lxt_tpu_torch.models import mixtral`` or
 
 import importlib
 
-_MODULES = ("bert", "common", "decode", "gemma3", "gpt2", "llama", "mixtral")
+_MODULES = ("bert", "common", "decode", "gemma3", "gpt2", "llama", "mixtral",
+            "siglip", "vit")
 _REGISTRY = ("SUPPORTED_FAMILIES", "AttributionModel", "detect_family", "from_hf")
 
 __all__ = [*_MODULES, *_REGISTRY]

@@ -140,10 +140,11 @@ def forward(
     if kv_end is not None:
         kv_end = torch.as_tensor(kv_end, dtype=torch.int32, device=device)
     H, hd = cfg.num_heads, cfg.hd
-    lp, comp = params["layers"], composite
+    lp = params["layers"]
     probes = common.layer_probes(probes)
 
     def layer(h, i):
+        comp = composite.for_layer(i, cfg.num_layers)
         q = common.split_heads(comp.linear(h, lp["wq"][i], lp["bq"][i], site="wq"), H, hd)
         k = common.split_heads(comp.linear(h, lp["wk"][i], lp["bk"][i], site="wk"), H, hd)
         v = common.split_heads(comp.linear(h, lp["wv"][i], lp["bv"][i], site="wv"), H, hd)

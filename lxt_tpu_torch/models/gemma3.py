@@ -14,11 +14,18 @@ Gemma-3 specifics (HF ``modeling_gemma3``):
   ``layer_types``. The layer loop is Python, so each layer passes its own
   window and tables to the attention (in-kernel rope on the flash path).
 
-The multimodal half (SigLIP tower and projector) is not ported yet.
+The multimodal half (``Gemma3ForConditionalGeneration``): the SigLIP tower
+(``models/siglip.py``) encodes the pixels, :func:`project_image_features`
+pools and projects them into the text embedding space, and
+:func:`merge_image_embeds` scatters them over the image placeholder
+tokens; :func:`multimodal_forward` runs the text model on the merge. The
+attention is causal everywhere, as in ``lxt_tpu`` (HF lets image tokens
+attend to each other when the processor passes ``token_type_ids``;
+ROADMAP F9).
 """
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -163,10 +170,11 @@ def forward(
     H, Hkv, hd, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_eps
     act_fn = ACTIVATIONS[cfg.act]
     sliding = layer_sliding_flags(cfg)
-    lp, comp = params["layers"], composite
+    lp = params["layers"]
     probes = common.layer_probes(probes)
 
     def layer(h, i):
+        comp = composite.for_layer(i, cfg.num_layers)
         x = gemma_rms_norm(h, lp["ln_in"][i], eps, comp)
         q = common.split_heads(comp.linear(x, lp["wq"][i], site="wq"), H, hd)
         k = common.split_heads(comp.linear(x, lp["wk"][i], site="wk"), Hkv, hd)
@@ -253,3 +261,106 @@ def params_from_hf(state_dict, cfg: Gemma3Config, dtype=torch.float32,
     if not cfg.tie_embeddings and "lm_head.weight" in state_dict:
         params["lm_head"] = tensor(t("lm_head.weight").T)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Multimodal (image + text): Gemma3ForConditionalGeneration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Gemma3MultimodalConfig:
+    """Text config + SigLIP vision tower + projector geometry (HF
+    ``Gemma3Config`` / ``Gemma3MultiModalProjector``)."""
+
+    text: Gemma3Config
+    vision: Any                # models.siglip.SiglipConfig
+    mm_tokens_per_image: int = 256
+    image_token_id: int = 262144
+
+    @classmethod
+    def from_hf(cls, hf_config):
+        from lxt_tpu_torch.models import siglip
+        return cls(
+            text=Gemma3Config.from_hf(hf_config.text_config),
+            vision=siglip.SiglipConfig.from_hf(hf_config.vision_config),
+            mm_tokens_per_image=hf_config.mm_tokens_per_image,
+            image_token_id=hf_config.image_token_index,
+        )
+
+
+def project_image_features(params, mmcfg: Gemma3MultimodalConfig,
+                           vision_out, composite):
+    """``Gemma3MultiModalProjector``: a k×k average pool of the patch grid
+    down to ``mm_tokens_per_image``, Gemma RMSNorm with the vision eps, and
+    the projection into the text width. ``[B, P, Dv] -> [B, mm_tokens,
+    Dt]``; the pool is linear, so the gradient handles it exactly."""
+    B, P, Dv = vision_out.shape
+    pps = mmcfg.vision.image_size // mmcfg.vision.patch_size
+    side = int(mmcfg.mm_tokens_per_image ** 0.5)
+    k = pps // side
+    x = vision_out.reshape(B, side, k, side, k, Dv).mean(dim=(2, 4))
+    x = x.reshape(B, side * side, Dv)
+    x = gemma_rms_norm(x, params["mm_norm"], mmcfg.vision.ln_eps, composite)
+    return composite.linear(x, params["mm_proj"], site="mm_proj")
+
+
+def merge_image_embeds(params, mmcfg: Gemma3MultimodalConfig, inputs_embeds,
+                       pixel_values, image_token_mask,
+                       composite=composites.attnlrp):
+    """SigLIP-encode the pixels, project them into the text space and
+    scatter the projected tokens over the image placeholders (position t
+    takes image token ``cumsum(mask)[t] - 1``). The gradient reaches both
+    the image tokens and the text embeds at the other positions. The one
+    definition of the merge: the joint forward's and the cached decode's
+    prefix."""
+    from lxt_tpu_torch.models import siglip
+
+    vision_out = siglip.forward(params["vision"], mmcfg.vision, pixel_values,
+                                composite)
+    img = project_image_features(params, mmcfg, vision_out, composite)
+    B, T, D = inputs_embeds.shape
+    flat_img = img.reshape(-1, D).to(inputs_embeds.dtype)
+    mask = image_token_mask.reshape(-1)
+    idx = torch.clamp(torch.cumsum(mask.long(), 0) - 1, min=0)
+    merged = torch.where(mask[:, None], flat_img[idx],
+                         inputs_embeds.reshape(-1, D))
+    return merged.reshape(B, T, D)
+
+
+def multimodal_forward(params, mmcfg: Gemma3MultimodalConfig, inputs_embeds,
+                       pixel_values, image_token_mask,
+                       composite=composites.attnlrp, **kw):
+    """Joint image + text forward: the merged prefix (see
+    :func:`merge_image_embeds`) through the text model; ``kw`` are
+    :func:`forward`'s keywords. ``pixel_values``: NHWC ``[B_img, H, W,
+    3]``; ``image_token_mask``: bool ``[B, T]`` marking the placeholders
+    (``B_img * mm_tokens_per_image`` of them). One backward gives the
+    relevance of the pixels and of the text embeds."""
+    merged = merge_image_embeds(params, mmcfg, inputs_embeds, pixel_values,
+                                image_token_mask, composite)
+    return forward(params["text"], mmcfg.text, merged, composite, **kw)
+
+
+def multimodal_params_from_hf(state_dict, mmcfg: Gemma3MultimodalConfig,
+                              dtype=torch.float32, device="cuda"):
+    """Convert ``Gemma3ForConditionalGeneration`` weights
+    (``model.vision_tower.*``, ``model.multi_modal_projector.*``,
+    ``model.language_model.*``, ``lm_head``): ``{"vision", "mm_proj",
+    "mm_norm", "text"}``."""
+    from lxt_tpu_torch.models import siglip
+    from lxt_tpu_torch.models.vit import _converter
+
+    t, tensor = _converter(state_dict, dtype, device)
+    prefix = "model.language_model."
+    text_sd = {"model." + k[len(prefix):]: v for k, v in state_dict.items()
+               if k.startswith(prefix)}
+    if "lm_head.weight" in state_dict:
+        text_sd["lm_head.weight"] = state_dict["lm_head.weight"]
+    return {
+        "vision": siglip.params_from_hf(
+            state_dict, mmcfg.vision, dtype=dtype, device=device,
+            prefix="model.vision_tower.vision_model."),
+        "mm_proj": tensor(t("model.multi_modal_projector.mm_input_projection_weight")),
+        "mm_norm": tensor(t("model.multi_modal_projector.mm_soft_emb_norm.weight")),
+        "text": params_from_hf(text_sd, mmcfg.text, dtype=dtype, device=device),
+    }

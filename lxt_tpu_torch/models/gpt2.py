@@ -133,10 +133,11 @@ def forward(
     h0 = inputs_embeds + position_embeds
     act_fn = ACTIVATIONS[cfg.act]
     H, hd, D = cfg.num_heads, cfg.hd, cfg.hidden_size
-    lp, comp = params["layers"], composite
+    lp = params["layers"]
     probes = common.layer_probes(probes)
 
     def layer(h, i):
+        comp = composite.for_layer(i, cfg.num_layers)
         x = comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps)
         qkv = comp.linear(x, lp["w_attn"][i], lp["b_attn"][i], site="w_attn")
         q, k, v = (common.split_heads(t, H, hd) for t in qkv.split(D, dim=-1))

@@ -234,10 +234,11 @@ def _run_layers(lp, cfg, inputs_embeds, composite, *, probes,
                               rope_scaling=cfg.rope_scaling, seq_len=seq_len)
     scale = cfg.hd ** -0.5
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    comp = composite
     probes = common.layer_probes(probes)
 
     def layer(h, i):
+        comp = composite.for_layer(i, cfg.num_layers)
+
         def get(name):
             return lp[name][i] if name in lp else None
 

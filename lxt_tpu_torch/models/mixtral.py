@@ -262,10 +262,11 @@ def forward(
     scale = cfg.hd ** -0.5
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     act_fn = ACTIVATIONS[cfg.act]
-    lp, comp = params["layers"], composite
+    lp = params["layers"]
     probes = common.layer_probes(probes)
 
     def layer(h, i):
+        comp = composite.for_layer(i, cfg.num_layers)
         x = comp.rms_norm(h, lp["ln1"][i], cfg.rms_eps)
         q = common.split_heads(comp.linear(x, lp["wq"][i], site="wq"), H, hd)
         k = common.split_heads(comp.linear(x, lp["wk"][i], site="wk"), Hkv, hd)

@@ -1,7 +1,9 @@
 """One-call user surface: HF checkpoint or model of a Llama-family,
-Gemma-3 text, Mixtral, GPT-2 or BERT model -> :class:`AttributionModel`
-(counterpart of ``lxt_tpu/models/registry.py``, for the families the port
-has).
+Gemma-3 text, Mixtral, GPT-2 or BERT model -> :class:`AttributionModel`;
+a torchvision ViT, OpenCLIP visual tower or SigLIP tower ->
+:class:`VisionAttributionModel`; Gemma-3 image + text ->
+:class:`MultimodalAttributionModel` (counterpart of
+``lxt_tpu/models/registry.py``).
 
     import lxt_tpu_torch
     model = lxt_tpu_torch.from_pretrained("/path/to/llama-dir",
@@ -126,6 +128,15 @@ _HF_DEFAULTS = {
                  num_attention_heads=12, intermediate_size=3072,
                  max_position_embeddings=512, type_vocab_size=2,
                  layer_norm_eps=1e-12, hidden_act="gelu", num_labels=2),
+    "siglip_vision_model": dict(hidden_size=768, intermediate_size=3072,
+                                num_hidden_layers=12, num_attention_heads=12,
+                                num_channels=3, image_size=224, patch_size=16,
+                                hidden_act="gelu_pytorch_tanh",
+                                layer_norm_eps=1e-6),
+    # the image + text wrapper's own keys (its text and vision configs are
+    # filled as gemma3_text and siglip_vision_model)
+    "gemma3": dict(mm_tokens_per_image=256, boi_token_index=255999,
+                   eoi_token_index=256000, image_token_index=262144),
 }
 
 
@@ -134,7 +145,8 @@ def read_hf_config(model_dir):
     with the keys it leaves out filled as transformers' config class for
     its ``model_type`` fills them (a ``model_type`` outside the table is
     taken as written). A ``gemma3`` (image + text) config keeps its
-    ``text_config``, filled the same way, as a nested namespace."""
+    ``text_config`` and ``vision_config``, filled the same way, as nested
+    namespaces."""
     return _filled(json.loads((Path(model_dir) / "config.json").read_text()))
 
 
@@ -142,7 +154,11 @@ def _filled(raw):
     mt = raw.get("model_type")
     if mt == "gemma3":
         text = dict(raw.get("text_config") or {}, model_type="gemma3_text")
-        return types.SimpleNamespace(**dict(raw, text_config=_filled(text)))
+        vision = dict(raw.get("vision_config") or {},
+                      model_type="siglip_vision_model")
+        return types.SimpleNamespace(**{
+            **_HF_DEFAULTS[mt], **raw, "text_config": _filled(text),
+            "vision_config": _filled(vision)})
     if mt not in _HF_DEFAULTS:
         return types.SimpleNamespace(**raw)
     cfg = dict(_HF_DEFAULTS[mt])
@@ -240,6 +256,72 @@ def _greedy_update(buf, done, logits, pos, eos_token_id, generator=None,
     return done
 
 
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _decode(table, params, cfg, comp, ids0, prefix, embed, max_new_tokens,
+            eos_token_id, kv_begin, use_cache, sample):
+    """The decode loop of ``generate``: ``prefix [B, T0, D]`` embeds the
+    prompt ``ids0`` (for an image + text model, with the image tokens
+    merged in), ``embed(ids)`` embeds generated tokens. KV-cached: the
+    family's prefill over ``prefix``, then one ``decode_step`` a token;
+    otherwise the full forward over prefix + the embedded tail per token.
+    Stops once every row has emitted ``eos_token_id`` (one host read of the
+    ``done`` flags a step). ``sample``: ``_greedy_update``'s sampling
+    keywords."""
+    N = int(max_new_tokens)
+    if N < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {N}")
+    B, T0 = ids0.shape
+    buf = torch.cat([ids0, ids0.new_zeros((B, N))], dim=1)
+    done = torch.zeros(B, dtype=torch.bool, device=ids0.device)
+
+    def pick(logits, pos, done):
+        return _greedy_update(buf, done, logits, pos, eos_token_id, **sample)
+
+    def finished():
+        if eos_token_id is None:
+            return False
+        decode.counters["done_reads"] += 1
+        return bool(done.all())
+
+    with torch.no_grad():
+        if use_cache and "prefill" in table:
+            logits, caches = table["prefill"](params, cfg, prefix, T0 + N,
+                                              kv_begin=kv_begin, composite=comp)
+            done = pick(logits, T0, done)
+            for k in range(1, N):
+                if finished():
+                    break
+                logits, caches = table["decode_step"](
+                    params, cfg, embed(buf[:, T0 + k - 1:T0 + k]), caches,
+                    T0 + k - 1, kv_begin=kv_begin, composite=comp)
+                done = pick(logits, T0 + k, done)
+        else:
+            for k in range(N):
+                if finished():
+                    break
+                e = torch.cat([prefix, embed(buf[:, T0:])], dim=1)
+                logits = table["forward"](
+                    params, cfg, e, comp, kv_begin=kv_begin, remat=False,
+                    logits_at=T0 + k - 1).logits
+                done = pick(logits, T0 + k, done)
+    return buf if eos_token_id is None else _fill_after_eos(buf, T0, eos_token_id)
+
+
+def _response_sites(ids, response_start):
+    """Map k of a response explains ``ids[:, response_start + k]`` at the
+    position that predicted it: ``(positions [K], tokens [K, B])``."""
+    T = ids.shape[1]
+    if not 1 <= response_start < T:
+        raise ValueError(f"response_start must be in [1, T), got "
+                         f"{response_start} for T={T}")
+    return (list(range(response_start - 1, T - 1)), ids[:, response_start:].T)
+
+
 @dataclasses.dataclass
 class AttributionModel:
     """A converted model of one of :data:`FAMILIES` plus its attribution
@@ -261,9 +343,7 @@ class AttributionModel:
     def device(self):
         """The parameters' device: that of the first leaf, whatever the
         family names its embedding."""
-        leaf = self.params
-        while isinstance(leaf, dict):
-            leaf = next(iter(leaf.values()))
+        leaf = _first_leaf(self.params)
         return leaf.q.device if isinstance(leaf, QuantizedTensor) else leaf.device
 
     def embed(self, input_ids):
@@ -446,61 +526,14 @@ class AttributionModel:
                              "BERT is an encoder")
         if generator is not None and not temperature > 0:
             raise ValueError("sampling (generator=) needs temperature > 0")
-        N = int(max_new_tokens)
-        if N < 1:
-            raise ValueError(f"max_new_tokens must be >= 1, got {N}")
-        table = FAMILIES[self.family]
-        params, cfg = self.params, self.cfg
-        comp = composites.resolve(self.composite)
         ids0 = _tensor(input_ids, self.device).long()
-        B, T0 = ids0.shape
         kb = None if kv_begin is None else _tensor(kv_begin, self.device).to(torch.int32)
-        buf = torch.cat([ids0, ids0.new_zeros((B, N))], dim=1)
-        done = torch.zeros(B, dtype=torch.bool, device=ids0.device)
-
-        def pick(logits, pos, done):
-            return _greedy_update(buf, done, logits, pos, eos_token_id,
-                                  generator=generator,
-                                  temperature=float(temperature), top_k=top_k)
-
-        def finished():
-            if eos_token_id is None:
-                return False
-            decode.counters["done_reads"] += 1
-            return bool(done.all())
-
-        with torch.no_grad():
-            if use_cache and "prefill" in table:
-                logits, caches = table["prefill"](
-                    params, cfg, self.embed(ids0), T0 + N, kv_begin=kb,
-                    composite=comp)
-                done = pick(logits, T0, done)
-                for k in range(1, N):
-                    if finished():
-                        break
-                    logits, caches = table["decode_step"](
-                        params, cfg, self.embed(buf[:, T0 + k - 1:T0 + k]),
-                        caches, T0 + k - 1, kv_begin=kb, composite=comp)
-                    done = pick(logits, T0 + k, done)
-            else:
-                for k in range(N):
-                    if finished():
-                        break
-                    logits = table["forward"](
-                        params, cfg, self.embed(buf), comp, kv_begin=kb,
-                        remat=False, logits_at=T0 + k - 1).logits
-                    done = pick(logits, T0 + k, done)
-        return buf if eos_token_id is None else _fill_after_eos(buf, T0, eos_token_id)
-
-    def _response_sites(self, ids, response_start):
-        """Map k of a response explains ``ids[:, response_start + k]`` at
-        the position that predicted it: ``(positions [K], tokens [K, B])``."""
-        T = ids.shape[1]
-        if not 1 <= response_start < T:
-            raise ValueError(f"response_start must be in [1, T), got "
-                             f"{response_start} for T={T}")
-        return (list(range(response_start - 1, T - 1)),
-                ids[:, response_start:].T)
+        return _decode(FAMILIES[self.family], self.params, self.cfg,
+                       composites.resolve(self.composite), ids0,
+                       self.embed(ids0), self.embed, max_new_tokens,
+                       eos_token_id, kb, use_cache,
+                       dict(generator=generator, temperature=float(temperature),
+                            top_k=top_k))
 
     def attribute_response(self, input_ids, response_start: int, *,
                            composite=None, kv_begin=None,
@@ -517,7 +550,7 @@ class AttributionModel:
         left padding. Returns ``(values [K, B], relevance [K, B, T])``,
         ``K = T - response_start``."""
         ids = _tensor(input_ids, self.device).long()
-        positions, tokens = self._response_sites(ids, int(response_start))
+        positions, tokens = _response_sites(ids, int(response_start))
         run = self._forward(composite, kv_begin)
         return multi_site_relevance(lambda e: run(e).logits, self.embed(ids),
                                     positions, tokens, contrastive=contrastive,
@@ -529,7 +562,7 @@ class AttributionModel:
         map k's probe gradients times the shared hidden states. Returns
         ``(values [K, B], input_rel [K, B, T], latent_rel [K, L, B, T])``."""
         ids = _tensor(input_ids, self.device).long()
-        positions, tokens = self._response_sites(ids, int(response_start))
+        positions, tokens = _response_sites(ids, int(response_start))
         run = self._forward(composite, output_hidden_states=True)
         embeds = self.embed(ids)
 
@@ -594,21 +627,31 @@ def detect_family(hf_config, state_dict=None) -> str:
         f"of these computationally, pass family='<name>' to force it.")
 
 
+#: the key renames of transformers' ``Gemma3ForConditionalGeneration``
+#: (its ``_checkpoint_conversion_mapping``): ``save_pretrained`` writes, and
+#: the checkpoints on the Hub hold, the names on the left
+_GEMMA3_RENAMES = (("language_model.model.", "model.language_model."),
+                   ("language_model.lm_head.", "lm_head."),
+                   ("vision_tower.", "model.vision_tower."),
+                   ("multi_modal_projector.", "model.multi_modal_projector."))
+
+
+def _gemma3_names(state_dict):
+    """A ``gemma3`` state dict with the module's current key names."""
+    renamed = {}
+    for k, v in state_dict.items():
+        for old, new in _GEMMA3_RENAMES:
+            if k.startswith(old):
+                k = new + k[len(old):]
+                break
+        renamed[k] = v
+    return renamed
+
+
 def _text_model(state_dict, hf_config):
     """A ``gemma3`` (image + text) config and state dict -> its language
     model's (``text_config``, ``model.language_model.*`` weights renamed
-    to ``model.*``). A checkpoint that holds vision weights is refused: the
-    port has no SigLIP tower yet, and dropping it would explain a different
-    model."""
-    vision = [k for k in state_dict if k.startswith(
-        ("model.vision_tower.", "model.multi_modal_projector.",
-         "vision_tower.", "multi_modal_projector."))]
-    if vision:
-        raise ValueError(
-            f"this gemma3 checkpoint holds vision weights ({vision[0]}, ...): "
-            f"the image + text model is not ported to lxt_tpu_torch yet "
-            f"(it needs the SigLIP tower); save the language model alone "
-            f"(Gemma3ForCausalLM) to attribute its text")
+    to ``model.*``); the vision weights are left out."""
     prefix = "model.language_model."
     if any(k.startswith(prefix) for k in state_dict):
         text = {"model." + k[len(prefix):]: v for k, v in state_dict.items()
@@ -619,10 +662,18 @@ def _text_model(state_dict, hf_config):
     return state_dict, hf_config.text_config
 
 
-def _convert(state_dict, hf_config, composite, dtype, device, family=None):
-    """state dict (torch tensors or numpy arrays) -> AttributionModel."""
+def _convert(state_dict, hf_config, composite, dtype, device, family=None,
+             text_only=False):
+    """state dict (torch tensors or numpy arrays) -> AttributionModel, or a
+    :class:`MultimodalAttributionModel` for a ``gemma3`` checkpoint that
+    holds its vision tower (unless ``text_only``)."""
     if (getattr(hf_config, "model_type", None) == "gemma3"
             and hasattr(hf_config, "text_config")):
+        state_dict = _gemma3_names(state_dict)
+        if not text_only and any(k.startswith("model.vision_tower.")
+                                 for k in state_dict):
+            return _convert_multimodal(state_dict, hf_config, composite,
+                                       dtype, device)
         state_dict, hf_config = _text_model(state_dict, hf_config)
     if family is not None:
         if family not in SUPPORTED_FAMILIES:
@@ -642,7 +693,8 @@ def _convert(state_dict, hf_config, composite, dtype, device, family=None):
 
 
 def from_hf(hf_model, composite: composites.Composite = None, dtype=None,
-            family: str = None, device="cuda", canonizers=None):
+            family: str = None, device="cuda", canonizers=None,
+            text_only: bool = False):
     """Convert a loaded HF torch model of one of :data:`SUPPORTED_FAMILIES`
     (``.config`` and ``.state_dict()``) into an :class:`AttributionModel` on
     ``device``.
@@ -651,18 +703,38 @@ def from_hf(hf_model, composite: composites.Composite = None, dtype=None,
     are detected. The composite defaults to AttnLRP (CP-LRP for GPT-2, as
     the reference recommends). ``canonizers``: an
     optional list of ``(params, cfg, family)`` pre-transforms applied to the
-    converted model (:meth:`AttributionModel.canonize`)."""
-    if not hasattr(hf_model, "config"):
-        raise ValueError("from_hf takes an HF model with a .config; the "
-                         "vision layouts are not ported to lxt_tpu_torch yet")
+    converted model (:meth:`AttributionModel.canonize`).
+
+    Also takes the vision layouts: a config-less torchvision
+    ``VisionTransformer``-shaped module or state dict (or an OpenCLIP
+    visual tower) and an HF SigLIP vision model give a
+    :class:`VisionAttributionModel`; a ``Gemma3ForConditionalGeneration``
+    with its vision tower gives a :class:`MultimodalAttributionModel`
+    (``text_only=True``: its language model alone)."""
+    if not hasattr(hf_model, "config"):   # torchvision / open_clip modules
+        sd = hf_model if isinstance(hf_model, dict) else hf_model.state_dict()
+        if "conv_proj.weight" in sd:
+            return from_torchvision(hf_model, composite=composite, dtype=dtype,
+                                    device=device)
+        if "conv1.weight" in sd and any(
+                k.startswith("transformer.resblocks.") for k in sd):
+            return from_openclip(hf_model, composite=composite, dtype=dtype,
+                                 device=device)
+        raise ValueError(
+            "model has no .config and is not a recognized vision layout "
+            "(torchvision VisionTransformer / OpenCLIP visual tower)")
+    if getattr(hf_model.config, "model_type", None) in (
+            "siglip", "siglip_vision_model"):
+        return from_siglip(hf_model, composite=composite, dtype=dtype,
+                           device=device)
     model = _convert(hf_model.state_dict(), hf_model.config, composite, dtype,
-                     device, family)
+                     device, family, text_only)
     return model.canonize(*canonizers) if canonizers else model
 
 
 def from_pretrained(model_dir, composite: composites.Composite = None,
                     dtype=None, quantize_bits=None, family: str = None,
-                    device="cuda", canonizers=None):
+                    device="cuda", canonizers=None, text_only: bool = False):
     """Load an :class:`AttributionModel` straight from an HF checkpoint
     directory onto ``device``; no torch model is instantiated.
 
@@ -672,7 +744,10 @@ def from_pretrained(model_dir, composite: composites.Composite = None,
     dequantized on the host and, unless ``quantize_bits`` says otherwise,
     re-quantized in kind ("nf4" / 8), which reproduces their values
     exactly. ``canonizers`` as in :func:`from_hf`, applied before the
-    quantization (they transform full-precision weights)."""
+    quantization (they transform full-precision weights). A ``gemma3``
+    checkpoint with vision weights loads as a
+    :class:`MultimodalAttributionModel` (``text_only=True``: its language
+    model alone)."""
     from lxt_tpu_torch.io import load_checkpoint_state_dict
     from lxt_tpu_torch.ops.quant import ingest_bnb_state_dict, quantize_params
 
@@ -683,10 +758,328 @@ def from_pretrained(model_dir, composite: composites.Composite = None,
     had_8bit = any(k.endswith(".SCB") for k in state)
     if ingest_bnb_state_dict(state) and quantize_bits is None:
         quantize_bits = 8 if had_8bit else "nf4"
-    model = _convert(state, hf_config, composite, dtype, device, family)
+    model = _convert(state, hf_config, composite, dtype, device, family,
+                     text_only)
     if canonizers:
         model = model.canonize(*canonizers)
     if quantize_bits:
+        if not isinstance(model, AttributionModel):
+            raise ValueError("quantize_bits applies to text models only")
         model.params = quantize_params(model.params, bits=quantize_bits,
                                        family=model.family)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Vision: torchvision ViT, OpenCLIP's visual tower, SigLIP
+# ---------------------------------------------------------------------------
+
+def _canon_images(images, device):
+    """NHWC or NCHW (the torch convention) RGB images -> NHWC on
+    ``device``."""
+    images = _tensor(images, device)
+    if images.dim() != 4:
+        raise ValueError(f"expected [B, H, W, 3] images, got {tuple(images.shape)}")
+    if images.shape[-1] == 3:
+        return images
+    if images.shape[1] == 3:
+        return images.permute(0, 2, 3, 1)
+    # neither axis is RGB (RGBA, grayscale): say so here rather than as a
+    # conv shape error
+    raise ValueError(
+        f"expected RGB images as [B, H, W, 3] or [B, 3, H, W], got "
+        f"{tuple(images.shape)}")
+
+
+@dataclasses.dataclass
+class VisionAttributionModel:
+    """A converted vision tower plus its attribution entry points.
+
+    ``kind``: 'vit' (classification head), 'openclip' (L2-normalized CLIP
+    embedding) or 'siglip' (headless: pass an explicit ``target``). The
+    towers recompute their layers in the backward (``remat``)."""
+
+    kind: str
+    cfg: Any
+    params: Any
+    composite: composites.Composite
+
+    @property
+    def device(self):
+        return _first_leaf(self.params).device
+
+    def _forward(self, composite):
+        """``run(images) -> [B, ...]``: class logits, the CLIP embedding or
+        SigLIP's patch embeddings under ``composite``."""
+        from lxt_tpu_torch.models import siglip, vit
+        params, cfg = self.params, self.cfg
+        composite = composites.resolve(composite or self.composite)
+        if self.kind == "siglip":
+            return lambda x: siglip.forward(params, cfg, x, composite)
+        return lambda x: vit.forward(params, cfg, x, composite).logits
+
+    def logits(self, images, composite=None):
+        """Class logits ('vit'), CLIP embedding ('openclip') or patch
+        embeddings ('siglip')."""
+        with torch.no_grad():
+            return self._forward(composite)(_canon_images(images, self.device))
+
+    def attribute_image(self, images, *, label=None,
+                        target: Optional[Callable] = None, composite=None):
+        """Pixel relevance heatmap, one forward and one backward.
+
+        Default target: the argmax class logit ('vit'; ``label [B]`` explains
+        given classes) or, for 'openclip', the embedding dotted with
+        ``target`` (a ``[proj_dim]`` direction, e.g. a text embedding).
+        'siglip' has no head: ``target`` (a callable on the ``[B, P, D]``
+        patch embeddings) is required. Returns ``(value, heatmap [B, H,
+        W])``, relevance summed over the channels."""
+        if self.kind == "siglip" and target is None:
+            raise ValueError(
+                "siglip towers are headless: pass target=<callable on the "
+                "[B, P, D] patch embeddings> (e.g. a pooled-probe dot)")
+        if target is not None and not callable(target) and self.kind != "openclip":
+            raise ValueError("non-callable target (an embedding direction) "
+                             "is only meaningful for openclip towers")
+        run = self._forward(composite)
+        images = _canon_images(images, self.device)
+        lab = None if label is None else _tensor(label, self.device)
+        direction = (None if target is None or callable(target)
+                     else _tensor(target, self.device))
+
+        def tgt(x):
+            out = run(x)
+            if callable(target):
+                return target(out)
+            if direction is not None:
+                return (out * direction).sum()
+            if lab is not None:
+                return _pick(out, lab).sum()
+            return out.max(dim=-1).values.sum()
+
+        return input_relevance(tgt, images)
+
+    def attribute_topk(self, images, k: int = 5, *, composite=None):
+        """Top-k class heatmaps from one forward ('vit' only): ``(labels [K,
+        B], values [K, B], heatmaps [K, B, H, W])``, through
+        :func:`~lxt_tpu_torch.attribution.topk_relevance` (the ``[B, C]``
+        logits are its 2-D rows; summing the features of NHWC pixels sums
+        the channels)."""
+        if self.kind != "vit":
+            raise ValueError(
+                "attribute_topk needs a classification head (kind='vit'); "
+                f"this tower is {self.kind!r} — use "
+                "attribute_image(target=...)")
+        return topk_relevance(self._forward(composite),
+                              _canon_images(images, self.device), k)
+
+
+def _state_dict(model_or_sd):
+    """``(state_dict, model)`` of a module or a bare state dict."""
+    if isinstance(model_or_sd, dict):
+        return model_or_sd, model_or_sd
+    return model_or_sd.state_dict(), model_or_sd
+
+
+def _num_heads(num_heads, read):
+    if num_heads is not None:
+        return num_heads
+    try:
+        return int(read())
+    except AttributeError:
+        raise ValueError(
+            "num_heads is not recoverable from a bare state dict — pass "
+            "num_heads=... or the model object") from None
+
+
+def from_torchvision(model_or_state_dict, *, num_heads: int = None,
+                     composite: composites.Composite = None, dtype=None,
+                     device="cuda") -> VisionAttributionModel:
+    """Convert a torchvision ``VisionTransformer`` (module or state dict)
+    onto ``device``. The geometry comes from the state dict; ``num_heads``
+    from the module's ``nn.MultiheadAttention`` (a bare state dict needs it
+    given). The composite defaults to CP-LRP, the reference's only ViT map;
+    compose it with ``.with_gamma(...)`` for denoised heatmaps."""
+    from lxt_tpu_torch.models import vit
+    sd, model = _state_dict(model_or_state_dict)
+    num_heads = _num_heads(num_heads, lambda: model.encoder.layers[0].self_attention.num_heads)
+    D, _, P, _ = sd["conv_proj.weight"].shape
+    side = int(round((sd["encoder.pos_embedding"].shape[1] - 1) ** 0.5))
+    L = sum(1 for k in sd if k.startswith("encoder.layers.encoder_layer_")
+            and k.endswith(".ln_1.weight"))
+    cfg = vit.ViTConfig(
+        image_size=side * P, patch_size=P, hidden_size=D,
+        intermediate_size=sd["encoder.layers.encoder_layer_0.mlp.0.weight"].shape[0],
+        num_layers=L, num_heads=num_heads,
+        num_classes=sd["heads.head.weight"].shape[0], act="gelu_exact")
+    params = vit.params_from_torchvision(sd, cfg, dtype=dtype or torch.float32,
+                                         device=device)
+    return VisionAttributionModel(
+        kind="vit", cfg=cfg, params=params,
+        composite=composites.resolve(composite or composites.cp_lrp))
+
+
+def from_openclip(model_or_state_dict, *, num_heads: int = None,
+                  composite: composites.Composite = None,
+                  act: str = "quick_gelu", ln_eps: float = 1e-5, dtype=None,
+                  device="cuda") -> VisionAttributionModel:
+    """Convert an OpenCLIP ``VisualTransformer`` (the ``visual.`` subtree
+    of a CLIP checkpoint) onto ``device``. OpenCLIP's stock activation is
+    QuickGELU; pass ``act='gelu_exact'`` for ``nn.GELU`` variants."""
+    from lxt_tpu_torch.models import vit
+    sd, model = _state_dict(model_or_state_dict)
+    num_heads = _num_heads(num_heads, lambda: model.transformer.resblocks[0].attn.num_heads)
+    D, _, P, _ = sd["conv1.weight"].shape
+    side = int(round((sd["positional_embedding"].shape[0] - 1) ** 0.5))
+    L = sum(1 for k in sd if k.startswith("transformer.resblocks.")
+            and k.endswith(".ln_1.weight"))
+    cfg = vit.ViTConfig(
+        image_size=side * P, patch_size=P, hidden_size=D,
+        intermediate_size=sd["transformer.resblocks.0.mlp.c_fc.weight"].shape[0],
+        num_layers=L, num_heads=num_heads, ln_eps=ln_eps, act=act,
+        openclip=True, proj_dim=sd["proj"].shape[1])
+    params = vit.params_from_openclip(sd, cfg, dtype=dtype or torch.float32,
+                                      device=device)
+    return VisionAttributionModel(
+        kind="openclip", cfg=cfg, params=params,
+        composite=composites.resolve(composite or composites.cp_lrp))
+
+
+def from_siglip(hf_model, composite: composites.Composite = None, dtype=None,
+                device="cuda") -> VisionAttributionModel:
+    """Convert an HF SigLIP vision tower (``SiglipVisionModel``, or the
+    ``vision_model`` of a whole ``SiglipModel``) onto ``device``."""
+    from lxt_tpu_torch.models import siglip
+    hf_config = hf_model.config
+    if hasattr(hf_config, "vision_config"):
+        hf_config = hf_config.vision_config
+    cfg = siglip.SiglipConfig.from_hf(hf_config)
+    sd = hf_model.state_dict()
+    prefix = "vision_model." if any(k.startswith("vision_model.") for k in sd) else ""
+    params = siglip.params_from_hf(sd, cfg, dtype=dtype or torch.float32,
+                                   device=device, prefix=prefix)
+    return VisionAttributionModel(
+        kind="siglip", cfg=cfg, params=params,
+        composite=composites.resolve(composite or composites.cp_lrp))
+
+
+# ---------------------------------------------------------------------------
+# Image + text: Gemma3ForConditionalGeneration
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MultimodalAttributionModel:
+    """Gemma 3 image + text: ``attribute(input_ids, pixel_values)`` gives
+    the relevance of the prompt's tokens and of the pixels from one
+    backward. ``remat`` is the text forward's keyword (SigLIP always
+    recomputes its layers)."""
+
+    cfg: Any          # gemma3.Gemma3MultimodalConfig
+    params: Any
+    composite: composites.Composite
+    remat: bool = True
+    family: str = "gemma3_multimodal"
+
+    @property
+    def device(self):
+        return self.params["text"]["embed"].device
+
+    def _inputs(self, input_ids, pixel_values):
+        """``(ids [B, T], pixels NHWC, placeholder mask [B, T], embeds)``."""
+        ids = _tensor(input_ids, self.device).long()
+        pix = _canon_images(pixel_values, self.device)
+        mask = ids == self.cfg.image_token_id
+        return ids, pix, mask, gemma3.embed(self.params["text"], ids, self.cfg.text)
+
+    def _forward(self, mask, composite=None):
+        """``run(embeds, pixels, **kw) -> ModelOutputs``: the joint forward
+        under ``composite`` (default: the model's)."""
+        params, cfg, remat = self.params, self.cfg, self.remat
+        composite = composites.resolve(composite or self.composite)
+        return lambda e, p, **kw: gemma3.multimodal_forward(
+            params, cfg, e, p, mask, composite, remat=remat, **kw)
+
+    def logits(self, input_ids, pixel_values, composite=None):
+        _, pix, mask, embeds = self._inputs(input_ids, pixel_values)
+        with torch.no_grad():
+            return self._forward(mask, composite)(embeds, pix).logits
+
+    def attribute(self, input_ids, pixel_values, *,
+                  target: Optional[Callable] = None, position: int = -1,
+                  token=None, composite=None):
+        """Joint attribution: ``(value, token_relevance [B, T],
+        image_heatmap [B, H, W])`` from one backward. The default target is
+        the argmax logit at ``position`` (only that row's logits are
+        computed), or the ``token [B]`` ids there; ``target`` maps the full
+        logits to a scalar instead. Relevance entering through the projected
+        image tokens lands on the pixels, so the placeholders' own token
+        relevance is 0."""
+        _, pix, mask, embeds = self._inputs(input_ids, pixel_values)
+        run = self._forward(mask, composite)
+        tok = None if token is None else _tensor(token, self.device)
+        e, p = embeds.detach().requires_grad_(True), pix.detach().requires_grad_(True)
+        with torch.enable_grad():
+            if target is not None:
+                value = target(run(e, p).logits)
+            else:
+                row = run(e, p, logits_at=position).logits[:, -1, :]
+                value = (row.max(dim=-1).values if tok is None
+                         else _pick(row, tok)).sum()
+            g_e, g_p = torch.autograd.grad(value, (e, p))
+        return (value.detach(), (e.detach().float() * g_e.float()).sum(-1),
+                (p.detach().float() * g_p.float()).sum(-1))
+
+    def generate(self, input_ids, pixel_values, max_new_tokens: int, *,
+                 eos_token_id: Optional[int] = None, use_cache: bool = True):
+        """Greedy decoding conditioned on the image. SigLIP runs once, on
+        the prompt: the merged image + text prefix is prefilled into a KV
+        cache and each step decodes one token (``models/decode.py``);
+        ``use_cache=False`` re-runs the text forward over prefix + tail per
+        token. Generated positions are never placeholders. Returns ids
+        ``[B, T0 + max_new_tokens]``, for :meth:`attribute_response`."""
+        ids0, pix, mask, embeds = self._inputs(input_ids, pixel_values)
+        comp = composites.resolve(self.composite)
+        with torch.no_grad():
+            prefix = gemma3.merge_image_embeds(self.params, self.cfg, embeds,
+                                               pix, mask, comp)
+        text = self.params["text"]
+        return _decode(FAMILIES["gemma3"], text, self.cfg.text, comp, ids0,
+                       prefix, lambda ids: gemma3.embed(text, ids, self.cfg.text),
+                       max_new_tokens, eos_token_id, None, use_cache, {})
+
+    def attribute_response(self, input_ids, pixel_values, response_start: int,
+                           *, composite=None, contrastive: bool = False,
+                           via: str = "scan"):
+        """One joint token + pixel map per response token, all from one
+        forward (:func:`~lxt_tpu_torch.attribution.multi_site_relevance`
+        with the pixels as ``aux_input``): which tokens and pixels drove
+        each token of the caption. Returns ``(values [K, B],
+        token_relevance [K, B, T], image_heatmap [K, B, H, W])``, ``K = T -
+        response_start``. On a CUDA device the forward runs over the ids
+        right-padded with token 0 to a multiple of 128, so that the text
+        side stays on the flash kernels' grid (as ``AttributionPipeline``
+        pads); causal attention keeps the pads, which follow every
+        explained position, out of every map."""
+        ids, pix, mask, embeds = self._inputs(input_ids, pixel_values)
+        positions, tokens = _response_sites(ids, int(response_start))
+        B, T = ids.shape
+        pad = -T % (128 if ids.is_cuda else 1)
+        if pad:
+            ids = torch.cat([ids, ids.new_zeros((B, pad))], dim=1)
+            mask = torch.cat([mask, mask.new_zeros((B, pad))], dim=1)
+            embeds = gemma3.embed(self.params["text"], ids, self.cfg.text)
+        run = self._forward(mask, composite)
+        values, rel_tok, rel_pix = multi_site_relevance(
+            lambda e, p: run(e, p).logits, embeds, positions, tokens,
+            aux_input=pix, contrastive=contrastive, via=via)
+        return values, rel_tok[..., :T], rel_pix
+
+
+def _convert_multimodal(state_dict, hf_config, composite, dtype,
+                        device) -> MultimodalAttributionModel:
+    mmcfg = gemma3.Gemma3MultimodalConfig.from_hf(hf_config)
+    params = gemma3.multimodal_params_from_hf(
+        state_dict, mmcfg, dtype=dtype or torch.float32, device=device)
+    return MultimodalAttributionModel(
+        cfg=mmcfg, params=params,
+        composite=composites.resolve(composite or composites.attnlrp))

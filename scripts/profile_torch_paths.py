@@ -9,12 +9,16 @@ XL (bf16, full depth, batch 8 x 1024, remat off, CP-LRP), BERT-base (bf16,
 batch 32 x 512, 8 rows right-padded to 300, remat off) and decoding at
 TinyLlama-1.1B widths (bf16, batch 8 x 896: one prefill, generate's
 prefill and 128 steps, one attribute_response over the 1024 tokens, K 128),
-and serving (one coalesced batch of 8 prompts of 640-1024 words through
-AttributionServer at TinyLlama-1.1B widths, bf16, remat off). Random
-weights from a seed.
+serving (one coalesced batch of 8 prompts of 640-1024 words through
+AttributionServer at TinyLlama-1.1B widths, bf16, remat off), the vision
+towers (ViT-B/16 bf16 batch 64 under cp_lrp with gamma, conv 0.25 and
+linear 0.05, remat; OpenCLIP ViT-L/14 bf16 batch 32 towards a direction)
+and Gemma-3-4B image + text (bf16, one 896 x 896 image in a prompt of
+512, 27 vision and 34 text layers, text remat off). Random weights from a
+seed.
 
     python3 scripts/profile_torch_paths.py \
-        [--paths main,nf4_8b,gemma,mixtral,gpt2,bert,decode,serve]
+        [--paths main,nf4_8b,gemma,mixtral,gpt2,bert,decode,serve,vision,multimodal]
 
 The default is the first three. For each path: the wall time of three
 unprofiled attributions after a warm-up, then one attribution under
@@ -31,7 +35,9 @@ the router's group sizes, generate's done flags) and the device idle that
 follows them. For serving also the host's own time in tokenization (the
 server's submit), in normalising the maps (the pipeline's) and in JSON
 (the HTTP frontend's), each timed apart on the batch's prompts and maps.
-Needs a CUDA device; prints the card's nvidia-smi name and power limit
+For the vision towers and Gemma-3 image + text also the GEMM kernels by
+name (the explicit rules' backwards run float32 GEMMs beside the bf16
+ones). Needs a CUDA device; prints the card's nvidia-smi name and power limit
 first.
 """
 
@@ -99,7 +105,7 @@ def host_read_idle(kernels):
 
 
 def profile(run, label, card, expert_width=None, host_reads=False, reps=3,
-            unit="attribution"):
+            unit="attribution", gemm_names=False):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -140,6 +146,16 @@ def profile(run, label, card, expert_width=None, host_reads=False, reps=3,
         f"{a.key} {a.self_device_time_total / 1e3:.2f} ms ({a.count})"
         for a in ops[:TOP_OPS] if a.self_device_time_total > 0)
         or "none attributed (launched from another thread)"), flush=True)
+    if gemm_names:
+        gemms = {}
+        for e in kernels:
+            if re.search(GEMM, e.name):
+                t = gemms.setdefault(e.name, [0.0, 0])
+                t[0] += (e.time_range.end - e.time_range.start) / 1e3
+                t[1] += 1
+        print("  GEMM kernels by name: " + "; ".join(
+            f"{name} {ms:.2f} ms ({n})" for name, (ms, n) in
+            sorted(gemms.items(), key=lambda kv: -kv[1][0])[:TOP_OPS]), flush=True)
     if expert_width is not None:
         ms, n = expert_gemms(prof, expert_width)
         print(f"  of the cuBLAS GEMMs, the expert products: {ms:.2f} ms, {n} "
@@ -270,7 +286,60 @@ def main():
                 unit="call")
     if "serve" in paths:
         profile_serve(card)
+    if "vision" in paths:
+        profile_vision(card)
+    if "multimodal" in paths:
+        profile_multimodal(card)
     return 0
+
+
+def profile_vision(card):
+    """ViT-B/16 under chip_smoke's gamma composite, and OpenCLIP ViT-L/14."""
+    import torch
+    import lxt_tpu_torch
+    import chip_smoke as cs
+    from lxt_tpu_torch.models import vit
+    from lxt_tpu_torch.models.registry import VisionAttributionModel
+    gen = torch.Generator("cuda").manual_seed(30)
+    cfg = vit.ViTConfig(**cs.VIT_B16)
+    gamma = lxt_tpu_torch.cp_lrp.with_gamma(conv_gamma=0.25, linear_gamma=0.05)
+    model = VisionAttributionModel("vit", cfg, vit.init_params(cfg, gen, dtype=torch.bfloat16),
+                                   gamma)
+    images = cs.vision_images(gen, cs.VIT_BATCH, 224, torch.bfloat16)
+    profile(lambda: model.attribute_image(images),
+            f"ViT-B/16 L{cfg.num_layers} B{cs.VIT_BATCH} bf16 {gamma.name} (conv 0.25, "
+            f"linear 0.05) remat", card, unit="batch", gemm_names=True)
+    del model
+    cfg = vit.ViTConfig(**cs.OPENCLIP_L14)
+    model = VisionAttributionModel("openclip", cfg,
+                                   vit.init_params(cfg, gen, dtype=torch.bfloat16),
+                                   lxt_tpu_torch.cp_lrp)
+    images = cs.vision_images(gen, cs.CLIP_BATCH, 224, torch.bfloat16)
+    direction = torch.randn(cfg.proj_dim, generator=gen, device="cuda").to(torch.bfloat16)
+    profile(lambda: model.attribute_image(images, target=direction),
+            f"OpenCLIP ViT-L/14 L{cfg.num_layers} B{cs.CLIP_BATCH} bf16 cp_lrp remat",
+            card, unit="batch", gemm_names=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def profile_multimodal(card):
+    """One joint token + pixel map of Gemma-3-4B image + text."""
+    import torch
+    import lxt_tpu_torch
+    import chip_smoke as cs
+    from lxt_tpu_torch.models.registry import MultimodalAttributionModel
+    gen = torch.Generator("cuda").manual_seed(50)
+    mmcfg = cs.mm_config()
+    model = MultimodalAttributionModel(mmcfg, cs.mm_weights(mmcfg, gen, torch.bfloat16),
+                                       lxt_tpu_torch.attnlrp, remat=False)
+    ids, pix = cs.mm_prompt(gen, torch.bfloat16)
+    profile(lambda: model.attribute(ids, pix),
+            f"Gemma-3-4B image + text L{mmcfg.vision.num_layers}+{mmcfg.text.num_layers} "
+            f"B1x{cs.SEQ_MM} one 896x896 image, bf16, text remat off", card,
+            unit="joint map", gemm_names=True)
+    del model
+    torch.cuda.empty_cache()
 
 
 def profile_serve(card):

@@ -254,7 +254,9 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "lxt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"lxt_tpu_torch/ops/quant.py", "lxt_tpu_torch/io.py",
-            "lxt_tpu_torch/models/registry.py"} <= names
+            "lxt_tpu_torch/models/registry.py", "lxt_tpu_torch/models/vit.py",
+            "lxt_tpu_torch/models/siglip.py",
+            "lxt_tpu_torch/ops/functional.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files if _imports_jax(f)]
     assert not offenders, offenders
 

@@ -346,9 +346,9 @@ def _hf_gemma3(seed):
 
 
 def _write_gemma3(tmp_path, kind, seed=11):
-    """kind: "text" (Gemma3ForCausalLM as saved), "image_text" (a gemma3
+    """kind: "text" (Gemma3ForCausalLM as saved) or "image_text" (a gemma3
     config.json whose text_config is the model, weights under
-    model.language_model.*), or "vision" (the same plus a vision weight)."""
+    model.language_model.*)."""
     hf = _hf_gemma3(seed)
     if kind == "text":
         hf.save_pretrained(tmp_path)
@@ -358,9 +358,6 @@ def _write_gemma3(tmp_path, kind, seed=11):
         {"model_type": "gemma3", "text_config": text, "mm_tokens_per_image": 4}))
     state = {k.replace("model.", "model.language_model.", 1): v.detach().numpy()
              for k, v in hf.state_dict().items() if k != "lm_head.weight"}
-    if kind == "vision":
-        state["model.vision_tower.vision_model.post_layernorm.weight"] = np.ones(
-            8, np.float32)
     save_file(state, str(tmp_path / "model.safetensors"))
 
 
@@ -406,12 +403,6 @@ def test_gemma3_from_hf_matches_lxt_tpu():
     np.testing.assert_array_equal(tm.embed(ids).numpy(), np.asarray(jm.embed(ids)))
     assert _nl2(tm.logits(ids).numpy(), jm.logits(ids)) <= BAR
     assert _nl2(tm.attribute(ids)[1].numpy(), jm.attribute(ids)[1]) <= BAR
-
-
-def test_gemma3_vision_weights_are_refused(tmp_path):
-    _write_gemma3(tmp_path, "vision")
-    with pytest.raises(ValueError, match="vision weights"):
-        treg.from_pretrained(tmp_path, device="cpu")
 
 
 GEMMA_CONFIGS = {

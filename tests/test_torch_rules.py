@@ -164,8 +164,6 @@ def test_select_logit_and_feature_relevance_match_jax():
     _close(got, want, 1e-6)
 
 
-def test_unported_rules_raise():
-    with pytest.raises(NotImplementedError):
-        lxt_tpu_torch.Composite(linear_rule=("gamma", 0.25))
+def test_linear_rejects_non_tensor_weights():
     with pytest.raises(NotImplementedError):
         lxt_tpu_torch.attnlrp.linear(torch.ones(2, 3), np.ones((3, 4)))
