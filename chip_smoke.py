@@ -14,12 +14,15 @@ right-padded by kv_end), KV-cached decoding (generate, then
 attribute_response over the response), the HTTP server
 (AttributionServer over AttributionPipeline, a checkpoint loaded with
 from_pretrained), and vision: the explicit rules, ViT-B/16, OpenCLIP
-ViT-L/14 and Gemma-3-4B with one 896 x 896 image at full width and depth.
+ViT-L/14 and Gemma-3-4B with one 896 x 896 image at full width and depth,
+and the explicit path (the explicit Llama, GPT-2 and BERT at full width),
+check= and the rule audit.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
     python3 chip_smoke.py --serve     # phases 1-2 and 16 only, no result line
     python3 chip_smoke.py --vision    # phases 1-2 and 17 only, no result line
+    python3 chip_smoke.py --explicit  # phases 1-2 and 18 only, no result line
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -208,7 +211,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      peak memory, launches per map 34 / 34 / 34 / 102, finite token and
      pixel relevance), generate 32 tokens (K1 34, nothing else), and
      attribute_response over the 544 tokens padded to 640 (K 32: launches
-     exact, map 0 within 1e-3 of a separate attribute).
+     exact, map 0 within 1e-3 of a separate attribute);
+ 18. the explicit path and the checks: (a) the explicit Llama (TinyLlama-
+     1.1B widths, attnlrp, 8 x 1024), GPT-2 XL (cp_lrp, 8 x 1024) and
+     BERT-base (32 x 512, a quarter of the rows masked to 300 by
+     attention_mask) at full width and depth, bf16, remat on: heatmaps/s,
+     peak memory, finite maps, no flash launch, the bf16-vs-float32
+     distance of one row's map (printed); (b) float32 at full width and 2
+     layers, one row: explicit vs efficient input relevance through K1/K2
+     (cosine > 0.999), Llama's latent relevance likewise, the card
+     against the host CPU rule by rule (each rule backward run on the card
+     from the CPU's saved tensors, <= 1e-4), the card's map against the
+     float64 map (a bar per family); (c) check= on the main
+     path (TinyLlama-1.1B, bf16, 8 x 1024, remat off and on): 'nan' bit-
+     equal to None, exact flash launches, one host read, a NaN in one wq
+     raising "NaN/Inf relevance", 'conservation' finite, the 'nan' overhead
+     in ms, check=None's device kernels (torch.profiler) equal to the
+     direct attribution's; (d) audit of the main-path forward through K1:
+     0 unruled sites under attnlrp and cp_lrp at 22 layers, 12 under
+     vanilla_gradient at 2 (tests/test_torch_rule_audit.py's count).
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
@@ -515,6 +536,40 @@ SIGLIP_896 = dict(image_size=896, patch_size=14, hidden_size=1152,
 MM_TOKENS, IMAGE_TOKEN, BOI, EOI = 256, 262144, 255999, 256000
 SEQ_MM, MM_IMAGE_AT, MM_NEW = 512, 128, 32
 MM_GATE = (2, 6)                          # vision layers, text layers
+# phase 18, the explicit path and the checks. (a) the explicit Llama
+# (TinyLlama-1.1B widths, MODEL), GPT-2 XL and BERT-base at full width and
+# depth, bf16, remat on: Llama 8 x SEQ under attnlrp, GPT-2 XL 8 x SEQ under
+# cp_lrp, BERT 32 x 512 with a quarter of the rows masked to 300 by
+# attention_mask; heatmaps/s, peak memory, no flash launch (the explicit
+# attention is einsum), and the bf16-vs-float32 distance of one row's map
+# (printed, not gated: the epsilon rules' denominators cross 0). (b) float32
+# at full width cut to EXPLICIT_GATE_LAYERS, one row: the explicit input
+# relevance against the efficient path's through K1/K2 (cosine >
+# EXPLICIT_COS, tests/test_explicit_model.py's bar) and Llama's explicit
+# latent relevance against latent_relevance's; the card against the host
+# CPU rule by rule: the CPU's call keeps its graph, and every custom
+# Function's backward is run again on the card from the node's saved
+# tensors and incoming relevance, normalized L2 <= EXPLICIT_SITE_BAR
+# against what it returned on the CPU; and the card's map against the
+# float64 map, within EXPLICIT_F64_BAR. The maps' distances from float64
+# are set by the epsilon rules' denominators (output + epsilon, a plain +
+# as in lxt_tpu): where one unit's denominator is near 0, the float32
+# rounding of that one unit moves the map (scripts/explicit_float32_sites.py
+# finds the unit and sets it to its float64 value). Each family's bar lies
+# between the largest float32 reading, card or CPU, and the distance of
+# its bf16 map in (a). (c) check= on the
+# main path (TinyLlama-1.1B, bf16, 8 x SEQ, remat on and off): 'nan' bit-
+# equal to None with exact flash launches and one host read, a NaN in one
+# wq raising, 'conservation' finite, the 'nan' overhead, and check=None's
+# device kernels (torch.profiler: names and counts) equal to the direct
+# attribution's, which no check code reaches. (d) audit of the main-path
+# forward through K1 at that width: no unruled site under attnlrp and
+# cp_lrp at full depth; vanilla_gradient at 2 layers flags AUDIT_VANILLA
+# products, tests/test_torch_rule_audit.py's count at its tiny config
+EXPLICIT_GATE_LAYERS, EXPLICIT_COS, EXPLICIT_REQUESTS, CHECK_REPS = 2, 0.999, 2, 5
+EXPLICIT_SITE_BAR = 1e-4
+EXPLICIT_F64_BAR = {"llama": 1e-3, "gpt2": 3e-2, "bert": 1e-3}
+AUDIT_VANILLA = 12          # 5 a layer (the norms' 4, the gate's) + the final norm's 2
 
 
 def card_line():
@@ -3353,6 +3408,376 @@ def phase_vision(card):
     return failures, {"vision": vision, "multimodal": multimodal}
 
 
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def explicit_setup(family, layers=None, seed=18):
+    """``(cfg, params, ids, composite, efficient module, explicit module,
+    embed)`` of one family at full width (``layers`` cuts the depth),
+    float32 random weights from ``seed`` drawn on the card; the ids one row
+    of SEQ (SEQ_BERT)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import (bert, bert_explicit, gpt2, gpt2_explicit, llama,
+                                      llama_explicit)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    if family == "llama":
+        cfg = llama.LlamaConfig(**dict(MODEL, num_layers=layers or MODEL["num_layers"]))
+        params, comp, mod, ex, T = (llama.init_params(cfg, gen), lxt_tpu_torch.attnlrp,
+                                    llama, llama_explicit, SEQ)
+    elif family == "gpt2":
+        cfg = gpt2.GPT2Config(**dict(GPT2_XL, num_layers=layers or GPT2_XL["num_layers"]))
+        params, comp, mod, ex, T = (gpt2.init_params(cfg, gen), lxt_tpu_torch.cp_lrp,
+                                    gpt2, gpt2_explicit, SEQ)
+    else:
+        cfg = bert.BertConfig(**dict(BERT_BASE, num_layers=layers or BERT_BASE["num_layers"]))
+        params, comp, mod, ex, T = (bert.init_params(cfg, gen), lxt_tpu_torch.attnlrp,
+                                    bert, bert_explicit, SEQ_BERT)
+    ids = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device="cuda")
+    embed = {"llama": lambda p, i: llama.embed(p, i), "bert": lambda p, i: bert.embed(p, i),
+             "gpt2": lambda p, i: p["wte"][i]}[family]
+    return cfg, params, ids, comp, mod, ex, embed
+
+
+def explicit_target(family, cfg, params, comp, ex, remat=True, **kw):
+    """The explained target as a function of the embeddings: the argmax
+    logit at the last position (BERT: the argmax label), summed over the
+    batch."""
+    def target(e):
+        if family == "bert":
+            return ex.forward(params, cfg, e, remat=remat, **kw).logits.max(-1).values.sum()
+        logits = ex.forward(params, cfg, e, comp, remat=remat, **kw).logits
+        return logits[:, -1].max(-1).values.sum()
+
+    return target
+
+
+def explicit_map(family, cfg, params, comp, ex, embed, ids, remat=True, **kw):
+    """The explicit input relevance of :func:`explicit_target`."""
+    from lxt_tpu_torch.models import llama_explicit
+    return llama_explicit.explicit_input_relevance(
+        explicit_target(family, cfg, params, comp, ex, remat, **kw), embed(params, ids))[1]
+
+
+def explicit_sites(family, cfg, params, comp, ex, embed, ids, **kw):
+    """:func:`explicit_map` (remat off) with its graph kept. Returns the map;
+    for every node of a custom Function in the backward (the rules, RoPE's
+    half swap), ``(node, incoming relevance, relevances returned)``; and a
+    function that runs the backward over the kept graph again and returns
+    its map. The graph, and with it the nodes' saved tensors, lives as long
+    as that function."""
+    import torch
+    x = embed(params, ids).detach().requires_grad_(True)
+    with torch.enable_grad():
+        value = explicit_target(family, cfg, params, comp, ex, False, **kw)(x)
+        nodes, stack, seen = [], [value.grad_fn], set()
+        while stack:
+            node = stack.pop()
+            if node is None or node in seen:
+                continue
+            seen.add(node)
+            if hasattr(node, "_forward_cls"):
+                nodes.append(node)
+            stack.extend(c for c, _ in node.next_functions)
+        io = {}
+        for node in nodes:
+            node.register_hook(lambda gi, go, node=node: io.__setitem__(node, (go, gi)))
+
+    def backward():
+        (rel,) = torch.autograd.grad(value, x, value.detach(), retain_graph=True)
+        return rel.float().sum(-1)
+
+    rel = backward()
+    return rel, [(node, *io[node]) for node in nodes], backward
+
+
+def replay_sites(sites, device):
+    """Run each site's backward again on ``device``, from its node's saved
+    tensors and incoming relevance. Returns the worst normalized L2 against
+    the relevances the site returned (inf where they disagree in number,
+    are not finite, or one of them is 0 where the other is not) and the
+    name of its Function."""
+    import types
+    import torch
+    worst, where = 0.0, None
+    for node, grads_out, grads_in in sites:
+        ctx = types.SimpleNamespace(**vars(node))     # what the forward kept on ctx
+        ctx.saved_tensors = tuple(t.to(device) for t in node.saved_tensors)
+        ctx.needs_input_grad = node.needs_input_grad
+        out = node._forward_cls.backward(
+            ctx, *(None if g is None else g.to(device) for g in grads_out))
+        got = [t.cpu() for t in (out if isinstance(out, tuple) else (out,))
+               if isinstance(t, torch.Tensor)]
+        want = [t for t in grads_in if t is not None]
+        errs = [nl2(a, b) if b.norm() > 0 else (0.0 if a.norm() == 0 else math.inf)
+                for a, b in zip(got, want)]
+        err = max((math.inf if math.isnan(e) else e for e in errs), default=0.0)
+        if len(got) != len(want):
+            err = math.inf
+        if err > worst or where is None:
+            worst, where = err, node._forward_cls.__name__
+    return worst, where
+
+
+def phase_explicit_models(card):
+    """Phase 18 (a): the explicit models at full width and depth, bf16."""
+    import torch
+    from lxt_tpu_torch.ops import flash_attention as fa
+    failures = []
+    for family in ("llama", "gpt2", "bert"):
+        cfg, params32, ids1, comp, _, ex, embed = explicit_setup(family)
+        params = cast(params32, torch.bfloat16)
+        B, T = (BERT_BATCH, SEQ_BERT) if family == "bert" else (SERVE_BATCH, SEQ)
+        gen = torch.Generator("cuda").manual_seed(181)
+        kw = {}
+        if family == "bert":
+            mask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+            mask[:B // 4, BERT_REAL:] = 0
+            kw["attention_mask"] = mask
+        requests = [torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda")
+                    for _ in range(EXPLICIT_REQUESTS)]
+        explicit_map(family, cfg, params, comp, ex, embed, requests[0], **kw)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        rels, launches, secs = counted(lambda: [
+            explicit_map(family, cfg, params, comp, ex, embed, r, **kw) for r in requests])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ok = all(r.shape == (B, T) and bool(torch.isfinite(r).all()) for r in rels)
+        if family == "bert":
+            ok = ok and all(bool((r[:B // 4, BERT_REAL:] == 0).all()) for r in rels)
+        one = {k: v[:1] for k, v in kw.items()}
+        rel16 = explicit_map(family, cfg, params, comp, ex, embed, ids1, **one)
+        rel32 = explicit_map(family, cfg, params32, comp, ex, embed, ids1, **one)
+        ok = ok and not any(launches.values())
+        print(f"explicit {family} L{cfg.num_layers} B{B}x{T} bf16 remat on {comp.name}"
+              + (f" ({B // 4} rows masked to {BERT_REAL})" if family == "bert" else "")
+              + f": {EXPLICIT_REQUESTS} attributions, {B * EXPLICIT_REQUESTS / secs:.3f} "
+              f"heatmaps/s, peak device memory {peak:.2f} GiB, flash launches {launches}, "
+              f"maps finite and [{B}, {T}]" + (" and 0 on the masked keys" if family == "bert"
+                                               else "")
+              + f": {ok}; bf16 vs float32 map at B1x{T}: normalized L2 "
+              f"{nl2(rel16.float(), rel32):.4g} (not gated) [{card}]", flush=True)
+        if not ok:
+            failures.append(f"explicit {family} bf16 maps or launches")
+        del params, params32, rels
+        torch.cuda.empty_cache()
+    return failures
+
+
+def phase_explicit_gates(card):
+    """Phase 18 (b): float32 at full width, EXPLICIT_GATE_LAYERS layers."""
+    import torch
+    from lxt_tpu_torch.attribution import input_relevance, latent_relevance
+    from lxt_tpu_torch.models import llama_explicit
+    failures = []
+    for family in ("llama", "gpt2", "bert"):
+        cfg, params, ids, comp, mod, ex, embed = explicit_setup(family, EXPLICIT_GATE_LAYERS)
+        kw_ex, kw_gi = {}, {}
+        if family == "bert":     # the row right-padded to BERT_REAL
+            kw_ex = {"attention_mask": (torch.arange(SEQ_BERT, device="cuda")[None]
+                                        < BERT_REAL).int()}
+            kw_gi = {"kv_end": torch.tensor([BERT_REAL], dtype=torch.int32, device="cuda")}
+        rel_ex = explicit_map(family, cfg, params, comp, ex, embed, ids, remat=False, **kw_ex)
+
+        def target(e):
+            logits = mod.forward(params, cfg, e, comp, remat=False, **kw_gi).logits
+            return (logits if logits.dim() == 2 else logits[:, -1]).max(-1).values.sum()
+
+        (_, rel_gi), launches, _ = counted(lambda: input_relevance(target, embed(params, ids)))
+        cos = cosine(rel_ex, rel_gi)
+        cpu = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+               for k, v in params.items()}
+        rel_cpu, sites, graph = explicit_sites(family, cfg, cpu, comp, ex, embed, ids.cpu(),
+                                               **{k: v.cpu() for k, v in kw_ex.items()})
+        site_err, site_fn = replay_sites(sites, "cuda")
+        n_sites = len(sites)
+        del sites, graph
+        rel64 = explicit_map(family, cfg, cast(params, torch.float64), comp, ex, embed, ids,
+                             remat=False, **kw_ex).cpu()
+        e_card, e_cpu = nl2(rel_ex.cpu(), rel64), nl2(rel_cpu, rel64)
+        bar64 = EXPLICIT_F64_BAR[family]
+        ok = (cos > EXPLICIT_COS and site_err <= EXPLICIT_SITE_BAR and e_card <= bar64
+              and launches["flash_fwd"] == launches["flash_bwd_dq"]
+              == launches["flash_bwd_dkv"] == cfg.num_layers)
+        print(f"explicit {family} float32 L{cfg.num_layers} B1x{ids.shape[1]} {comp.name}: "
+              f"explicit vs efficient through K1/K2 cosine {cos:.7f} (bar > {EXPLICIT_COS}, "
+              f"efficient launches {launches}); card vs host CPU over {n_sites} rule sites, "
+              f"each backward run on the card from the CPU's saved tensors: worst normalized "
+              f"L2 {site_err:.3g} at {site_fn} (bar {EXPLICIT_SITE_BAR}); explicit map against "
+              f"float64: card {e_card:.3g} (bar {bar64}), host CPU {e_cpu:.3g}, card vs host "
+              f"CPU {nl2(rel_ex.cpu(), rel_cpu):.3g}" + (" PASS" if ok else " FAIL")
+              + f" [{card}]", flush=True)
+        if not ok:
+            failures.append(f"explicit {family} float32 gates")
+        if family == "llama":
+            L, shape = cfg.num_layers, (cfg.num_layers, 1, SEQ, cfg.hidden_size)
+            _, in_ex, lat_ex = llama_explicit.explicit_latent_relevance(
+                lambda e, p: ex.forward(params, cfg, e, comp, remat=False,
+                                        probes=p).logits[:, -1].max(-1).values.sum(),
+                embed(params, ids), shape)
+
+            def fwd(e, p):
+                out = mod.forward(params, cfg, e, comp, probes=p, remat=False,
+                                  output_hidden_states=True, logits_at=-1)
+                return out.logits[:, -1].max(-1).values.sum(), out.hidden_states
+
+            _, in_gi, lat_gi = latent_relevance(fwd, embed(params, ids), shape,
+                                                sum_features=True)
+            c_in, c_lat = cosine(in_ex, in_gi), cosine(lat_ex, lat_gi)
+            ok = c_in > EXPLICIT_COS and c_lat > EXPLICIT_COS
+            print(f"explicit llama float32 L{L} B1x{SEQ}: explicit_latent_relevance vs "
+                  f"latent_relevance through K1/K2 cosine input {c_in:.7f}, latent "
+                  f"{c_lat:.7f} (bar > {EXPLICIT_COS})" + (" PASS" if ok else " FAIL")
+                  + f" [{card}]", flush=True)
+            if not ok:
+                failures.append("explicit llama latent relevance")
+        del params, cpu
+        torch.cuda.empty_cache()
+    return failures
+
+
+def kernel_census(fn):
+    """``{kernel name: launches}`` of the device kernels ``fn()`` runs, and
+    its device-to-host copies, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    census, dtoh = {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "DtoH" in e.name or "Device -> Pageable" in e.name:
+            dtoh += 1
+        census[e.name] = census.get(e.name, 0) + 1
+    return census, dtoh
+
+
+def phase_check(card):
+    """Phase 18 (c): check= on the main path."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models.registry import AttributionModel
+    from lxt_tpu_torch.ops import check as ck
+    failures = []
+    cfg = llama.LlamaConfig(**MODEL, dtype="bfloat16")
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SEQ),
+                        generator=torch.Generator("cuda").manual_seed(1), device="cuda")
+    L = cfg.num_layers
+    for remat in (False, True):
+        model = AttributionModel("llama", cfg, params, lxt_tpu_torch.attnlrp, remat=remat)
+        model.attribute(ids, check="nan")  # warm-up
+        (_, plain), plain_launches, _ = counted(lambda: model.attribute(ids))
+        (_, again), _, _ = counted(lambda: model.attribute(ids))
+        reads = ck.counters["host_reads"]
+        (_, nan), nan_launches, _ = counted(lambda: model.attribute(ids, check="nan"))
+        reads = ck.counters["host_reads"] - reads
+        want = expected_launches(L, remat, hopper=HOPPER_BODIES[64])
+        times = {None: [], "nan": []}
+        for _ in range(CHECK_REPS):
+            for mode in (None, "nan", "nan", None):
+                times[mode].append(counted(lambda: model.attribute(ids, check=mode))[2])
+        ms = {m: 1e3 * sorted(t)[len(t) // 2] for m, t in times.items()}
+        (_, cons), _, _ = counted(lambda: model.attribute(ids, check="conservation"))
+        wq, at = params["layers"]["wq"], (L // 4, 7, 11)
+        saved = wq[at].clone()
+        wq[at] = float("nan")
+        raised = ""
+        try:
+            model.attribute(ids, check="nan")
+        except RuntimeError as e:
+            raised = str(e)
+        finally:
+            wq[at] = saved
+        ok = (torch.equal(nan, plain) and nan_launches == want == plain_launches
+              and reads == 1 and "NaN/Inf relevance" in raised
+              and bool(torch.isfinite(cons).all()))
+        print(f"check= main path bf16 L{L} B{SERVE_BATCH}x{SEQ} remat {remat}: 'nan' map "
+              f"bit-equal to None's {torch.equal(nan, plain)} (None twice: "
+              f"{torch.equal(again, plain)}), launches {nan_launches} (expected {want}), "
+              f"host reads {reads}; a NaN in layer {L // 4}'s wq raised: {raised[:90]!r}; "
+              f"'conservation' finite {bool(torch.isfinite(cons).all())}; ms per call "
+              f"None {ms[None]:.2f}, 'nan' {ms['nan']:.2f} (overhead "
+              f"{ms['nan'] - ms[None]:.2f} ms; medians of {2 * CHECK_REPS}, in turns)"
+              + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+        if not ok:
+            failures.append(f"check= remat {remat}")
+        # check=None against the direct attribution, which reaches no check code
+        model_census, model_dtoh = kernel_census(lambda: model.attribute(ids))
+        direct_census, _ = kernel_census(
+            lambda: attribute(params, cfg, ids, "auto", remat))
+        nan_census, nan_dtoh = kernel_census(lambda: model.attribute(ids, check="nan"))
+        extra = {k: v - model_census.get(k, 0) for k, v in nan_census.items()
+                 if v != model_census.get(k, 0)}
+        ok = bool(model_census) and model_census == direct_census and model_dtoh == 0
+        print(f"check=None device kernels remat {remat}: {sum(model_census.values())} "
+              f"launches of {len(model_census)} kernels, equal to the direct "
+              f"attribution's ({sum(direct_census.values())}): "
+              f"{model_census == direct_census}; device-to-host copies None {model_dtoh}, "
+              f"'nan' {nan_dtoh}; 'nan' adds {sum(extra.values())} launches: "
+              + ", ".join(f"{k[:60]} x{v}" for k, v in sorted(extra.items(),
+                                                                key=lambda kv: -kv[1])[:4])
+              + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+        if not ok:
+            failures.append(f"check=None kernels remat {remat}")
+    del params
+    torch.cuda.empty_cache()
+    return failures
+
+
+def phase_audit(card):
+    """Phase 18 (d): audit of the main-path forward through K1."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import llama
+    failures = []
+    for layers, comp, bad_want in ((MODEL["num_layers"], lxt_tpu_torch.attnlrp, 0),
+                                   (MODEL["num_layers"], lxt_tpu_torch.cp_lrp, 0),
+                                   (2, lxt_tpu_torch.vanilla_gradient, AUDIT_VANILLA)):
+        cfg = llama.LlamaConfig(**dict(MODEL, num_layers=layers), dtype="bfloat16")
+        params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        ids = torch.randint(0, cfg.vocab_size, (1, SEQ),
+                            generator=torch.Generator("cuda").manual_seed(2), device="cuda")
+        entries, launches, secs = counted(lambda: lxt_tpu_torch.audit(
+            lambda e: llama.forward(params, cfg, e, comp, remat=False,
+                                    logits_at=-1).logits,
+            llama.embed(params, ids), on_unruled="ignore", verbose=False))
+        bad = [e for e in entries if not e.ok]
+        attn = sum(e.kind == "attention" for e in entries)
+        ok = (len(bad) == bad_want and attn == layers
+              and launches["flash_fwd"] == layers)
+        print(f"audit main-path forward bf16 L{layers} B1x{SEQ} {comp.name} through K1: "
+              f"{len(entries)} sites, {len(bad)} unruled (expected {bad_want}"
+              + (f": {sorted({e.op + ' ' + e.site for e in bad})}" if bad else "")
+              + f"), {attn} attention sites, K1 launches {launches['flash_fwd']}, "
+              f"{secs:.2f} s" + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+        if not ok:
+            failures.append(f"audit {comp.name}")
+        del params
+        torch.cuda.empty_cache()
+    return failures
+
+
+def phase_explicit(card):
+    """Phase 18: the explicit path, check= and the audit."""
+    import torch
+    t0 = time.perf_counter()
+    failures = phase_explicit_models(card)
+    failures += phase_explicit_gates(card)
+    torch.cuda.empty_cache()
+    failures += phase_check(card)
+    failures += phase_audit(card)
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return failures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3385,6 +3810,10 @@ def main():
         return 1 if failures else 0
     if "--vision" in sys.argv[1:]:
         failures, _ = phase_vision(card)
+        print(f"failures: {failures}", flush=True)
+        return 1 if failures else 0
+    if "--explicit" in sys.argv[1:]:
+        failures = phase_explicit(card)
         print(f"failures: {failures}", flush=True)
         return 1 if failures else 0
     t_start = time.perf_counter()
@@ -3445,7 +3874,9 @@ def main():
     torch.cuda.empty_cache()
     f, vision_launches = phase_vision(card)
     failures += f
-    print(f"phases 3-17 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    failures += phase_explicit(card)
+    print(f"phases 3-18 took {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1

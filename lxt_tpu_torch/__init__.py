@@ -21,9 +21,13 @@ nvcc at first use); on CPU tensors they run their plain PyTorch versions.
 (``ring_flash_attention``, ``attribute_sequence_parallel``), the
 multi-target and latent attribution functions, the faithfulness
 evaluation, the gradient baselines, the canonizers, the batched pipeline
-(``AttributionPipeline``) and the server (``AttributionServer``,
-``http_server``; ``python -m lxt_tpu_torch.serve``) are imported on first
-access.
+(``AttributionPipeline``), the server (``AttributionServer``,
+``http_server``; ``python -m lxt_tpu_torch.serve``), the rule audit
+(``audit``, ``AuditEntry``, ``UnruledOpError``) and the conservation check
+(``conservation_check``, ``conservation_error``) are imported on first
+access. The explicit path (relevance as the cotangent itself) is
+``lxt_tpu_torch.explicit``, ``ops.functional`` and the
+``models.{llama,gpt2,bert}_explicit`` forwards.
 """
 
 import importlib
@@ -55,6 +59,10 @@ _LAZY = {
     **dict.fromkeys(("apply_canonizers", "fold_norm_scales"),
                     "lxt_tpu_torch.canonizers"),
     "AttributionPipeline": "lxt_tpu_torch.pipeline",
+    **dict.fromkeys(("audit", "AuditEntry", "UnruledOpError"),
+                    "lxt_tpu_torch.rule_audit"),
+    **dict.fromkeys(("conservation_check", "conservation_error"),
+                    "lxt_tpu_torch.ops.check"),
     **dict.fromkeys(("AttributionServer", "http_server"), "lxt_tpu_torch.serve"),
 }
 

@@ -1,8 +1,9 @@
 """Model zoo: LRP-aware transformers + HF weight conversion (the ported
 families of ``lxt_tpu.models``: Llama 2/3 / TinyLlama, Qwen 2/3, Mistral,
 Phi-3, Gemma 3 (text, and image + text), GPT-2, Mixtral, BERT, the ViT /
-OpenCLIP and SigLIP vision towers), and ``decode``, the KV-cached prefill
-and decode steps of the causal families.
+OpenCLIP and SigLIP vision towers), ``decode``, the KV-cached prefill
+and decode steps of the causal families, and the explicit-path forwards
+``llama_explicit``, ``gpt2_explicit`` and ``bert_explicit``.
 
 The family modules and the registry's ``SUPPORTED_FAMILIES``,
 ``AttributionModel``, ``detect_family`` and ``from_hf`` are imported on
@@ -13,8 +14,9 @@ first access (``from lxt_tpu_torch.models import mixtral`` or
 
 import importlib
 
-_MODULES = ("bert", "common", "decode", "gemma3", "gpt2", "llama", "mixtral",
-            "siglip", "vit")
+_MODULES = ("bert", "bert_explicit", "common", "decode", "gemma3", "gpt2",
+            "gpt2_explicit", "llama", "llama_explicit", "mixtral", "siglip",
+            "vit")
 _REGISTRY = ("SUPPORTED_FAMILIES", "AttributionModel", "detect_family", "from_hf")
 
 __all__ = [*_MODULES, *_REGISTRY]

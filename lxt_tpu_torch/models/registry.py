@@ -322,11 +322,38 @@ def _response_sites(ids, response_start):
     return (list(range(response_start - 1, T - 1)), ids[:, response_start:].T)
 
 
+_CHECKS = ("nan", "conservation", "conservation+nan")
+
+
+def _with_check(check, run):
+    """``run()`` under the sanitizer ``check`` names (see
+    :mod:`lxt_tpu_torch.ops.check`): None runs it as it is; ``'nan'``
+    records at every rule backward whether its relevance is finite and
+    reads the record to the host once after ``run`` returns, raising
+    ``RuntimeError`` on the first non-finite site; ``'conservation'``
+    (optionally ``'conservation+nan'``) runs in uniform-redistribution
+    mode. The context is held around the forward and the backward, so a
+    layer recomputed in the backward (``remat``) keeps the mode."""
+    if check is None:
+        return run()
+    if check not in _CHECKS:
+        raise ValueError(
+            f"check must be one of {_CHECKS} or None, got {check!r}")
+    from lxt_tpu_torch.ops import check as ck
+    ctx = (ck.nan_check() if check == "nan"
+           else ck.conservation_check(raise_on_nan="nan" in check))
+    with ctx:
+        return ck.checked(run)()
+
+
 @dataclasses.dataclass
 class AttributionModel:
     """A converted model of one of :data:`FAMILIES` plus its attribution
     entry points. PyTorch runs eagerly, so there is no program cache and no
-    ``jit=``; ``check=`` waits for the port of ``ops/check.py``.
+    ``jit=``. ``check=`` on :meth:`attribute`, :meth:`attribute_multi`,
+    :meth:`attribute_topk` and :meth:`attribute_response` runs the call
+    under a sanitizer (:func:`_with_check`): the mode is captured when each
+    rule's forward runs, and ``'nan'`` reads the device once per call.
 
     ``remat`` is the family forward's keyword, which every entry point
     passes: True (the default) recomputes each layer in the backward, and
@@ -391,7 +418,8 @@ class AttributionModel:
 
     def attribute(self, input_ids, *, target: Optional[Callable] = None,
                   position: int = -1, token=None, composite=None,
-                  kv_begin=None, attention_mask=None, kv_end=None):
+                  kv_begin=None, attention_mask=None, kv_end=None,
+                  check=None):
         """Per-token input relevance, one forward and one backward.
 
         Default target: the argmax logit at ``position`` (only that row's
@@ -401,7 +429,11 @@ class AttributionModel:
         scalar instead. Returns ``(target_value, relevance [B, T])``.
         ``kv_begin`` / ``attention_mask`` mark left padding, ``kv_end`` /
         ``attention_mask`` BERT's right padding (see
-        :func:`_padding_args`)."""
+        :func:`_padding_args`). ``check``: None, ``'nan'``,
+        ``'conservation'`` or ``'conservation+nan'`` (:func:`_with_check`;
+        the conservation mode redistributes gradients here, so read its
+        map with :func:`lxt_tpu_torch.ops.check.conservation_error`'s
+        caveats)."""
         run = self._forward(composite, kv_begin, attention_mask, kv_end)
         row = self._row(run, position)
         tok = None if token is None else _tensor(token, self.device)
@@ -413,7 +445,8 @@ class AttributionModel:
                 return row(e).max(dim=-1).values.sum()
             return _pick(row(e), tok).sum()
 
-        return input_relevance(tgt, self.embed(input_ids))
+        embeds = self.embed(input_ids)
+        return _with_check(check, lambda: input_relevance(tgt, embeds))
 
     def attribute_latent(self, input_ids, *, target: Optional[Callable] = None,
                          position: int = -1, composite=None):
@@ -438,27 +471,29 @@ class AttributionModel:
 
     def attribute_multi(self, input_ids, tokens, *, position: int = -1,
                         composite=None, kv_begin=None, attention_mask=None,
-                        kv_end=None, via: str = "scan"):
+                        kv_end=None, check=None, via: str = "scan"):
         """K relevance maps for K candidate tokens sharing ONE forward
         (:func:`lxt_tpu_torch.attribution.multi_token_relevance`).
 
         ``tokens``: ``[K]`` (the same candidates for every batch row) or
         ``[K, B]`` int ids. Returns ``(values [K, B], relevance [K, B, T])``.
-        Padding as in :meth:`attribute`."""
+        Padding and ``check`` as in :meth:`attribute`."""
         run = self._forward(composite, kv_begin, attention_mask, kv_end)
-        return multi_token_relevance(
-            self._row(run, position), self.embed(input_ids),
-            _tensor(tokens, self.device), via=via)
+        row, embeds = self._row(run, position), self.embed(input_ids)
+        tokens = _tensor(tokens, self.device)
+        return _with_check(check, lambda: multi_token_relevance(
+            row, embeds, tokens, via=via))
 
     def attribute_topk(self, input_ids, k: int = 5, *, position: int = -1,
                        composite=None, kv_begin=None, attention_mask=None,
-                       kv_end=None, via: str = "scan"):
+                       kv_end=None, check=None, via: str = "scan"):
         """Explain the model's own top-k candidates at ``position`` in one
         forward: ``(tokens [K, B], values [K, B], relevance [K, B, T])``.
-        Padding as in :meth:`attribute`."""
+        Padding and ``check`` as in :meth:`attribute`."""
         run = self._forward(composite, kv_begin, attention_mask, kv_end)
-        return topk_relevance(self._row(run, position), self.embed(input_ids),
-                              k, via=via)
+        row, embeds = self._row(run, position), self.embed(input_ids)
+        return _with_check(check, lambda: topk_relevance(row, embeds, k,
+                                                         via=via))
 
     def faithfulness(self, input_ids, *, steps: int = 10, position: int = -1,
                      token=None, composite=None, kv_begin=None,
@@ -537,7 +572,8 @@ class AttributionModel:
 
     def attribute_response(self, input_ids, response_start: int, *,
                            composite=None, kv_begin=None,
-                           contrastive: bool = False, via: str = "scan"):
+                           contrastive: bool = False, check=None,
+                           via: str = "scan"):
         """One relevance map per response token, all from one forward.
 
         ``input_ids [B, T]`` is prompt + continuation and ``response_start``
@@ -547,14 +583,15 @@ class AttributionModel:
         (:func:`lxt_tpu_torch.attribution.multi_site_relevance`).
         ``contrastive``: each map explains the margin over the strongest
         other token; ``values`` become the margins. ``kv_begin [B]`` marks
-        left padding. Returns ``(values [K, B], relevance [K, B, T])``,
-        ``K = T - response_start``."""
+        left padding; ``check`` as in :meth:`attribute`. Returns
+        ``(values [K, B], relevance [K, B, T])``, ``K = T -
+        response_start``."""
         ids = _tensor(input_ids, self.device).long()
         positions, tokens = _response_sites(ids, int(response_start))
-        run = self._forward(composite, kv_begin)
-        return multi_site_relevance(lambda e: run(e).logits, self.embed(ids),
-                                    positions, tokens, contrastive=contrastive,
-                                    via=via)
+        run, embeds = self._forward(composite, kv_begin), self.embed(ids)
+        return _with_check(check, lambda: multi_site_relevance(
+            lambda e: run(e).logits, embeds, positions, tokens,
+            contrastive=contrastive, via=via))
 
     def attribute_response_latent(self, input_ids, response_start: int, *,
                                   composite=None, via: str = "scan"):

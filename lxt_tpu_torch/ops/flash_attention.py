@@ -567,6 +567,8 @@ def _attention_function(fwd, bwd_dq, bwd_dkv):
     arithmetic of flash_attention's backward."""
 
     class _Attention(torch.autograd.Function):
+        lrp_rule = ("attention", "flash attention (rules wrap q/k/v)")
+
         @staticmethod
         def forward(ctx, q, k, v, cos, sin, kv_begin, kv_end, window, scale,
                     causal, q_start, k_start):

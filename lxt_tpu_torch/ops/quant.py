@@ -289,6 +289,8 @@ class _NF4Matmul(torch.autograd.Function):
     backward dequantizes again (in ``g.dtype``) and contracts the shared
     output axis, ``dx = g wᵀ``: the dense weight is never kept."""
 
+    lrp_rule = ("linear", "epsilon rule (implicit via G*I), quantized weight")
+
     @staticmethod
     def forward(ctx, x, q, scale, block):
         _keep(ctx, q, scale)
@@ -314,6 +316,8 @@ class _Int4Matmul(torch.autograd.Function):
     applies once on the output in float32. The backward folds the scale
     into ``g``, contracts the output axis against each plane and
     re-interleaves the two halves (a stack, not a strided scatter)."""
+
+    lrp_rule = ("linear", "epsilon rule (implicit via G*I), quantized weight")
 
     @staticmethod
     def forward(ctx, x, q, scale):

@@ -18,11 +18,16 @@ over the patched model yields relevance as ``input * grad``.
   ``linear_rule`` / ``conv_rule`` / site and layer overrides.
 
 All primitives keep the input dtype; the identity ratio is computed in
-float32 and stored in the input dtype, as in ``lxt_tpu``.
+float32 and stored in the input dtype, as in ``lxt_tpu``. Each backward
+passes its gradient through the check hook
+(:func:`lxt_tpu_torch.ops.check.maybe_redistribute`) with the check mode
+its forward kept.
 """
 
 import torch
 import torch.nn.functional as F
+
+from lxt_tpu_torch.ops import check
 
 _IDENTITY_EPS = 1e-10  # as lxt_tpu.ops.rules._IDENTITY_EPS
 
@@ -33,17 +38,22 @@ def stop_gradient(x):
 
 
 class _IdentityRule(torch.autograd.Function):
+    lrp_rule = ("rule", "identity rule (Eq. 9)")
+
     @staticmethod
     def forward(ctx, x, fn):
         out = fn(x)
         ratio = out.float() / (x.float() + _IDENTITY_EPS)
         ctx.save_for_backward(ratio.to(x.dtype))
+        ctx.check = check.mode()
         return out
 
     @staticmethod
     def backward(ctx, g):
         (ratio,) = ctx.saved_tensors
-        return ratio * g, None
+        (grad,) = check.maybe_redistribute((ratio * g,), (g,), "identity_rule",
+                                           ctx.check)
+        return grad, None
 
 
 def identity_rule(fn, x):
@@ -52,14 +62,19 @@ def identity_rule(fn, x):
 
 
 class _DivideGradient(torch.autograd.Function):
+    lrp_rule = ("rule", "uniform rule /k (Eq. 7)")
+
     @staticmethod
     def forward(ctx, x, factor):
         ctx.factor = factor
+        ctx.check = check.mode()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return g / ctx.factor, None
+        (grad,) = check.maybe_redistribute((g / ctx.factor,), (g,),
+                                           "divide_gradient", ctx.check)
+        return grad, None
 
 
 def divide_gradient(x, factor=2):
@@ -195,11 +210,14 @@ _REL_IN = {"gamma": _gamma_rel_in, "alphabeta": _alphabeta_rel_in,
 
 
 class _LinearRule(torch.autograd.Function):
+    lrp_rule = ("rule", "{} rule (linear)")
+
     @staticmethod
     def forward(ctx, x, w, b, kind, args):
         out = _linear(x, w, b)
         ctx.save_for_backward(x, w, b, out)
         ctx.kind, ctx.args = kind, args
+        ctx.check = check.mode()
         return out
 
     @staticmethod
@@ -210,14 +228,19 @@ class _LinearRule(torch.autograd.Function):
         rel_in = _REL_IN[ctx.kind](
             x32, w32, b32, g32 * out32, torch.matmul,
             lambda gg, ww: torch.matmul(gg, ww.T), *ctx.args)
-        return (rel_in / _stabilize(x32)).to(x.dtype), None, None, None, None
+        (grad_x,) = check.maybe_redistribute(
+            (rel_in / _stabilize(x32),), (g,), f"{ctx.kind}_linear", ctx.check)
+        return grad_x.to(x.dtype), None, None, None, None
 
 
 class _Conv2dRule(torch.autograd.Function):
+    lrp_rule = ("rule", "{} rule (conv2d)")
+
     @staticmethod
     def forward(ctx, x, w, b, strides, padding, kind, args):
         ctx.save_for_backward(x, w, b)
         ctx.conv, ctx.kind, ctx.args = (strides, padding), kind, args
+        ctx.check = check.mode()
         return _conv2d(x, w, b, strides, padding)
 
     @staticmethod
@@ -236,8 +259,9 @@ class _Conv2dRule(torch.autograd.Function):
 
         rel_in = _REL_IN[ctx.kind](x32, w32, b32, g32 * out, mm, mm_t,
                                    *ctx.args)
-        grad_x = (rel_in / _stabilize(x32)).to(x.dtype)
-        return grad_x, None, None, None, None, None, None
+        (grad_x,) = check.maybe_redistribute(
+            (rel_in / _stabilize(x32),), (g,), f"{ctx.kind}_conv2d", ctx.check)
+        return grad_x.to(x.dtype), None, None, None, None, None, None
 
 
 def gamma_linear(x, w, b, gamma=0.25):

@@ -18,7 +18,9 @@ and Gemma-3-4B image + text (bf16, one 896 x 896 image in a prompt of
 seed.
 
     python3 scripts/profile_torch_paths.py \
-        [--paths main,nf4_8b,gemma,mixtral,gpt2,bert,decode,serve,vision,multimodal]
+        [--paths main,nf4_8b,gemma,mixtral,gpt2,bert,decode,serve,vision,multimodal,
+                 explicit,check]
+        [--repo DIR]
 
 The default is the first three. For each path: the wall time of three
 unprofiled attributions after a warm-up, then one attribution under
@@ -37,8 +39,13 @@ server's submit), in normalising the maps (the pipeline's) and in JSON
 (the HTTP frontend's), each timed apart on the batch's prompts and maps.
 For the vision towers and Gemma-3 image + text also the GEMM kernels by
 name (the explicit rules' backwards run float32 GEMMs beside the bf16
-ones). Needs a CUDA device; prints the card's nvidia-smi name and power limit
-first.
+ones). ``explicit``: the explicit Llama, GPT-2 XL and BERT of chip_smoke's
+phase 18 (a). ``check`` is no profile but a census: the name and launches of
+every device kernel of one ``AttributionModel.attribute`` with no
+``check=`` at the main path (remat off and on), and a digest of the list;
+``--repo DIR`` imports ``lxt_tpu_torch`` from another checkout, so that two
+commits' censuses can be compared in one call. Needs a CUDA device; prints
+the card's nvidia-smi name and power limit first.
 """
 
 import os
@@ -48,6 +55,9 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402  this checkout's, before --repo goes first on the path
+if "--repo" in sys.argv:   # the package of another checkout
+    sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--repo") + 1]))
 
 GEMM = r"gemm|xmma|nvjet|cutlass|cublas"
 TOP_OPS = 12
@@ -290,7 +300,61 @@ def main():
         profile_vision(card)
     if "multimodal" in paths:
         profile_multimodal(card)
+    if "explicit" in paths:
+        profile_explicit(card)
+    if "check" in paths:
+        census_check(card)
     return 0
+
+
+def profile_explicit(card):
+    """The explicit TinyLlama-1.1B and GPT-2 XL (bf16, 8 x 1024) and BERT-base
+    (bf16, 32 x 512, a quarter masked to 300) of chip_smoke's phase 18 (a),
+    remat on."""
+    import torch
+    import chip_smoke as cs
+    for family in ("llama", "gpt2", "bert"):
+        cfg, params, _, comp, _, ex, embed = cs.explicit_setup(family)
+        params = cs.cast(params, torch.bfloat16)
+        B, T = (cs.BERT_BATCH, cs.SEQ_BERT) if family == "bert" else (cs.SERVE_BATCH, cs.SEQ)
+        ids = torch.randint(0, cfg.vocab_size, (B, T), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(181))
+        kw = {}
+        if family == "bert":
+            kw["attention_mask"] = torch.ones(B, T, dtype=torch.int32, device="cuda")
+            kw["attention_mask"][:B // 4, cs.BERT_REAL:] = 0
+        profile(lambda: cs.explicit_map(family, cfg, params, comp, ex, embed, ids, **kw),
+                f"explicit {family} bf16 L{cfg.num_layers} B{B}x{T} remat on {comp.name}",
+                card)
+        del params
+        torch.cuda.empty_cache()
+
+
+def census_check(card):
+    """The device kernels of one attribution at the main path, with no
+    check=: the census two commits are compared by (chip_smoke's
+    kernel_census, device-to-host copies included)."""
+    import hashlib
+    import torch
+    import lxt_tpu_torch
+    import chip_smoke as cs
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models.registry import AttributionModel
+    print(f"lxt_tpu_torch from {os.path.dirname(lxt_tpu_torch.__file__)}", flush=True)
+    cfg = llama.LlamaConfig(**cs.MODEL, dtype="bfloat16")
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    ids = torch.randint(0, cfg.vocab_size, (cs.SERVE_BATCH, cs.SEQ), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+    for remat in (False, True):
+        model = AttributionModel("llama", cfg, params, lxt_tpu_torch.attnlrp, remat=remat)
+        model.attribute(ids)  # warm-up
+        census, _ = cs.kernel_census(lambda: model.attribute(ids))
+        digest = hashlib.sha1(repr(sorted(census.items())).encode()).hexdigest()[:16]
+        print(f"census check=None bf16 L{cfg.num_layers} B{cs.SERVE_BATCH}x{cs.SEQ} "
+              f"remat {remat}: {sum(census.values())} device kernel launches of "
+              f"{len(census)} kernels, digest {digest} [{card}]", flush=True)
+        for name, n in sorted(census.items(), key=lambda kv: (-kv[1], kv[0])):
+            print(f"  {n:5d} {name[:150]}", flush=True)
 
 
 def profile_vision(card):
