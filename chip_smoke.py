@@ -16,13 +16,16 @@ attribute_response over the response), the HTTP server
 from_pretrained), and vision: the explicit rules, ViT-B/16, OpenCLIP
 ViT-L/14 and Gemma-3-4B with one 896 x 896 image at full width and depth,
 and the explicit path (the explicit Llama, GPT-2 and BERT at full width),
-check= and the rule audit.
+check= and the rule audit, and multi-device attribution (data, tensor,
+expert, pipeline and sequence x tensor parallelism, and the data-parallel
+server) over four processes on the one card.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
     python3 chip_smoke.py --serve     # phases 1-2 and 16 only, no result line
     python3 chip_smoke.py --vision    # phases 1-2 and 17 only, no result line
     python3 chip_smoke.py --explicit  # phases 1-2 and 18 only, no result line
+    python3 chip_smoke.py --parallel  # phases 1-2 and 19 only, no result line
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -229,7 +232,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      in ms, check=None's device kernels (torch.profiler) equal to the
      direct attribution's; (d) audit of the main-path forward through K1:
      0 unruled sites under attnlrp and cp_lrp at 22 layers, 12 under
-     vanilla_gradient at 2 (tests/test_torch_rule_audit.py's count).
+     vanilla_gradient at 2 (tests/test_torch_rule_audit.py's count);
+ 19. multi-device, four processes on the one card over gloo (its
+     collectives and point-to-point staged through host copies: the wall
+     times are not scaling numbers): the single-process references first,
+     then (a) Llama-3-8B dp 2 x tp 2 (local heads 16/4): float32 at 4
+     layers, batch 2 x 4096, against the single-process kernel path
+     (<= 1e-4), the same shards in bf16 against it (<= 0.1), bf16 at full
+     depth; (b) NF4 tp 2 x dp 2 at Llama-3-8B width, 4 layers, float32
+     (<= 1e-4 against the single-process NF4 run, K3 launches equal to its);
+     (c) NF4 Mixtral-8x7B width ep 2 x dp 2, 4 layers, float32, 2 x 1024
+     (<= 1e-4; K3 from each process's own routing counters); (d) pp 4,
+     n_micro 4: float32 at 4 layers, 4 x 2048 (<= 1e-4), bf16 at full depth,
+     4 x 4096; (e) sp 2 x tp 2, float32, 4 layers, 1 x 8192, remat off
+     (<= 1e-4); each with the launches of K1, K2, the rotation pass and K3
+     per process gated exactly, each process's wall time and peak memory;
+     (f) build_server --data-parallel 2 on a TinyLlama-width checkpoint
+     (this process rank 0, one rank spawned): 16 requests, each map within
+     0.02 of its prompt alone through a single-process pipeline, both
+     ranks' launches exactly batches x one attribution's.
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
@@ -249,7 +270,9 @@ bf16 generate, attribute_response, attribute_response_latent and the NF4
 generate), "launches_serve" over phase 16's 32 served attribute requests,
 "launches_vision" over phase 17's ViT and OpenCLIP calls and
 "launches_multimodal" over its full-depth Gemma-3 calls (three attribute,
-generate, attribute_response); the last line is
+generate, attribute_response), "launches_parallel" over phase 19's runs
+(every process's, the references excepted, and both serving ranks'); the
+last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -570,6 +593,23 @@ EXPLICIT_GATE_LAYERS, EXPLICIT_COS, EXPLICIT_REQUESTS, CHECK_REPS = 2, 0.999, 2,
 EXPLICIT_SITE_BAR = 1e-4
 EXPLICIT_F64_BAR = {"llama": 1e-3, "gpt2": 3e-2, "bert": 1e-3}
 AUDIT_VANILLA = 12          # 5 a layer (the norms' 4, the gate's) + the final norm's 2
+# phase 19, multi-device: PAR_WORLD processes on the one card over gloo
+# (NCCL refuses two ranks on one device; gloo stages CUDA tensors through
+# host copies), random weights from seeds drawn on the card, the same on
+# every process and in the single-process references; each comparison
+# explains the reference's float32 argmax tokens at the last position.
+# (a) Llama-3-8B dp 2 x tp 2: the float32 gate at PAR_GATE_LAYERS, the same
+# shards in bf16 against it, then bf16 at full depth, batch PAR_DPTP, remat;
+# (b) NF4 tp 2 (x dp 2) and (c) NF4 Mixtral-8x7B ep 2 (x dp 2), float32 at
+# PAR_GATE_LAYERS; (d) pp PAR_WORLD, n_micro PAR_PP_MICRO: the float32 gate
+# at PAR_GATE_LAYERS (one layer a stage), then bf16 at full depth; (e) sp 2
+# x tp 2 float32 at PAR_GATE_LAYERS and 1 x PAR_SP_T, remat off (as phase
+# 10); (f) serve --data-parallel 2 on phase 16's TinyLlama-width checkpoint
+PAR_WORLD, PAR_SEED, PAR_TIMEOUT = 4, 31, 420
+PAR_GATE_LAYERS, PAR_DPTP, PAR_MIXTRAL_T = 4, (2, 4096), 1024
+PAR_PP_GATE, PAR_PP, PAR_PP_MICRO = (4, 2048), (4, 4096), 4
+PAR_SP_T = 8192
+PAR_SERVE_REQUESTS, PAR_SERVE_WORDS = 16, (256, 512)
 
 
 def card_line():
@@ -3778,6 +3818,546 @@ def phase_explicit(card):
     return failures
 
 
+# ---------------------------------------------------------------------------
+# phase 19: multi-device attribution over four processes on the one card
+# ---------------------------------------------------------------------------
+
+def one_at_a_time(make):
+    """``make()`` on each process of the default group in turn (rank order,
+    a barrier after each): a whole model lives on one process at a time
+    while each keeps only its shards."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = make()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def par_full(family, layers, dtype, seed, bits=None):
+    """Phase 19's whole model: Llama-3-8B or Mixtral-8x7B widths at
+    ``layers``, random weights from ``seed`` drawn on the card (the same on
+    every process and in the references), NF4 with ``bits``."""
+    import torch
+    from lxt_tpu_torch.models import llama, mixtral
+    gen = torch.Generator("cuda").manual_seed(seed)
+    if family == "mixtral":
+        cfg = mixtral.MixtralConfig(**dict(MIXTRAL_8X7B, num_layers=layers))
+        return cfg, mixtral.init_params(cfg, gen, dtype=getattr(torch, dtype),
+                                        quantize_bits=bits)
+    cfg = llama.LlamaConfig(**dict(LLAMA3_8B, num_layers=layers), dtype=dtype)
+    return cfg, llama.init_params(cfg, gen, quantize_bits=bits)
+
+
+def par_ids(shape, vocab, seed):
+    import torch
+    gen = torch.Generator("cuda").manual_seed(seed + 1000)
+    return torch.randint(0, vocab, shape, generator=gen, device="cuda")
+
+
+def par_target(family, params, cfg, tokens, remat=True, mesh=None, **kw):
+    """The logit of ``tokens`` (one a row) at the last position, summed over
+    the rows; under a mesh, this data rank's rows of ``tokens``."""
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models.registry import FAMILIES
+    from lxt_tpu_torch.parallel.mesh import data_rows
+    forward = FAMILIES[family]["forward"]
+
+    def target(x):
+        logits = forward(params, cfg, x, lxt_tpu_torch.attnlrp, remat=remat,
+                         logits_at=-1, **kw).logits
+        tok = tokens if mesh is None or tokens is None else data_rows(mesh, tokens)
+        return lxt_tpu_torch.select_logit(logits, token=tok)
+    return target
+
+
+def par_counts():
+    from lxt_tpu_torch.ops import flash_attention as fa
+    from lxt_tpu_torch.ops import quant
+    return {**fa.launches, **quant.launches}
+
+
+def timed_collectives():
+    """Wrap the port's collectives (tensor_parallel's all-reduce, gather,
+    broadcast, send and receive, and the ring's shift) so that each adds
+    its host seconds, after a synchronise (queued kernels are not counted),
+    and one call to the returned counter."""
+    import torch
+    from lxt_tpu_torch.ops import tensor_parallel
+    from lxt_tpu_torch.parallel import ring
+    spent = {"seconds": 0.0, "calls": 0}
+
+    def wrap(module, name):
+        fn = getattr(module, name)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent["seconds"] += time.perf_counter() - t0
+                spent["calls"] += 1
+        setattr(module, name, timed)
+
+    for name in ("all_reduce", "all_gather", "broadcast", "send", "recv"):
+        wrap(tensor_parallel, name)
+    wrap(ring, "_shift")
+    return spent
+
+
+def par_measured(fn, spent=None):
+    """``fn()`` with every process lined up before it, the launch counts
+    set to 0 just before it and read just after: (result, launches,
+    seconds on the host's clock, peak device memory GiB)."""
+    import torch
+    import torch.distributed as dist
+    from lxt_tpu_torch.models import mixtral
+    from lxt_tpu_torch.ops import flash_attention as fa
+    from lxt_tpu_torch.ops import quant
+    torch.cuda.synchronize()
+    if dist.is_initialized():
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    quant.reset_launches()
+    mixtral.reset_routing()
+    if spent is not None:
+        spent.update(seconds=0.0, calls=0)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {**par_counts(), **{f"routing_{k}": v for k, v in mixtral.routing.items()}}
+    if spent is not None:
+        counts.update(comm_seconds=spent["seconds"], comm_calls=spent["calls"])
+    return out, counts, seconds, torch.cuda.max_memory_allocated() / 2**30
+
+
+def parallel_rank(rank, store, out_dir, refs):
+    """One process of phase 19: (a) Llama-3-8B dp 2 x tp 2, (b) NF4 tp 2,
+    (c) NF4 Mixtral ep 2, (d) pp 4, (e) sp 2 x tp 2, each comparison
+    explaining the reference's tokens; writes its results to
+    ``out_dir``/rank<r>.pt."""
+    import functools
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.models.registry import FAMILIES
+    from lxt_tpu_torch.parallel import (attribute_pipeline_parallel,
+                                        attribute_sequence_parallel, attribute_sharded,
+                                        family_param_shardings, make_mesh,
+                                        mixtral_param_shardings,
+                                        pipeline_param_shardings, shard_params)
+    from lxt_tpu_torch.parallel.mesh import model_parallel
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (PAR_WORLD + 1)))
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=PAR_WORLD)
+    res = {}
+    measured = functools.partial(par_measured, spent=timed_collectives())
+
+    def keep(key, measured):
+        (value, rel), launches, seconds, peak = measured
+        res[key] = {"value": float(value), "rel": rel.float().cpu(),
+                    "launches": launches, "seconds": seconds, "peak_gib": peak}
+        # every process returns its cached blocks before the next model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"parallel: {key} run on every process ({seconds:.2f} s on "
+                  f"process 0)", flush=True)
+
+    try:
+        mesh = make_mesh(data=2, model=2)
+
+        def sharded(family, layers, dtype, seed, bits=None, shardings=None):
+            def make():
+                cfg, full = par_full(family, layers, dtype, seed, bits)
+                spec = (shardings or (lambda p: family_param_shardings(family, p, mesh)))(full)
+                return cfg, shard_params(full, spec)[0]
+            return one_at_a_time(make)
+
+        def dp_tp(family, cfg, local, ids, tokens, remat=True):
+            with model_parallel(mesh):
+                embeds = FAMILIES[family]["embed"](local, ids, cfg)
+            step = attribute_sharded(par_target(family, local, cfg, tokens, remat, mesh), mesh)
+            return lambda: step(embeds)
+
+        # (a) the gate: float32 at PAR_GATE_LAYERS, then its shards in bf16
+        layers, (B, T) = PAR_GATE_LAYERS, PAR_DPTP
+        cfg, local = sharded("llama", layers, "float32", PAR_SEED)
+        ids = par_ids((B, T), cfg.vocab_size, PAR_SEED)
+        keep("dptp32", measured(dp_tp("llama", cfg, local, ids, refs["dptp32"]["tokens"])))
+        local16 = cast(local, torch.bfloat16)
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        keep("dptp16", measured(dp_tp("llama", cfg16, local16, ids,
+                                          refs["dptp32"]["tokens"])))
+        del local16
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (a) driven: full depth, bf16
+        cfg, local = sharded("llama", LLAMA3_8B["num_layers"], "bfloat16", PAR_SEED + 1)
+        ids = par_ids((B, T), cfg.vocab_size, PAR_SEED + 1)
+        keep("dptp", measured(dp_tp("llama", cfg, local, ids, None)))
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) NF4 tp 2 (and dp 2) at PAR_GATE_LAYERS, float32
+        cfg, local = sharded("llama", layers, "float32", PAR_SEED + 2, bits="nf4")
+        ids = par_ids((B, T), cfg.vocab_size, PAR_SEED + 2)
+        keep("nf4", measured(dp_tp("llama", cfg, local, ids, refs["nf4"]["tokens"])))
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) NF4 Mixtral ep 2 (and dp 2) at PAR_GATE_LAYERS, float32
+        cfg, local = sharded("mixtral", layers, "float32", PAR_SEED + 3, bits="nf4",
+                             shardings=lambda p: mixtral_param_shardings(mesh))
+        ids = par_ids((B, PAR_MIXTRAL_T), cfg.vocab_size, PAR_SEED + 3)
+        keep("ep", measured(dp_tp("mixtral", cfg, local, ids, refs["ep"]["tokens"])))
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d) pp 4: the float32 gate (one layer a stage), then full depth bf16
+        pp = init_device_mesh("cpu", (PAR_WORLD,), mesh_dim_names=("pp",))
+
+        def pipeline_run(layers, dtype, seed, shape):
+            cfg, local = sharded("llama", layers, dtype, seed,
+                                 shardings=lambda p: pipeline_param_shardings(p, pp))
+            ids = par_ids(shape, cfg.vocab_size, seed)
+            # every stage embeds the batch; stage 0's embeddings start the pipeline
+            embeds = llama.embed(local, ids)
+            forward = functools.partial(llama.forward, logits_at=-1)
+            return measured(lambda: attribute_pipeline_parallel(
+                forward, local, cfg, embeds, pp, lxt_tpu_torch.attnlrp,
+                n_micro=PAR_PP_MICRO, shard=False))
+
+        keep("pp32", pipeline_run(layers, "float32", PAR_SEED + 4, PAR_PP_GATE))
+        keep("pp", pipeline_run(LLAMA3_8B["num_layers"], "bfloat16", PAR_SEED + 5,
+                                PAR_PP))
+        # (e) sp 2 x tp 2, float32, remat off
+        spm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("sp", "model"))
+        cfg, full = one_at_a_time(lambda: par_full("llama", layers, "float32",
+                                                   PAR_SEED + 6))
+        ids = par_ids((1, PAR_SP_T), cfg.vocab_size, PAR_SEED + 6)
+        embeds = llama.embed(full, ids)
+        keep("sptp", measured(lambda: attribute_sequence_parallel(
+            functools.partial(llama.forward, remat=False), full, cfg, embeds,
+            lxt_tpu_torch.attnlrp, group=spm.get_group("sp"),
+            token=refs["sptp"]["tokens"],
+            param_shardings=family_param_shardings("llama", full, spm))))
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["sp_rank"] = dist.get_rank(spm.get_group("sp"))
+        dist.barrier()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def par_reference(*args, **kw):
+    """A single-process reference on this process (see par_reference_run),
+    its memory returned to the card afterwards."""
+    import torch
+    out = par_reference_run(*args, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_reference_run(family, layers, dtype, seed, shape, bits=None, remat=True):
+    """The whole model, its argmax tokens at the last position (float32),
+    and the attribution explaining them through the kernels, its launches
+    measured."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models.registry import FAMILIES
+    cfg, params = par_full(family, layers, dtype, seed, bits)
+    ids = par_ids(shape, cfg.vocab_size, seed)
+    embeds = FAMILIES[family]["embed"](params, ids, cfg)
+    with torch.no_grad():
+        logits = FAMILIES[family]["forward"](params, cfg, embeds, lxt_tpu_torch.attnlrp,
+                                             remat=False, logits_at=-1).logits
+    tokens = logits[:, -1].float().argmax(-1).cpu()
+    target = par_target(family, params, cfg, tokens, remat)
+    (value, rel), launches, seconds, peak = par_measured(
+        lambda: lxt_tpu_torch.input_relevance(target, embeds))
+    return {"tokens": tokens, "value": float(value), "rel": rel.float().cpu(),
+            "launches": launches, "seconds": seconds, "peak_gib": peak}
+
+
+def par_spawn(refs):
+    """PAR_WORLD processes of parallel_rank over gloo on the one card; their
+    results, or the failure (a process that hangs past PAR_TIMEOUT or
+    exits non-zero)."""
+    import multiprocessing
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=parallel_rank,
+                             args=(r, os.path.join(tmp, "store"), tmp, refs))
+                 for r in range(PAR_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(0.0, PAR_TIMEOUT - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if hung or codes != [0] * PAR_WORLD:
+            return None, f"parallel processes: hung {hung}, exit codes {codes}"
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(PAR_WORLD)], None
+
+
+def flash_k3(launches):
+    return {n: launches.get(n, 0) for n in KERNELS}
+
+
+def par_report(card, label, ranks, key, want, ref=None, bar=None, against=None):
+    """Print one path's per-process launches (against ``want``, a list of
+    per-process counts), wall seconds and peak memory, and its map against
+    ``ref`` (or rank 0's ``against`` entry) within ``bar``. Returns the
+    failures."""
+    import torch
+    failures = []
+    got = [flash_k3(r[key]["launches"]) for r in ranks]
+    rels = [r[key]["rel"] for r in ranks]
+    same = all(torch.equal(rel, rels[0]) for rel in rels)
+    finite = all(bool(torch.isfinite(rel).all()) for rel in rels)
+    line = (f"parallel {label}: relevance {tuple(rels[0].shape)} finite {finite}, "
+            f"the same on every process {same}")
+    if ref is not None or against is not None:
+        want_rel = ref["rel"] if ref is not None else ranks[0][against]["rel"]
+        d = nl2(rels[0], want_rel)
+        line += (f", against {'the single-process kernel path' if ref is not None else against}"
+                 f" normalized L2 {d:.4g} (bar {bar})")
+        if ref is not None:
+            line += f", value {ranks[0][key]['value']:.6g} vs {ref['value']:.6g}"
+        if not d <= bar:
+            failures.append(f"parallel {label} relevance {d:.4g}")
+    line += (f"; launches per process {got} (expected {want})"
+             + (f", the single process's {flash_k3(ref['launches'])}" if ref is not None else "")
+             + f"; wall s per process {[round(r[key]['seconds'], 3) for r in ranks]}"
+             f", of it in the collectives (host-staged, after a synchronise) "
+             f"{[round(r[key]['launches']['comm_seconds'], 3) for r in ranks]} s over "
+             f"{[r[key]['launches']['comm_calls'] for r in ranks]} calls"
+             f"; peak GiB per process {[round(r[key]['peak_gib'], 2) for r in ranks]}"
+             f" [{card}]")
+    print(line, flush=True)
+    if not (same and finite):
+        failures.append(f"parallel {label} relevance not finite or not gathered alike")
+    if got != want:
+        failures.append(f"parallel {label} launches {got}")
+    return failures
+
+
+def with_k3(counts, k3=0):
+    return {**counts, "nf4_dequant": k3}
+
+
+def phase_parallel_serve(card):
+    """Phase 19 (f): a TinyLlama-width checkpoint served by build_server
+    with --data-parallel 2 (this process is rank 0; one rank spawned, both
+    on the one card over gloo): one warm-up request, then 16 POST
+    /v1/attribute from 8 client threads, each map against its prompt alone
+    through a single-process pipeline of rank 0's model. Before them, a call
+    that raises on every rank (a top_k past the vocabulary) must fail and
+    leave the ranks in step. Returns (failures, launches per process)."""
+    import functools
+    import threading
+    import torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.ops import flash_attention as fa
+    from lxt_tpu_torch.ops import quant
+    from lxt_tpu_torch.pipeline import AttributionPipeline
+    from lxt_tpu_torch.serve import _parse_args, build_server, http_server
+    failures = []
+    cfg = llama.LlamaConfig(**MODEL, dtype="bfloat16")
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(20))
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(TINYLLAMA_CONFIG, f)
+        write_safetensors(os.path.join(tmp, "model.safetensors"),
+                          hf_llama_state(params, cfg))
+        del params
+        torch.cuda.empty_cache()
+        args = _parse_args(["--model", tmp, "--device", "cuda", "--dtype", "bfloat16",
+                            "--data-parallel", "2", "--max-batch", str(SERVE_MAX_BATCH),
+                            "--max-wait-ms", str(SERVE_WAIT_MS),
+                            "--max-prompt-tokens", "2048"])
+        t0 = time.perf_counter()
+        server = build_server(args, tokenizer=functools.partial(WordTokenizer,
+                                                                cfg.vocab_size))
+        t_up = time.perf_counter() - t0
+        httpd = http_server(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        prompts = words(np.random.default_rng(19), PAR_SERVE_WORDS, PAR_SERVE_REQUESTS)
+        try:
+            # a call that raises on every rank (a top_k past the vocabulary,
+            # sent to the pipeline itself): the ranks agree on its outcome
+            # and answer the requests below in step
+            try:
+                server.pipeline.respond([prompts[0]], 2, temperature=1.0,
+                                        top_k=cfg.vocab_size + 1)
+                failures.append("parallel serve: a top_k past the vocabulary "
+                                "was not refused")
+            except ValueError:
+                pass
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            quant.reset_launches()
+            # one warm-up request (each rank's first call loads its kernels and
+            # cuBLAS): counted in the launches, not in the time
+            post(httpd.server_address[1], "/v1/attribute", {"prompt": prompts[0]})
+            results, t0, t1 = remote_posts(httpd.server_address[1], "/v1/attribute",
+                                           [{"prompt": p} for p in prompts], 8)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.close()
+            thread.join(timeout=60)
+    pipeline = server.pipeline
+    batches = list(server.batch_sizes)
+    codes = [p.exitcode for p in pipeline.procs]
+    got = [flash_k3(c) for c in (pipeline.rank_launches or [])]
+    want = [with_k3(expected_launches(MODEL["num_layers"], True))] * 2
+    want = [{n: len(batches) * c for n, c in w.items()} for w in want]
+    lat = sorted(s for _, _, s in results)
+    print(f"parallel (f) serve --data-parallel 2 (TinyLlama-1.1B widths, bf16, "
+          f"remat, gloo on the one card): up in {t_up:.1f} s (two ranks loading "
+          f"the checkpoint); {len(prompts)} requests from 8 clients in "
+          f"{t1 - t0:.3f} s ({len(prompts) / (t1 - t0):.3f} heatmaps/s, p50 "
+          f"{lat[len(lat) // 2]:.3f} s), coalesced batches {batches} (the first "
+          f"the warm-up request's); launches per "
+          f"process {got} (expected {want}: batches x one attribution's, no "
+          f"rotation pass under kv_begin); the spawned rank exited {codes} [{card}]",
+          flush=True)
+    if got != want or codes != [0]:
+        failures.append(f"parallel serve launches {got} / exit {codes}")
+    pipe = AttributionPipeline(pipeline.model, WordTokenizer(cfg.vocab_size))
+    ok, _ = served_maps_gate(card, "--data-parallel 2 against the single process",
+                             results, prompts, pipe, RING_BF16_BAR)
+    if not ok:
+        failures.append("parallel serve maps")
+    del pipe, pipeline, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return failures, got
+
+
+def phase_parallel(card):
+    """Phase 19: multi-device attribution on the one card. The
+    single-process references in this process, then PAR_WORLD processes over
+    gloo (parallel_rank), then the data-parallel server. Returns (failures,
+    the launches summed over every process of the driven runs and the
+    served traffic)."""
+    import torch
+    from lxt_tpu_torch.ops import flash_attention as fa
+    failures = []
+    t_phase = time.perf_counter()
+    L, (B, T) = PAR_GATE_LAYERS, PAR_DPTP
+    refs = {"dptp32": par_reference("llama", L, "float32", PAR_SEED, (B, T)),
+            "nf4": par_reference("llama", L, "float32", PAR_SEED + 2, (B, T), bits="nf4"),
+            "ep": par_reference("mixtral", L, "float32", PAR_SEED + 3,
+                                (B, PAR_MIXTRAL_T), bits="nf4"),
+            "pp32": par_reference("llama", L, "float32", PAR_SEED + 4, PAR_PP_GATE),
+            "sptp": par_reference("llama", L, "float32", PAR_SEED + 6, (1, PAR_SP_T),
+                                  remat=False)}
+    t_refs = time.perf_counter() - t_phase
+    ranks, err = par_spawn({k: {"tokens": v["tokens"]} for k, v in refs.items()})
+    if err:
+        return [err], {}
+    print(f"parallel: {PAR_WORLD} processes on the one card over gloo (collectives "
+          f"and point-to-point staged through host copies; wall times are not "
+          f"scaling numbers), references {t_refs:.1f} s, processes "
+          f"{time.perf_counter() - t_phase - t_refs:.1f} s [{card}]", flush=True)
+    gate = with_k3(expected_launches(L, True))
+    failures += par_report(card, f"(a) Llama-3-8B width dp 2 x tp 2 float32 L{L} "
+                           f"B{B}x{T} remat", ranks, "dptp32", [gate] * PAR_WORLD,
+                           refs["dptp32"], PARITY_BAR)
+    failures += par_report(card, f"(a) the same shards in bf16 against float32 sharded",
+                           ranks, "dptp16", [with_k3(expected_launches(
+                               L, True, HOPPER_BODIES[128]))] * PAR_WORLD,
+                           bar=DIVERGENCE_BAR, against="dptp32")
+    failures += par_report(card, f"(a) Llama-3-8B dp 2 x tp 2 bf16 L{LLAMA3_8B['num_layers']} "
+                           f"B{B}x{T} remat (local heads 16/4 D128)", ranks, "dptp",
+                           [with_k3(expected_launches(LLAMA3_8B["num_layers"], True,
+                                                      HOPPER_BODIES[128]))] * PAR_WORLD)
+    failures += par_report(card, f"(b) NF4 Llama-3-8B width tp 2 (x dp 2) float32 L{L} "
+                           f"B{B}x{T} remat", ranks, "nf4",
+                           [with_k3(expected_launches(L, True),
+                                    refs["nf4"]["launches"]["nf4_dequant"])] * PAR_WORLD,
+                           refs["nf4"], PARITY_BAR)
+    # K3 per block run: the four attention projections, the router and three
+    # products per non-empty local expert group; the backward once more for
+    # each of the forward's (phase 12's count, on each process's own groups)
+    ep_want = [with_k3(expected_launches(L, True), 3 * (
+        5 * r["ep"]["launches"]["routing_host_reads"]
+        + 3 * r["ep"]["launches"]["routing_nonempty_groups"]) // 2) for r in ranks]
+    failures += par_report(card, f"(c) NF4 Mixtral-8x7B width ep 2 (x dp 2) float32 "
+                           f"L{L} B{B}x{PAR_MIXTRAL_T} remat; group sizes read "
+                           f"{[r['ep']['launches']['routing_host_reads'] for r in ranks]} "
+                           f"times, local non-empty groups "
+                           f"{[r['ep']['launches']['routing_nonempty_groups'] for r in ranks]}",
+                           ranks, "ep", ep_want, refs["ep"], PARITY_BAR)
+    if any(r["ep"]["launches"]["routing_host_reads"] != 2 * L for r in ranks):
+        failures.append("parallel ep host reads")
+    Bp = PAR_PP_GATE[0]
+    failures += par_report(card, f"(d) pp {PAR_WORLD} float32 L{L} B{Bp}x"
+                           f"{PAR_PP_GATE[1]} n_micro {PAR_PP_MICRO} remat", ranks, "pp32",
+                           [with_k3(expected_launches(L // PAR_WORLD, True,
+                                                      forwards=PAR_PP_MICRO,
+                                                      pulls=PAR_PP_MICRO))] * PAR_WORLD,
+                           refs["pp32"], PARITY_BAR)
+    Lp = LLAMA3_8B["num_layers"]
+    failures += par_report(card, f"(d) Llama-3-8B pp {PAR_WORLD} bf16 L{Lp} B{PAR_PP[0]}x"
+                           f"{PAR_PP[1]} n_micro {PAR_PP_MICRO} remat", ranks, "pp",
+                           [with_k3(expected_launches(Lp // PAR_WORLD, True,
+                                                      HOPPER_BODIES[128],
+                                                      forwards=PAR_PP_MICRO,
+                                                      pulls=PAR_PP_MICRO))] * PAR_WORLD)
+    # the ring steps the causal mask leaves visible: sp rank r runs r + 1 of 2
+    sp_want = [with_k3({n: (r["sp_rank"] + 1) * L for n in
+                        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} | {"rope_rotate": 0})
+               for r in ranks]
+    failures += par_report(card, f"(e) sp 2 x tp 2 float32 L{L} B1x{PAR_SP_T} remat off",
+                           ranks, "sptp", sp_want, refs["sptp"], PARITY_BAR)
+    launches = {n: sum(r[k]["launches"][n] for r in ranks
+                       for k in ("dptp32", "dptp16", "dptp", "nf4", "ep", "pp32", "pp", "sptp"))
+                for n in KERNELS}
+    del ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    f, serve = phase_parallel_serve(card)
+    failures += f
+    for counts in serve:
+        for n in KERNELS:
+            launches[n] += counts[n]
+    fa.reset_launches()
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return failures, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3814,6 +4394,10 @@ def main():
         return 1 if failures else 0
     if "--explicit" in sys.argv[1:]:
         failures = phase_explicit(card)
+        print(f"failures: {failures}", flush=True)
+        return 1 if failures else 0
+    if "--parallel" in sys.argv[1:]:
+        failures, _ = phase_parallel(card)
         print(f"failures: {failures}", flush=True)
         return 1 if failures else 0
     t_start = time.perf_counter()
@@ -3876,7 +4460,10 @@ def main():
     failures += f
     torch.cuda.empty_cache()
     failures += phase_explicit(card)
-    print(f"phases 3-18 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    f, parallel_launches = phase_parallel(card)
+    failures += f
+    print(f"phases 3-19 took {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -3906,7 +4493,8 @@ def main():
          "launches_decode": decode_launches.get(name, 0),
          "launches_serve": serve_launches.get(name, 0),
          "launches_vision": vision_launches["vision"].get(name, 0),
-         "launches_multimodal": vision_launches["multimodal"].get(name, 0)}
+         "launches_multimodal": vision_launches["multimodal"].get(name, 0),
+         "launches_parallel": parallel_launches.get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.quant import QuantizedTensor, dequantize, quant_matmul
 from lxt_tpu_torch.ops.rules import (
     _conv2d,
@@ -207,7 +208,7 @@ class Composite:
                     return spec
         return default
 
-    def linear(self, x, w, b=None, site=None):
+    def linear(self, x, w, b=None, site=None, row_parallel=False):
         """Dense layer, ``w: [in, out]``. Under Gradient*Input a plain linear
         already implements the epsilon rule; a gamma / alpha-beta /
         modified-z rule (``linear_rule``, or ``site``'s entry in
@@ -215,11 +216,22 @@ class Composite:
         redistributes explicitly. int8/int4/nf4
         :class:`~lxt_tpu_torch.ops.quant.QuantizedTensor` weights go through
         :func:`~lxt_tpu_torch.ops.quant.quant_matmul` (weights carry no
-        relevance), or under a rule are dequantized to ``x``'s dtype first."""
+        relevance), or under a rule are dequantized to ``x``'s dtype first.
+
+        ``row_parallel``: under tensor parallelism
+        (:mod:`~lxt_tpu_torch.ops.tensor_parallel`) ``x`` and ``w`` hold
+        one shard of the input features; the partial products are summed
+        over the group, the bias is added once after the sum, and a rule's
+        denominators are the summed ones. Without a group it changes
+        nothing."""
         rule = self._site_rule(site, self._linear_rule())
+        group = tensor_parallel.group() if row_parallel else None
         if isinstance(w, QuantizedTensor):
             if rule is None:
-                return quant_matmul(x, w, b)
+                if group is None:
+                    return quant_matmul(x, w, b)
+                y = tensor_parallel.reduce(quant_matmul(x, w))
+                return y if b is None else y + b
             w = dequantize(w, x.dtype)
         if not isinstance(w, torch.Tensor):
             raise NotImplementedError(
@@ -227,12 +239,14 @@ class Composite:
                 f"(a torch.Tensor or a QuantizedTensor)")
         if rule is None:
             y = torch.matmul(x, w)
+            if group is not None:
+                y = tensor_parallel.reduce(y)
             return y if b is None else y + b
         if rule[0] == "gamma":
-            return gamma_linear(x, w, b, rule[1])
+            return gamma_linear(x, w, b, rule[1], group=group)
         if rule[0] in ("flat", "wsquare", "zbox"):
-            return modz_linear(x, w, b, rule)
-        return alphabeta_linear(x, w, b, rule[1], rule[2])
+            return modz_linear(x, w, b, rule, group=group)
+        return alphabeta_linear(x, w, b, rule[1], rule[2], group=group)
 
     def conv2d(self, x, w, b=None, strides=(1, 1), padding="VALID",
                site=None):

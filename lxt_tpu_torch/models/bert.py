@@ -19,6 +19,7 @@ import torch
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.common import ACTIVATIONS, ModelOutputs
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 
 
@@ -116,6 +117,7 @@ def forward(
     output_hidden_states: bool = False,
     remat: bool = True,
     attn_impl: str = "auto",
+    layer_driver=None,
 ):
     """Classification forward: ``logits [B, num_labels]`` from the pooled
     ``[CLS]`` state. ``hidden_states`` (when requested) is ``[L+1, B, T,
@@ -145,22 +147,27 @@ def forward(
 
     def layer(h, i):
         comp = composite.for_layer(i, cfg.num_layers)
-        q = common.split_heads(comp.linear(h, lp["wq"][i], lp["bq"][i], site="wq"), H, hd)
-        k = common.split_heads(comp.linear(h, lp["wk"][i], lp["bk"][i], site="wk"), H, hd)
-        v = common.split_heads(comp.linear(h, lp["wv"][i], lp["bv"][i], site="wv"), H, hd)
+        x = tensor_parallel.copy(h)
+        q = common.split_heads(comp.linear(x, lp["wq"][i], lp["bq"][i], site="wq"), H, hd)
+        k = common.split_heads(comp.linear(x, lp["wk"][i], lp["bk"][i], site="wk"), H, hd)
+        v = common.split_heads(comp.linear(x, lp["wv"][i], lp["bv"][i], site="wv"), H, hd)
         attn = attention(q, k, v, bias=bias, composite=comp, impl=attn_impl,
                          kv_end=kv_end)
-        a = comp.linear(common.merge_heads(attn), lp["wo"][i], lp["bo"][i], site="wo")
+        a = comp.linear(common.merge_heads(attn), lp["wo"][i], lp["bo"][i],
+                        site="wo", row_parallel=True)
         h = comp.layer_norm(h + a, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps)
-        x = comp.act(act_fn, comp.linear(h, lp["wi"][i], lp["bi"][i], site="wi"))
-        x = comp.linear(x, lp["wout"][i], lp["bout"][i], site="wout")
+        x = comp.act(act_fn, comp.linear(tensor_parallel.copy(h), lp["wi"][i],
+                                         lp["bi"][i], site="wi"))
+        x = comp.linear(x, lp["wout"][i], lp["bout"][i], site="wout",
+                        row_parallel=True)
         h = comp.layer_norm(h + x, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps)
         if probes is not None:
             h = h + probes[i]
         return h
 
     h, hiddens = common.run_layers(layer, inputs_post, cfg.num_layers, remat,
-                                   keep_hidden=output_hidden_states)
+                                   keep_hidden=output_hidden_states,
+                                   driver=layer_driver)
     pooled = composite.act(torch.tanh, composite.linear(
         h[:, 0], params["pooler_w"], params["pooler_b"], site="pooler_w"))
     logits = composite.linear(pooled, params["cls_w"], params["cls_b"], site="cls_w")

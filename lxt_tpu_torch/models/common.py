@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from lxt_tpu_torch.ops import tensor_parallel
+
 ACTIVATIONS: Dict[str, Callable] = {
     "silu": F.silu,
     # jax.nn.gelu defaults to the tanh approximation (HF 'gelu_pytorch_tanh')
@@ -162,9 +164,13 @@ def padding_setup(attention_mask, kv_begin, positions, T, device):
 
 
 def split_heads(x, n_heads, head_dim):
-    """[B, T, n*d] -> [B, n, T, d] (a view; the kernels read its strides)."""
+    """[B, T, n*d] -> [B, n, T, d] (a view; the kernels read its strides).
+    ``n_heads`` is the config's count; under tensor parallelism each
+    process holds its share of them (:func:`tensor_parallel.local_heads`),
+    which is the local config a shard runs."""
     b, t, _ = x.shape
-    return x.view(b, t, n_heads, head_dim).transpose(1, 2)
+    n = tensor_parallel.local_heads(n_heads)
+    return x.view(b, t, n, head_dim).transpose(1, 2)
 
 
 def merge_heads(x):
@@ -173,13 +179,22 @@ def merge_heads(x):
     return x.transpose(1, 2).reshape(b, t, n * d)
 
 
-def run_layers(layer_fn, h, num_layers, remat, keep_hidden=False):
+def run_layers(layer_fn, h, num_layers, remat, keep_hidden=False,
+               driver=None):
     """The layer driver: ``h = layer_fn(h, i)`` for each depth ``i``.
 
     ``remat=True`` recomputes each layer in the backward (non-reentrant
     ``torch.utils.checkpoint``); ``False`` saves everything. Returns
     ``(h, hiddens)`` with ``hiddens`` the stacked ``[L, B, T, D]`` layer
-    outputs when ``keep_hidden``, else None."""
+    outputs when ``keep_hidden``, else None. ``driver`` (a family
+    forward's ``layer_driver``, e.g. a pipeline stage's, see
+    ``parallel/pipeline_parallel.py``) replaces this loop:
+    ``driver(layer_fn, h, num_layers, remat) -> h``."""
+    if driver is not None:
+        if keep_hidden:
+            raise ValueError("hidden states are not collected under a "
+                             "layer_driver")
+        return driver(layer_fn, h, num_layers, remat), None
     hiddens = []
     for i in range(num_layers):
         if remat:
@@ -197,6 +212,17 @@ def layer_probes(probes):
     stacked tensor layer by layer would give each layer's backward a zero
     tensor of the whole ``[L, B, T, D]`` to fill and add."""
     return None if probes is None else probes.unbind(0)
+
+
+def vocab_head(composite, h, head, embed_table, site=None):
+    """``h @ head`` (``embed_table.T`` when ``head`` is None: tied). Under
+    tensor parallelism both are split on the vocabulary, so ``h`` takes a
+    copy (its relevance is the sum over the shards) and the logits are
+    gathered."""
+    if head is None:
+        head = embed_table.T
+    return tensor_parallel.gather_last(
+        composite.linear(tensor_parallel.copy(h), head, site=site))
 
 
 def take_frontier(h, logits_at):

@@ -18,6 +18,9 @@ so the cache holds rotated keys. Each family has one layer block, shared
 by its prefill and its step, which differ only in how the block attends;
 the heads are the families' own ``forward_head``. ``counters`` counts the
 steps and the host reads of the ``done`` flags that ``generate`` makes.
+The blocks take the forwards' tensor-parallel ``copy`` / row-parallel
+products, so under an active group the cache holds this process's kv
+heads.
 """
 
 import torch
@@ -25,6 +28,7 @@ import torch
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common, gemma3, gpt2, llama, mixtral
 from lxt_tpu_torch.models.common import ACTIVATIONS
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 
 #: decode steps run and host reads of the ``done`` flags (one a step of a
@@ -111,7 +115,7 @@ def _llama_block(lp, cfg, comp, h, i, rope, attend):
     def get(name):
         return lp[name][i] if name in lp else None
 
-    x = comp.rms_norm(h, lp["ln1"][i], cfg.rms_eps)
+    x = tensor_parallel.copy(comp.rms_norm(h, lp["ln1"][i], cfg.rms_eps))
     q = common.split_heads(comp.linear(x, lp["wq"][i], get("bq"), site="wq"), H, hd)
     k = common.split_heads(comp.linear(x, lp["wk"][i], get("bk"), site="wk"), Hkv, hd)
     v = common.split_heads(comp.linear(x, lp["wv"][i], get("bv"), site="wv"), Hkv, hd)
@@ -119,47 +123,52 @@ def _llama_block(lp, cfg, comp, h, i, rope, attend):
         q = comp.rms_norm(q, lp["q_norm"][i], cfg.rms_eps)
         k = comp.rms_norm(k, lp["k_norm"][i], cfg.rms_eps)
     q, k = common.apply_rope(q, k, *rope)
-    h = h + comp.linear(attend(q, k, v), lp["wo"][i], site="wo")
+    h = h + comp.linear(attend(q, k, v), lp["wo"][i], site="wo",
+                        row_parallel=True)
     x = comp.rms_norm(h, lp["ln2"][i], cfg.rms_eps)
     act_fn = ACTIVATIONS[cfg.act]
     if "w_router" in lp:
         moe = {n: lp[n][i] for n in ("w_router",) + mixtral.EXPERT_LEAVES}
         return h + mixtral.moe_block(x, moe, cfg, comp, act_fn)
+    x = tensor_parallel.copy(x)
     g = comp.gated_mul(act_fn, comp.linear(x, lp["wg"][i], site="wg"),
                        comp.linear(x, lp["wu"][i], site="wu"))
-    return h + comp.linear(g, lp["wd"][i], site="wd")
+    return h + comp.linear(g, lp["wd"][i], site="wd", row_parallel=True)
 
 
 def _gemma_block(lp, cfg, comp, h, i, rope, attend):
     H, Hkv, hd, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_eps
     norm = gemma3.gemma_rms_norm
-    x = norm(h, lp["ln_in"][i], eps, comp)
+    x = tensor_parallel.copy(norm(h, lp["ln_in"][i], eps, comp))
     q = common.split_heads(comp.linear(x, lp["wq"][i], site="wq"), H, hd)
     k = common.split_heads(comp.linear(x, lp["wk"][i], site="wk"), Hkv, hd)
     v = common.split_heads(comp.linear(x, lp["wv"][i], site="wv"), Hkv, hd)
     q = norm(q, lp["q_norm"][i], eps, comp)
     k = norm(k, lp["k_norm"][i], eps, comp)
     q, k = common.apply_rope(q, k, *rope)
-    out = comp.linear(attend(q, k, v), lp["wo"][i], site="wo")
+    out = comp.linear(attend(q, k, v), lp["wo"][i], site="wo", row_parallel=True)
     h = h + norm(out, lp["ln_post_attn"][i], eps, comp)
-    x = norm(h, lp["ln_pre_ff"][i], eps, comp)
+    x = tensor_parallel.copy(norm(h, lp["ln_pre_ff"][i], eps, comp))
     g = comp.gated_mul(ACTIVATIONS[cfg.act], comp.linear(x, lp["wg"][i], site="wg"),
                        comp.linear(x, lp["wu"][i], site="wu"))
-    out = comp.linear(g, lp["wd"][i], site="wd")
+    out = comp.linear(g, lp["wd"][i], site="wd", row_parallel=True)
     return h + norm(out, lp["ln_post_ff"][i], eps, comp)
 
 
 def _gpt2_block(lp, cfg, comp, h, i, rope, attend):
-    H, hd, D = cfg.num_heads, cfg.hd, cfg.hidden_size
-    x = comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps)
+    H, hd = cfg.num_heads, cfg.hd
+    x = tensor_parallel.copy(
+        comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps))
     qkv = comp.linear(x, lp["w_attn"][i], lp["b_attn"][i], site="w_attn")
-    q, k, v = (common.split_heads(t, H, hd) for t in qkv.split(D, dim=-1))
+    q, k, v = (common.split_heads(t, H, hd) for t in qkv.chunk(3, dim=-1))
     h = h + comp.linear(attend(q, k, v), lp["w_proj"][i], lp["b_proj"][i],
-                        site="w_proj")
-    x = comp.layer_norm(h, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps)
+                        site="w_proj", row_parallel=True)
+    x = tensor_parallel.copy(
+        comp.layer_norm(h, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps))
     x = comp.act(ACTIVATIONS[cfg.act], comp.linear(x, lp["w_fc"][i], lp["b_fc"][i],
                                                    site="w_fc"))
-    return h + comp.linear(x, lp["w_out"][i], lp["b_out"][i], site="w_out")
+    return h + comp.linear(x, lp["w_out"][i], lp["b_out"][i], site="w_out",
+                           row_parallel=True)
 
 
 # ---------------------------------------------------------------------------

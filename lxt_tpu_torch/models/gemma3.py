@@ -33,6 +33,7 @@ import torch
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.common import ACTIVATIONS, ModelOutputs
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 from lxt_tpu_torch.ops.rules import stop_gradient
 
@@ -124,7 +125,7 @@ def embed(params, input_ids, cfg: Gemma3Config):
     table = params["embed"]
     scale = torch.tensor(cfg.hidden_size ** 0.5, dtype=table.dtype,
                          device=table.device)
-    return table[input_ids] * scale
+    return tensor_parallel.embedding(table, input_ids) * scale
 
 
 def layer_sliding_flags(cfg: Gemma3Config):
@@ -159,6 +160,7 @@ def forward(
     kv_begin=None,
     attn_impl: str = "auto",
     logits_at=None,
+    layer_driver=None,
 ):
     """Causal-LM forward; the keywords are those of ``llama.forward``.
     Returns :class:`ModelOutputs`."""
@@ -175,7 +177,7 @@ def forward(
 
     def layer(h, i):
         comp = composite.for_layer(i, cfg.num_layers)
-        x = gemma_rms_norm(h, lp["ln_in"][i], eps, comp)
+        x = tensor_parallel.copy(gemma_rms_norm(h, lp["ln_in"][i], eps, comp))
         q = common.split_heads(comp.linear(x, lp["wq"][i], site="wq"), H, hd)
         k = common.split_heads(comp.linear(x, lp["wk"][i], site="wk"), Hkv, hd)
         v = common.split_heads(comp.linear(x, lp["wv"][i], site="wv"), Hkv, hd)
@@ -187,19 +189,21 @@ def forward(
                          bias=bias, composite=comp, scale=scale,
                          rope=rope_local if sliding[i] else rope_global,
                          impl=attn_impl, kv_begin=kv_begin)
-        out = comp.linear(common.merge_heads(attn), lp["wo"][i], site="wo")
+        out = comp.linear(common.merge_heads(attn), lp["wo"][i], site="wo",
+                          row_parallel=True)
         h = h + gemma_rms_norm(out, lp["ln_post_attn"][i], eps, comp)
-        x = gemma_rms_norm(h, lp["ln_pre_ff"][i], eps, comp)
+        x = tensor_parallel.copy(gemma_rms_norm(h, lp["ln_pre_ff"][i], eps, comp))
         g = comp.gated_mul(act_fn, comp.linear(x, lp["wg"][i], site="wg"),
                            comp.linear(x, lp["wu"][i], site="wu"))
-        out = comp.linear(g, lp["wd"][i], site="wd")
+        out = comp.linear(g, lp["wd"][i], site="wd", row_parallel=True)
         h = h + gemma_rms_norm(out, lp["ln_post_ff"][i], eps, comp)
         if probes is not None:
             h = h + probes[i]
         return h
 
     h, hiddens = common.run_layers(layer, inputs_embeds, cfg.num_layers, remat,
-                                   keep_hidden=output_hidden_states)
+                                   keep_hidden=output_hidden_states,
+                                   driver=layer_driver)
     logits = forward_head(params, cfg, h, composite, logits_at=logits_at)
     if output_hidden_states:
         hiddens = torch.cat([inputs_embeds[None], hiddens], dim=0)
@@ -213,10 +217,8 @@ def forward_head(params, cfg: Gemma3Config, h, composite=composites.attnlrp, *,
     h = gemma_rms_norm(h, params["final_norm"], cfg.rms_eps, composite)
     if logits_at is not None:
         h = common.take_frontier(h, logits_at)
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
-    return composite.linear(h, head)
+    return common.vocab_head(composite, h, params.get("lm_head"),
+                             params["embed"])
 
 
 # ---------------------------------------------------------------------------

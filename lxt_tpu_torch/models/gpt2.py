@@ -18,6 +18,7 @@ import torch
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.common import ACTIVATIONS, ModelOutputs
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 
 
@@ -93,7 +94,8 @@ def embed(params, input_ids, positions=None):
     respect to the first, and the forward adds the second."""
     if positions is None:
         positions = torch.arange(input_ids.shape[-1], device=input_ids.device)
-    return params["wte"][input_ids], params["wpe"][positions]
+    return (tensor_parallel.embedding(params["wte"], input_ids),
+            params["wpe"][positions])
 
 
 def layer_scale(cfg: GPT2Config, i):
@@ -120,6 +122,7 @@ def forward(
     kv_begin=None,
     attn_impl: str = "auto",
     logits_at=None,
+    layer_driver=None,
 ):
     """Causal-LM forward on token embeddings ``[B, T, D]``; the position
     embeddings are added here (``position_embeds`` replaces them, e.g. to
@@ -132,30 +135,35 @@ def forward(
         position_embeds = params["wpe"][positions]
     h0 = inputs_embeds + position_embeds
     act_fn = ACTIVATIONS[cfg.act]
-    H, hd, D = cfg.num_heads, cfg.hd, cfg.hidden_size
+    H, hd = cfg.num_heads, cfg.hd
     lp = params["layers"]
     probes = common.layer_probes(probes)
 
     def layer(h, i):
         comp = composite.for_layer(i, cfg.num_layers)
-        x = comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps)
+        x = tensor_parallel.copy(
+            comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps))
         qkv = comp.linear(x, lp["w_attn"][i], lp["b_attn"][i], site="w_attn")
-        q, k, v = (common.split_heads(t, H, hd) for t in qkv.split(D, dim=-1))
+        # q | k | v, each this process's heads under tensor parallelism
+        q, k, v = (common.split_heads(t, H, hd) for t in qkv.chunk(3, dim=-1))
         attn = attention(q, k, v, causal=True, bias=bias, composite=comp,
                          scale=layer_scale(cfg, i), impl=attn_impl,
                          kv_begin=kv_begin)
         h = h + comp.linear(common.merge_heads(attn), lp["w_proj"][i],
-                            lp["b_proj"][i], site="w_proj")
-        x = comp.layer_norm(h, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps)
+                            lp["b_proj"][i], site="w_proj", row_parallel=True)
+        x = tensor_parallel.copy(
+            comp.layer_norm(h, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps))
         x = comp.act(act_fn, comp.linear(x, lp["w_fc"][i], lp["b_fc"][i],
                                          site="w_fc"))
-        h = h + comp.linear(x, lp["w_out"][i], lp["b_out"][i], site="w_out")
+        h = h + comp.linear(x, lp["w_out"][i], lp["b_out"][i], site="w_out",
+                            row_parallel=True)
         if probes is not None:
             h = h + probes[i]
         return h
 
     h, hiddens = common.run_layers(layer, h0, cfg.num_layers, remat,
-                                   keep_hidden=output_hidden_states)
+                                   keep_hidden=output_hidden_states,
+                                   driver=layer_driver)
     logits = forward_head(params, cfg, h, composite, logits_at=logits_at)
     if output_hidden_states:
         hiddens = torch.cat([h0[None], hiddens], dim=0)
@@ -168,7 +176,7 @@ def forward_head(params, cfg: GPT2Config, h, composite=composites.cp_lrp, *,
     h = composite.layer_norm(h, params["lnf_w"], params["lnf_b"], cfg.ln_eps)
     if logits_at is not None:
         h = common.take_frontier(h, logits_at)
-    return composite.linear(h, params["wte"].T, site="wte")
+    return common.vocab_head(composite, h, None, params["wte"], site="wte")
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import torch
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.common import ACTIVATIONS, ModelOutputs
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 
 
@@ -178,7 +179,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, dtype=None,
 
 
 def embed(params, input_ids):
-    return params["embed"][input_ids]
+    """The token embeddings (under tensor parallelism the table is split
+    on the vocabulary: ``tensor_parallel.embedding``)."""
+    return tensor_parallel.embedding(params["embed"], input_ids)
 
 
 def forward(
@@ -195,6 +198,7 @@ def forward(
     kv_begin=None,
     attn_impl: str = "auto",
     logits_at=None,
+    layer_driver=None,
 ):
     """Causal-LM forward. Returns :class:`ModelOutputs`.
 
@@ -202,7 +206,12 @@ def forward(
     returns ``[B, 1, V]``. ``probes`` (optional ``[L, B, T, D]`` zeros) are
     added to each layer output; their gradients are the per-layer relevance
     hooks. Left-padded batches: ``attention_mask`` ([B, T] of 1/0, einsum
-    path) or ``kv_begin`` ([B] first valid index, flash-eligible)."""
+    path) or ``kv_begin`` ([B] first valid index, flash-eligible).
+    ``layer_driver`` replaces the layer loop (``common.run_layers``;
+    pipeline parallelism). Under tensor parallelism (an active
+    ``ops.tensor_parallel`` group) ``params`` are this process's shards
+    (``parallel.shard_params``) and the logits are gathered on the
+    vocabulary."""
     positions, bias, kv_begin = common.padding_setup(
         attention_mask, kv_begin, positions, inputs_embeds.shape[1],
         inputs_embeds.device)
@@ -210,7 +219,7 @@ def forward(
         params["layers"], cfg, inputs_embeds, composite, probes=probes,
         output_hidden_states=output_hidden_states, remat=remat,
         positions=positions, bias=bias, kv_begin=kv_begin,
-        attn_impl=attn_impl)
+        attn_impl=attn_impl, layer_driver=layer_driver)
     logits = forward_head(params, cfg, h, composite, logits_at=logits_at)
     if output_hidden_states:
         hiddens = torch.cat([inputs_embeds[None], hiddens], dim=0)
@@ -219,7 +228,7 @@ def forward(
 
 def _run_layers(lp, cfg, inputs_embeds, composite, *, probes,
                 output_hidden_states, remat, positions, bias, kv_begin,
-                attn_impl):
+                attn_impl, layer_driver=None):
     """The decoder layer stack (no embedding, final norm or lm_head)."""
     T = inputs_embeds.shape[1]
     act_fn = ACTIVATIONS[cfg.act]
@@ -242,7 +251,7 @@ def _run_layers(lp, cfg, inputs_embeds, composite, *, probes,
         def get(name):
             return lp[name][i] if name in lp else None
 
-        x = comp.rms_norm(h, lp["ln1"][i], cfg.rms_eps)
+        x = tensor_parallel.copy(comp.rms_norm(h, lp["ln1"][i], cfg.rms_eps))
         q = common.split_heads(comp.linear(x, lp["wq"][i], get("bq"), site="wq"), H, hd)
         k = common.split_heads(comp.linear(x, lp["wk"][i], get("bk"), site="wk"), Hkv, hd)
         v = common.split_heads(comp.linear(x, lp["wv"][i], get("bv"), site="wv"), Hkv, hd)
@@ -252,17 +261,19 @@ def _run_layers(lp, cfg, inputs_embeds, composite, *, probes,
         attn = attention(q, k, v, causal=True, window=cfg.sliding_window,
                          bias=bias, composite=comp, rope=rope, scale=scale,
                          impl=attn_impl, kv_begin=kv_begin)
-        h = h + comp.linear(common.merge_heads(attn), lp["wo"][i], site="wo")
-        x = comp.rms_norm(h, lp["ln2"][i], cfg.rms_eps)
+        h = h + comp.linear(common.merge_heads(attn), lp["wo"][i], site="wo",
+                            row_parallel=True)
+        x = tensor_parallel.copy(comp.rms_norm(h, lp["ln2"][i], cfg.rms_eps))
         g = comp.gated_mul(act_fn, comp.linear(x, lp["wg"][i], site="wg"),
                            comp.linear(x, lp["wu"][i], site="wu"))
-        h = h + comp.linear(g, lp["wd"][i], site="wd")
+        h = h + comp.linear(g, lp["wd"][i], site="wd", row_parallel=True)
         if probes is not None:
             h = h + probes[i]
         return h
 
     return common.run_layers(layer, inputs_embeds, cfg.num_layers, remat,
-                             keep_hidden=output_hidden_states)
+                             keep_hidden=output_hidden_states,
+                             driver=layer_driver)
 
 
 def forward_head(params, cfg, h, composite=composites.attnlrp, *,
@@ -272,10 +283,8 @@ def forward_head(params, cfg, h, composite=composites.attnlrp, *,
     h = composite.rms_norm(h, params["final_norm"], cfg.rms_eps)
     if logits_at is not None:
         h = common.take_frontier(h, logits_at)
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
-    return composite.linear(h, head)
+    return common.vocab_head(composite, h, params.get("lm_head"),
+                             params["embed"])
 
 
 # ---------------------------------------------------------------------------

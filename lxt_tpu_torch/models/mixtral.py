@@ -27,6 +27,14 @@ piecewise-constant mask with no gradient.
 
 ``routing`` counts, per block run, the host reads of the group sizes and
 the non-empty groups (each one expert's three products).
+
+Expert parallelism (``parallel.mixtral_param_shardings``: the expert axis
+split over the ``model`` group): each process holds E/ep contiguous
+experts. The router is replicated, so every process computes the same
+top K; each runs only its own experts, on the rows routed to them (the
+ragged mixture reads all E group sizes once per block, as before, and
+counts its own non-empty groups), and the combine is a ``reduce`` over the
+group, the mixture's input taking a ``copy``.
 """
 
 import dataclasses
@@ -40,6 +48,7 @@ from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.common import ACTIVATIONS, ModelOutputs
 from lxt_tpu_torch.models.llama import _sliding_window_spec, _torch_dtype, forward_head
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 from lxt_tpu_torch.ops.quant import QuantizedTensor, dequantize, quant_matmul
 from lxt_tpu_torch.ops.rules import stop_gradient
@@ -154,7 +163,7 @@ def init_params(cfg: MixtralConfig, generator: torch.Generator,
 
 
 def embed(params, input_ids):
-    return params["embed"][input_ids]
+    return tensor_parallel.embedding(params["embed"], input_ids)
 
 
 def _route(x, lp, cfg, composite):
@@ -176,11 +185,26 @@ def _dq(w, dtype):
     return dequantize(w, dtype) if isinstance(w, QuantizedTensor) else w
 
 
+def _local_experts(lp, cfg):
+    """``(first, count)``: this process's experts. All of them without
+    expert parallelism; under it, its contiguous share."""
+    w = lp["wg"]
+    count = (w.q if isinstance(w, QuantizedTensor) else w).shape[0]
+    if count == cfg.num_experts:
+        return 0, count
+    if tensor_parallel.size() * count != cfg.num_experts:
+        raise ValueError(f"{count} of {cfg.num_experts} experts held, over "
+                         f"{tensor_parallel.size()} expert-parallel processes")
+    return tensor_parallel.rank() * count, count
+
+
 def moe_block_dense(x, lp, cfg: MixtralConfig, composite, act_fn):
     """The mixture as a dense one-hot combine: every expert on every token."""
     top_w, top_idx = _route(x, lp, cfg, composite)                # [B,T,K]
     onehot = F.one_hot(top_idx, cfg.num_experts).to(top_w.dtype)  # [B,T,K,E]
     dense_w = (top_w[..., None] * onehot).sum(-2).to(x.dtype)     # [B,T,E]
+    first, count = _local_experts(lp, cfg)
+    dense_w = dense_w[..., first:first + count]
     gate = torch.einsum("btd,edi->btei", x, _dq(lp["wg"], x.dtype))
     up = torch.einsum("btd,edi->btei", x, _dq(lp["wu"], x.dtype))
     hidden = composite.gated_mul(act_fn, gate, up)
@@ -193,6 +217,15 @@ def _expert_matmul(x, w):
     return quant_matmul(x, w) if isinstance(w, QuantizedTensor) else torch.matmul(x, w)
 
 
+def _grouped(lhs, w, sizes):
+    """Expert e's product on its ``sizes[e]`` rows of ``lhs``, concatenated.
+    One split, whose backward is one concatenation: slicing each group
+    would give each group's backward a zero tensor of the whole lhs to fill
+    and add."""
+    return torch.cat([_expert_matmul(rows, w[e])
+                      for e, rows in enumerate(lhs.split(sizes)) if sizes[e]])
+
+
 def moe_block_ragged(x, lp, cfg: MixtralConfig, composite, act_fn):
     """The mixture as per-expert products on the rows sorted by expert:
     K/E of the dense products, and the same rules at the same sites."""
@@ -203,25 +236,22 @@ def moe_block_ragged(x, lp, cfg: MixtralConfig, composite, act_fn):
     top_w, top_idx = _route(xf, lp, cfg, composite)               # [N,K]
     expert_flat = top_idx.reshape(-1)                              # [N*K]
     order = torch.argsort(expert_flat, stable=True)
-    gathered = xf[order // K]                                      # [N*K,D]
     # one host read per block: torch.bincount would first read the ids'
     # minimum and maximum to the host, two more synchronisations
     sizes = torch.zeros(E, dtype=expert_flat.dtype, device=x.device).scatter_add_(
         0, expert_flat, torch.ones_like(expert_flat)).tolist()
     routing["host_reads"] += 1
+    first, count = _local_experts(lp, cfg)
+    if count < E:
+        return _ragged_local(xf, lp, composite, act_fn, top_w, order,
+                             sizes[first:first + count], sum(sizes[:first]),
+                             K).view(B, T, D).to(x.dtype)
     routing["nonempty_groups"] += sum(1 for n in sizes if n)
-
-    def grouped(lhs, w):
-        # one split, whose backward is one concatenation: slicing each
-        # group would give each group's backward a zero tensor of the
-        # whole lhs to fill and add
-        return torch.cat([_expert_matmul(rows, w[e])
-                          for e, rows in enumerate(lhs.split(sizes)) if sizes[e]])
-
-    gate = grouped(gathered, lp["wg"])
-    up = grouped(gathered, lp["wu"])
+    gathered = xf[order // K]                                      # [N*K,D]
+    gate = _grouped(gathered, lp["wg"], sizes)
+    up = _grouped(gathered, lp["wu"], sizes)
     hidden = composite.gated_mul(act_fn, gate, up)
-    expert_out = grouped(hidden, lp["wd"])                         # [N*K,D]
+    expert_out = _grouped(hidden, lp["wd"], sizes)                 # [N*K,D]
 
     w_sorted = top_w.reshape(-1)[order].to(x.dtype)
     weighted = composite.mul_uniform(w_sorted[:, None], expert_out)
@@ -232,10 +262,38 @@ def moe_block_ragged(x, lp, cfg: MixtralConfig, composite, act_fn):
     return out.view(B, T, D).to(x.dtype)
 
 
+def _ragged_local(xf, lp, composite, act_fn, top_w, order, sizes, lo, K):
+    """The ragged mixture of this process's experts alone: the rows routed
+    to them (``sizes`` of them per local expert, from ``lo`` in the sorted
+    order), each token's weighted rows summed into ``[N, D]`` (zero where
+    no local expert took it); the caller's ``reduce`` sums the processes."""
+    N, D = xf.shape
+    mine = order[lo:lo + sum(sizes)]
+    routing["nonempty_groups"] += sum(1 for n in sizes if n)
+    out = xf.new_zeros((N, D))
+    if not len(mine):
+        return out + 0 * xf   # in the graph: every process runs a backward
+    rows = xf[mine // K]
+    gate = _grouped(rows, lp["wg"], sizes)
+    up = _grouped(rows, lp["wu"], sizes)
+    hidden = composite.gated_mul(act_fn, gate, up)
+    expert_out = _grouped(hidden, lp["wd"], sizes)
+    w_local = top_w.reshape(-1)[mine].to(xf.dtype)
+    weighted = composite.mul_uniform(w_local[:, None], expert_out)
+    return out.index_add(0, mine // K, weighted)
+
+
 def moe_block(x, lp, cfg: MixtralConfig, composite, act_fn):
+    """The mixture (``cfg.moe_impl``). Under expert parallelism its input
+    takes a ``copy`` and its output a ``reduce`` over the group."""
+    split = _local_experts(lp, cfg)[1] < cfg.num_experts
+    if split:
+        x = tensor_parallel.copy(x)
     if cfg.moe_impl == "ragged":
-        return moe_block_ragged(x, lp, cfg, composite, act_fn)
-    return moe_block_dense(x, lp, cfg, composite, act_fn)
+        out = moe_block_ragged(x, lp, cfg, composite, act_fn)
+    else:
+        out = moe_block_dense(x, lp, cfg, composite, act_fn)
+    return tensor_parallel.reduce(out) if split else out
 
 
 def forward(
@@ -252,6 +310,7 @@ def forward(
     kv_begin=None,
     attn_impl: str = "auto",
     logits_at=None,
+    layer_driver=None,
 ):
     """Causal-LM forward; the keywords are those of ``llama.forward``.
     Returns :class:`ModelOutputs`."""
@@ -267,14 +326,15 @@ def forward(
 
     def layer(h, i):
         comp = composite.for_layer(i, cfg.num_layers)
-        x = comp.rms_norm(h, lp["ln1"][i], cfg.rms_eps)
+        x = tensor_parallel.copy(comp.rms_norm(h, lp["ln1"][i], cfg.rms_eps))
         q = common.split_heads(comp.linear(x, lp["wq"][i], site="wq"), H, hd)
         k = common.split_heads(comp.linear(x, lp["wk"][i], site="wk"), Hkv, hd)
         v = common.split_heads(comp.linear(x, lp["wv"][i], site="wv"), Hkv, hd)
         attn = attention(q, k, v, causal=True, window=cfg.sliding_window,
                          bias=bias, composite=comp, rope=rope, scale=scale,
                          impl=attn_impl, kv_begin=kv_begin)
-        h = h + comp.linear(common.merge_heads(attn), lp["wo"][i], site="wo")
+        h = h + comp.linear(common.merge_heads(attn), lp["wo"][i], site="wo",
+                            row_parallel=True)
         x = comp.rms_norm(h, lp["ln2"][i], cfg.rms_eps)
         moe = {n: lp[n][i] for n in ("w_router",) + EXPERT_LEAVES}
         h = h + moe_block(x, moe, cfg, comp, act_fn)
@@ -283,7 +343,8 @@ def forward(
         return h
 
     h, hiddens = common.run_layers(layer, inputs_embeds, cfg.num_layers, remat,
-                                   keep_hidden=output_hidden_states)
+                                   keep_hidden=output_hidden_states,
+                                   driver=layer_driver)
     logits = forward_head(params, cfg, h, composite, logits_at=logits_at)
     if output_hidden_states:
         hiddens = torch.cat([inputs_embeds[None], hiddens], dim=0)

@@ -39,30 +39,31 @@ from lxt_tpu_torch.models import bert, decode, gemma3, gpt2, llama, mixtral
 from lxt_tpu_torch.ops.quant import QuantizedTensor
 
 _LLAMA = {"config": llama.LlamaConfig, "from_hf": llama.params_from_hf,
-          "forward": llama.forward,
+          "forward": llama.forward, "tp": "llama",
           "embed": lambda params, ids, cfg: llama.embed(params, ids),
           "prefill": decode.prefill, "decode_step": decode.decode_step}
 _GEMMA3 = {"config": gemma3.Gemma3Config, "from_hf": gemma3.params_from_hf,
-           "forward": gemma3.forward, "embed": gemma3.embed,
+           "forward": gemma3.forward, "embed": gemma3.embed, "tp": "gemma3",
            "prefill": decode.gemma3_prefill,
            "decode_step": decode.gemma3_decode_step}
 #: the families the port has a model for: family -> config class, HF
-#: converter, forward and embedding (``embed(params, ids, cfg)``), and for
-#: the causal LMs the KV-cached ``prefill`` and ``decode_step``
+#: converter, forward and embedding (``embed(params, ids, cfg)``), its
+#: tensor-parallel table (``tp``: see ``parallel.model_param_shardings``),
+#: and for the causal LMs the KV-cached ``prefill`` and ``decode_step``
 FAMILIES = {"llama": _LLAMA, "qwen2": _LLAMA, "qwen3": _LLAMA,
             "mistral": _LLAMA, "phi3": _LLAMA, "gemma3": _GEMMA3,
             "gemma3_text": _GEMMA3,
             "gpt2": {"config": gpt2.GPT2Config, "from_hf": gpt2.params_from_hf,
-                     "forward": gpt2.forward,
+                     "forward": gpt2.forward, "tp": "gpt2",
                      "embed": lambda params, ids, cfg: gpt2.embed(params, ids)[0],
                      "prefill": decode.gpt2_prefill,
                      "decode_step": decode.gpt2_decode_step},
             "bert": {"config": bert.BertConfig, "from_hf": bert.params_from_hf,
-                     "forward": bert.forward,
+                     "forward": bert.forward, "tp": "bert",
                      "embed": lambda params, ids, cfg: bert.embed(params, ids)},
             "mixtral": {"config": mixtral.MixtralConfig,
                         "from_hf": mixtral.params_from_hf,
-                        "forward": mixtral.forward,
+                        "forward": mixtral.forward, "tp": "mixtral",
                         "embed": lambda params, ids, cfg: mixtral.embed(params, ids),
                         "prefill": decode.mixtral_prefill,
                         "decode_step": decode.mixtral_decode_step}}
@@ -235,8 +236,8 @@ def _fill_after_eos(buf, T0, eos_token_id):
 def _greedy_update(buf, done, logits, pos, eos_token_id, generator=None,
                    temperature: float = 0.0, top_k=None):
     """One decode step's bookkeeping: the next token from the frontier
-    logits ``[B, 1, V]`` (argmax, or with ``generator`` a temperature /
-    top-k draw), eos latched on rows that already emitted it, written into
+    logits ``[B, 1, V]`` (argmax, or with ``generator``, one or a list of
+    one a row, a temperature / top-k draw), eos latched on rows that already emitted it, written into
     ``buf`` at ``pos`` in place. Returns the updated ``done``."""
     row = logits[:, 0, :]
     if generator is None:
@@ -246,8 +247,12 @@ def _greedy_update(buf, done, logits, pos, eos_token_id, generator=None,
         if top_k is not None:
             kth = torch.topk(logt, int(top_k), dim=-1).values[:, -1:]
             logt = logt.masked_fill(logt < kth, float("-inf"))
-        nxt = torch.multinomial(torch.softmax(logt, -1), 1,
-                                generator=generator)[:, 0]
+        probs = torch.softmax(logt, -1)
+        if isinstance(generator, torch.Generator):
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:   # one generator a row
+            nxt = torch.cat([torch.multinomial(probs[i:i + 1], 1, generator=g)
+                             for i, g in enumerate(generator)])[:, 0]
     nxt = nxt.to(buf.dtype)
     if eos_token_id is not None:
         nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
@@ -546,6 +551,9 @@ class AttributionModel:
         input_ids.shape[1])``). Greedy by default; with a ``generator`` (a
         ``torch.Generator`` on the model's device, where ``lxt_tpu`` takes a
         key) and ``temperature > 0`` (optionally ``top_k``) it samples.
+        ``generator`` may be a list of one generator a row: each row then
+        draws from its own, so its tokens depend neither on the other rows
+        nor on how the batch is split over processes.
 
         KV-cached (``models/decode.py``): one prefill over the prompt, then
         one single-token step per new token; ``use_cache=False`` runs the
@@ -562,6 +570,8 @@ class AttributionModel:
         if generator is not None and not temperature > 0:
             raise ValueError("sampling (generator=) needs temperature > 0")
         ids0 = _tensor(input_ids, self.device).long()
+        if isinstance(generator, (list, tuple)) and len(generator) != len(ids0):
+            raise ValueError(f"{len(generator)} generators for {len(ids0)} rows")
         kb = None if kv_begin is None else _tensor(kv_begin, self.device).to(torch.int32)
         return _decode(FAMILIES[self.family], self.params, self.cfg,
                        composites.resolve(self.composite), ids0,

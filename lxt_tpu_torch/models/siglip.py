@@ -20,6 +20,7 @@ import torch
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.vit import _converter, _stacked
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 
 
@@ -109,17 +110,20 @@ def forward(params, cfg: SiglipConfig, pixels,
     h = x.reshape(B, -1, D) + params["pos_emb"]
 
     def layer(h, i):
-        x = comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps)
+        x = tensor_parallel.copy(
+            comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps))
         q, k, v = (common.split_heads(comp.linear(x, lp[w][i], lp[b][i], site=w),
                                       H, hd)
                    for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
         attn = attention(q, k, v, composite=comp, impl="einsum")
         h = h + comp.linear(common.merge_heads(attn), lp["wo"][i], lp["bo"][i],
-                            site="wo")
-        x = comp.layer_norm(h, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps)
+                            site="wo", row_parallel=True)
+        x = tensor_parallel.copy(
+            comp.layer_norm(h, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps))
         x = comp.act(act_fn, comp.linear(x, lp["w_fc"][i], lp["b_fc"][i],
                                          site="w_fc"))
-        return h + comp.linear(x, lp["w_out"][i], lp["b_out"][i], site="w_out")
+        return h + comp.linear(x, lp["w_out"][i], lp["b_out"][i], site="w_out",
+                               row_parallel=True)
 
     h, _ = common.run_layers(layer, h, cfg.num_layers, remat)
     return comp.layer_norm(h, params["lnf_w"], params["lnf_b"], cfg.ln_eps)

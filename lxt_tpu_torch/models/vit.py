@@ -23,6 +23,7 @@ import torch
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.common import ModelOutputs
+from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 from lxt_tpu_torch.ops.functional import normalize
 
@@ -126,16 +127,20 @@ def forward(
 
     def layer(h, i):
         comp = composite.for_layer(i, cfg.num_layers)
-        x = comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps)
+        x = tensor_parallel.copy(
+            comp.layer_norm(h, lp["ln1_w"][i], lp["ln1_b"][i], cfg.ln_eps))
         qkv = comp.linear(x, lp["w_qkv"][i], lp["b_qkv"][i], site="w_qkv")
-        q, k, v = (common.split_heads(t, H, hd) for t in qkv.split(D, dim=-1))
+        # q | k | v, each this process's heads under tensor parallelism
+        q, k, v = (common.split_heads(t, H, hd) for t in qkv.chunk(3, dim=-1))
         attn = attention(q, k, v, composite=comp, impl="einsum")
         h = h + comp.linear(common.merge_heads(attn), lp["w_proj"][i],
-                            lp["b_proj"][i], site="w_proj")
-        x = comp.layer_norm(h, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps)
+                            lp["b_proj"][i], site="w_proj", row_parallel=True)
+        x = tensor_parallel.copy(
+            comp.layer_norm(h, lp["ln2_w"][i], lp["ln2_b"][i], cfg.ln_eps))
         x = comp.act(act_fn, comp.linear(x, lp["w_fc"][i], lp["b_fc"][i],
                                          site="w_fc"))
-        h = h + comp.linear(x, lp["w_out"][i], lp["b_out"][i], site="w_out")
+        h = h + comp.linear(x, lp["w_out"][i], lp["b_out"][i], site="w_out",
+                            row_parallel=True)
         if probes is not None:
             h = h + probes[i]
         return h
@@ -149,8 +154,11 @@ def forward(
         emb = composite.linear(h[:, 0], params["proj"], site="proj")
         logits = normalize(emb, 2.0, -1)
     else:
-        logits = composite.linear(h[:, 0], params["head_w"], params["head_b"],
-                                  site="head_w")
+        # head_w (and head_b with it) split on the classes under tensor
+        # parallelism: the logits are gathered
+        logits = tensor_parallel.gather_last(composite.linear(
+            tensor_parallel.copy(h[:, 0]), params["head_w"], params["head_b"],
+            site="head_w"))
     if output_hidden_states:
         hiddens = torch.cat([inputs_post[None], hiddens], dim=0)
     return ModelOutputs(logits=logits, hidden_states=hiddens)

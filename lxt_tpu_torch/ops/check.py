@@ -30,6 +30,9 @@ order. A site whose finite relevances overflow float32 when summed reads
 as non-finite too. ``counters["host_reads"]`` counts those reads. With no check on, a
 rule's backward adds no device work.
 
+Multi-process attribution (``parallel/``) refuses both checks
+(:func:`refuse_parallel`): run them on one process.
+
 Scope: the redistribution assumes that the cotangent IS relevance, i.e. the
 explicit path (:mod:`lxt_tpu_torch.ops.functional`,
 :mod:`lxt_tpu_torch.explicit`). Under the Gradient*Input rules
@@ -44,6 +47,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from lxt_tpu_torch.ops import tensor_parallel
 
 CONSERVATION_CHECK_FLAG = [False]
 NAN_CHECK_FLAG = [False]
@@ -66,11 +71,28 @@ class Mode:
 
 def mode() -> Optional[Mode]:
     """The check mode in force, or None when no check is on (then a rule's
-    backward does nothing more than its own arithmetic)."""
+    backward does nothing more than its own arithmetic). Raises
+    ``ValueError`` under tensor parallelism (see :func:`refuse_parallel`)."""
     if not (CONSERVATION_CHECK_FLAG[0] or NAN_CHECK_FLAG[0]):
         return None
+    if tensor_parallel.group() is not None:
+        refuse_parallel("tensor parallelism")
     return Mode(CONSERVATION_CHECK_FLAG[0],
                 _RECORD[0] if NAN_CHECK_FLAG[0] else None)
+
+
+def refuse_parallel(what):
+    """Raise ``ValueError`` when a check mode is on: the checks run on one
+    process. Split over processes (``what``), a rule site would spread its
+    uniform fill over its own shard of the input only (a row-parallel
+    product's shards would pass on the group's size times the relevance
+    they received), and each process would test its own shard for NaNs, so
+    some would raise and the others run on out of step. Every process
+    refuses alike, before any collective."""
+    if CONSERVATION_CHECK_FLAG[0] or NAN_CHECK_FLAG[0]:
+        raise ValueError(f"the conservation and NaN checks run on one "
+                         f"process; {what} splits the relevance over "
+                         f"processes (run the check without the mesh)")
 
 
 def _discharge():

@@ -27,7 +27,7 @@ its forward kept.
 import torch
 import torch.nn.functional as F
 
-from lxt_tpu_torch.ops import check
+from lxt_tpu_torch.ops import check, tensor_parallel
 
 _IDENTITY_EPS = 1e-10  # as lxt_tpu.ops.rules._IDENTITY_EPS
 
@@ -107,11 +107,6 @@ def _stabilize(x, eps=1e-6):
 def _wide(t):
     """``t`` in float32, or float64 if it is float64 (a reference run)."""
     return t.to(torch.promote_types(t.dtype, torch.float32))
-
-
-def _linear(x, w, b):
-    y = torch.matmul(x, w)
-    return y if b is None else y + b
 
 
 def _same_pads(size, k, s):
@@ -209,14 +204,28 @@ _REL_IN = {"gamma": _gamma_rel_in, "alphabeta": _alphabeta_rel_in,
            "modz": _modz_rel_in}
 
 
+def _row_matmul(group):
+    """``x @ w``, summed over ``group`` when x and w hold one shard of the
+    input features each (a row-parallel product; None: no sum)."""
+    if group is None:
+        return torch.matmul
+    return lambda xx, ww: tensor_parallel.all_reduce(torch.matmul(xx, ww), group)
+
+
 class _LinearRule(torch.autograd.Function):
+    """``group``: the tensor-parallel group of a row-parallel product,
+    whose x and w hold one shard of the input features: the output and the
+    rule's denominators (z, or z+ and z-, over all input features) are
+    summed over the group before the bias and the division."""
+
     lrp_rule = ("rule", "{} rule (linear)")
 
     @staticmethod
-    def forward(ctx, x, w, b, kind, args):
-        out = _linear(x, w, b)
+    def forward(ctx, x, w, b, kind, args, group=None):
+        out = _row_matmul(group)(x, w)
+        out = out if b is None else out + b
         ctx.save_for_backward(x, w, b, out)
-        ctx.kind, ctx.args = kind, args
+        ctx.kind, ctx.args, ctx.group = kind, args, group
         ctx.check = check.mode()
         return out
 
@@ -226,11 +235,11 @@ class _LinearRule(torch.autograd.Function):
         x32, w32, g32, out32 = (_wide(t) for t in (x, w, g, out))
         b32 = None if b is None else _wide(b)
         rel_in = _REL_IN[ctx.kind](
-            x32, w32, b32, g32 * out32, torch.matmul,
+            x32, w32, b32, g32 * out32, _row_matmul(ctx.group),
             lambda gg, ww: torch.matmul(gg, ww.T), *ctx.args)
         (grad_x,) = check.maybe_redistribute(
             (rel_in / _stabilize(x32),), (g,), f"{ctx.kind}_linear", ctx.check)
-        return grad_x.to(x.dtype), None, None, None, None
+        return grad_x.to(x.dtype), None, None, None, None, None
 
 
 class _Conv2dRule(torch.autograd.Function):
@@ -264,10 +273,11 @@ class _Conv2dRule(torch.autograd.Function):
         return grad_x.to(x.dtype), None, None, None, None, None, None
 
 
-def gamma_linear(x, w, b, gamma=0.25):
+def gamma_linear(x, w, b, gamma=0.25, group=None):
     """Linear layer ``x @ w + b`` (``w: [in, out]``) with the gamma-LRP
-    backward: relevance redistributed by ``w + gamma * w+``."""
-    return _LinearRule.apply(x, w, b, "gamma", (float(gamma),))
+    backward: relevance redistributed by ``w + gamma * w+``. ``group``: see
+    :class:`_LinearRule` (likewise for the other linear rules)."""
+    return _LinearRule.apply(x, w, b, "gamma", (float(gamma),), group)
 
 
 def gamma_conv2d(x, w, b, strides, padding, gamma=0.25):
@@ -276,11 +286,12 @@ def gamma_conv2d(x, w, b, strides, padding, gamma=0.25):
                              (float(gamma),))
 
 
-def alphabeta_linear(x, w, b, alpha=2.0, beta=1.0):
+def alphabeta_linear(x, w, b, alpha=2.0, beta=1.0, group=None):
     """Linear layer with the alpha-beta LRP backward: positive and negative
     contributions redistributed apart, ``alpha - beta = 1`` conserves;
     ``(1, 0)`` is the z+ rule."""
-    return _LinearRule.apply(x, w, b, "alphabeta", (float(alpha), float(beta)))
+    return _LinearRule.apply(x, w, b, "alphabeta", (float(alpha), float(beta)),
+                             group)
 
 
 def alphabeta_conv2d(x, w, b, strides, padding, alpha=2.0, beta=1.0):
@@ -289,11 +300,11 @@ def alphabeta_conv2d(x, w, b, strides, padding, alpha=2.0, beta=1.0):
                              (float(alpha), float(beta)))
 
 
-def modz_linear(x, w, b, spec):
+def modz_linear(x, w, b, spec, group=None):
     """Linear layer with a modified-z backward. ``spec``: ``('flat',)``
     (uniform over the fan-in), ``('wsquare',)`` (by w²) or ``('zbox', low,
     high)`` (the bounded-input rule)."""
-    return _LinearRule.apply(x, w, b, "modz", tuple(spec))
+    return _LinearRule.apply(x, w, b, "modz", tuple(spec), group)
 
 
 def modz_conv2d(x, w, b, strides, padding, spec):

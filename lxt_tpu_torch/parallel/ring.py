@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from lxt_tpu_torch.attribution import select_logit
+from lxt_tpu_torch.ops import check, tensor_parallel
 from lxt_tpu_torch.ops.flash_attention import NEG_INF, flash_attention_lse
 
 #: the group ``attention(impl="ring")`` runs over; None: the default group.
@@ -68,18 +69,13 @@ def _global(group, r):
     return r if group is None else dist.get_global_rank(group, r)
 
 
-def _staged(group, t):
-    """Whether ``t`` travels through a host copy: gloo has no
-    point-to-point for CUDA tensors (chosen by the group's backend)."""
-    return t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
-
-
 def _shift(group, tensors, step):
     """Send each tensor to group rank + ``step`` and return the ones
     received from group rank − ``step``, in one batch."""
     n, r = _size_rank(group)
     dst, src = _global(group, (r + step) % n), _global(group, (r - step) % n)
-    stage = _staged(group, tensors[0])
+    # gloo has no point-to-point for CUDA tensors: a host copy
+    stage = tensor_parallel.staged(group, tensors[0])
     send = [(t.cpu() if stage else t).contiguous() for t in tensors]
     recv = [torch.empty_like(t) for t in send]
     ops = []
@@ -172,10 +168,6 @@ def ring_flash_attention(q, k, v, group=None, *, scale=None, causal=True,
     return out.to(q.dtype)
 
 
-def _host(group, t):
-    return t.cpu() if _staged(group, t) else t
-
-
 def attribute_sequence_parallel(forward_fn, params, cfg, inputs_embeds,
                                 composite, *, group=None, position=-1,
                                 token=None, param_shardings=None):
@@ -195,11 +187,21 @@ def attribute_sequence_parallel(forward_fn, params, cfg, inputs_embeds,
     adds nothing. Returns ``(value, relevance [B, T] float32)``, both on
     every process.
 
-    ``param_shardings`` (lxt_tpu's sp × tp composition) waits for the port
-    of ``parallel/mesh.py`` and is refused."""
+    ``param_shardings`` (sequence × tensor parallelism): a
+    :class:`~lxt_tpu_torch.parallel.mesh.NamedSharding` tree over the
+    ``model`` dimension of a mesh whose other dimension is the ring's
+    ``group`` (e.g. ``family_param_shardings(family, params, mesh)`` on a
+    ``("sp", "model")`` mesh, ``group=mesh.get_group("sp")``): each process
+    keeps its slices of ``params`` (the whole model's) and the ring's
+    layers run tensor-parallel over ``model``, each ring step on the local
+    heads. The conservation and NaN checks are refused (they run on one
+    process)."""
+    check.refuse_parallel("sequence parallelism")
+    tp_group = None
     if param_shardings is not None:
-        raise NotImplementedError("param_shardings (sequence x tensor "
-                                  "parallel) waits for parallel/mesh.py")
+        from lxt_tpu_torch.parallel.mesh import model_group, shard_params
+        params, param_shardings = shard_params(params, param_shardings)
+        tp_group = model_group(param_shardings)
     n, idx = _size_rank(group)
     B, T, _ = inputs_embeds.shape
     if T % n:
@@ -207,7 +209,7 @@ def attribute_sequence_parallel(forward_fn, params, cfg, inputs_embeds,
     Tl = T // n
     x = inputs_embeds[:, idx * Tl:(idx + 1) * Tl].detach().requires_grad_(True)
     positions = idx * Tl + torch.arange(Tl, dtype=torch.int32, device=x.device)
-    with _using(group), torch.enable_grad():
+    with _using(group), tensor_parallel.using(tp_group), torch.enable_grad():
         logits = forward_fn(params, cfg, x, composite, positions=positions,
                             attn_impl="ring").logits
         local = select_logit(logits, position=position, token=token)
@@ -215,9 +217,6 @@ def attribute_sequence_parallel(forward_fn, params, cfg, inputs_embeds,
     rel = (x.detach().float() * grad.float()).sum(-1)
     if n == 1:
         return local.detach(), rel
-    value = _host(group, local.detach().clone())
-    dist.broadcast(value, _global(group, n - 1), group)
-    rel_host = _host(group, rel)
-    parts = [torch.empty_like(rel_host) for _ in range(n)]
-    dist.all_gather(parts, rel_host, group)
-    return value.to(local.device), torch.cat(parts, dim=1).to(rel.device)
+    g = dist.group.WORLD if group is None else group
+    return (tensor_parallel.broadcast(local, n - 1, g),
+            tensor_parallel.all_gather(rel, g, dim=1))

@@ -10,20 +10,45 @@ positions follow the HF convention. ``pad_multiple`` rounds the padded
 length up (128 on a CUDA device) so that the batch stays on the kernels.
 
 PyTorch runs eagerly, so ``lxt_tpu``'s program cache (``jit_cache_size``)
-has no counterpart; ``mesh=`` (data parallelism) waits for the port of
-``parallel/mesh.py``.
+has no counterpart.
+
+Scale-out: with ``mesh=`` (``parallel.make_mesh``) every process of the
+mesh calls the pipeline with the same prompts. The batch is rounded up to
+the size of the ``data`` dimension (fully padded dummy rows), each process
+explains (or generates and explains) its rows, and the results are gathered
+over ``data``, so every process returns every prompt's. A ``model``
+dimension of more than one process runs the model tensor-parallel: the
+pipeline keeps this process's shards of the weights
+(``parallel.model_param_shardings``; Mixtral: expert parallelism). A
+seeded ``respond`` draws each row from a generator of its own, seeded from
+the seed and the row's index in the whole batch, so it gives the tokens of
+one process.
 """
 
+import contextlib
 import dataclasses
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.attribution import (input_relevance, multi_site_relevance,
                                       topk_relevance)
 from lxt_tpu_torch.models.registry import CLASSIFIERS
+from lxt_tpu_torch.ops import tensor_parallel
+
+
+def _sharded_model(model, mesh):
+    """``model`` with this process's shards of its weights when the mesh's
+    ``model`` dimension has more than one process."""
+    from lxt_tpu_torch.parallel import mesh as pmesh
+    if dist.get_world_size(mesh.get_group("model")) == 1:
+        return model
+    shardings = pmesh.model_param_shardings(model, mesh)
+    return dataclasses.replace(model,
+                               params=pmesh.shard_params(model.params, shardings)[0])
 
 
 @dataclasses.dataclass
@@ -50,6 +75,11 @@ class ResponseAttribution:
     heatmaps: List[Heatmap]
 
 
+def _row_seed(seed, i):
+    """The seed of row ``i``'s generator (row 0's is ``seed``)."""
+    return (int(seed) + i * 0x9E3779B97F4A7C15) % 2 ** 64
+
+
 def _normalized(r):
     return r / (np.abs(r).max() + 1e-12)
 
@@ -68,22 +98,22 @@ class AttributionPipeline:
     other length would run the einsum path on the card.
     ``bucket_batch`` rounds the batch up to the next power of two with
     fully padded dummy rows (``kv_begin = T``); the results are unchanged.
-    ``mesh`` must be None: data parallelism is not ported yet.
+    ``mesh``: a ``(data, model)`` mesh (see the module docstring); every
+    process of it calls the pipeline alike. ``model`` is then the whole
+    model, of which a tensor-parallel mesh keeps this process's shards.
     """
 
     def __init__(self, model, tokenizer, composite=None, mesh=None,
                  pad_multiple: Optional[int] = None,
                  bucket_batch: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data parallelism) needs lxt_tpu's parallel/mesh.py, "
-                "which is not ported to lxt_tpu_torch yet (ROADMAP.md, "
-                "queue 1, multi-device)")
         if model.family in CLASSIFIERS:
             raise NotImplementedError(
                 f"AttributionPipeline explains a causal LM's next token; "
                 f"{model.family!r} is a classifier (call "
                 f"AttributionModel.attribute with kv_end instead)")
+        self.mesh = mesh
+        if mesh is not None:
+            model = _sharded_model(model, mesh)
         self.model = model
         self.tokenizer = tokenizer
         self.composite = composites.resolve(composite or model.composite)
@@ -91,6 +121,34 @@ class AttributionPipeline:
             pad_multiple = 128 if model.device.type == "cuda" else 1
         self.pad_multiple = int(pad_multiple)
         self.bucket_batch = bucket_batch
+
+    def _data(self):
+        """The mesh's ``data`` group and its size (None, 1 without a
+        mesh)."""
+        if self.mesh is None:
+            return None, 1
+        g = self.mesh.get_group("data")
+        return g, dist.get_world_size(g)
+
+    def _parallel(self):
+        """The tensor-parallel group of the mesh, entered for the model's
+        calls."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return tensor_parallel.using(self.mesh.get_group("model"))
+
+    def _rows(self, *arrays):
+        """This process's rows of each array (all of them without a
+        mesh)."""
+        if self.mesh is None:
+            return arrays
+        from lxt_tpu_torch.parallel.mesh import data_rows
+        return tuple(data_rows(self.mesh, a) for a in arrays)
+
+    def _gather(self, t, dim):
+        """``t`` of every ``data`` process, concatenated on ``dim``."""
+        g, n = self._data()
+        return t if n == 1 else tensor_parallel.all_gather(t, g, dim)
 
     def _pad_id(self):
         pad = getattr(self.tokenizer, "pad_token_id", None)
@@ -109,6 +167,8 @@ class AttributionPipeline:
         B = len(seqs)
         if self.bucket_batch:
             B = 1 << (B - 1).bit_length()   # next power of two
+        n = self._data()[1]
+        B = -(-B // n) * n                  # round the batch up to the data axis
         ids = np.full((B, T), self._pad_id(), np.int64)
         kv_begin = np.full((B,), T, np.int32)  # dummy rows: fully padded
         for i, s in enumerate(seqs):
@@ -130,8 +190,10 @@ class AttributionPipeline:
         forward, one pull per generated token; the ids right-padded to
         ``pad_multiple``), batched across prompts.
         Greedy by default; ``temperature > 0`` samples (optionally
-        ``top_k``-truncated) from a ``torch.Generator`` on the model's
-        device seeded with ``seed``, so a seed gives the same tokens.
+        ``top_k``-truncated, ``1 <= top_k <= vocab_size``), each prompt from
+        a ``torch.Generator`` of its own on the model's device, seeded from
+        ``seed`` and the prompt's index in the batch, so a seed gives the
+        same tokens, with or without a mesh.
 
         ``eos_token_id="auto"`` reads the tokenizer; pass ``None`` to
         always emit ``max_new_tokens``. Rows that hit eos are trimmed (the
@@ -144,17 +206,25 @@ class AttributionPipeline:
         if eos_token_id == "auto":
             eos_token_id = getattr(self.tokenizer, "eos_token_id", None)
         composite = composites.resolve(composite or self.composite)
-        sample_kw = {}
-        if temperature > 0:
-            generator = torch.Generator(device=self.model.device)
-            sample_kw = dict(temperature=float(temperature), top_k=top_k,
-                             generator=generator.manual_seed(int(seed)))
+        vocab = self.model.cfg.vocab_size
+        if top_k is not None and not 1 <= int(top_k) <= vocab:
+            raise ValueError(f"top_k must be in [1, {vocab}], got {top_k}")
         ids, kv_begin, seqs = self._encode(prompts)
         T0 = ids.shape[1]
-        out_dev = self.model.generate(ids, N, eos_token_id=eos_token_id,
-                                      kv_begin=kv_begin, **sample_kw)
-        values, rel = self._response_maps(out_dev, T0, kv_begin, composite,
-                                          contrastive)
+        sample_kw = {}
+        if temperature > 0:
+            gens = [torch.Generator(device=self.model.device).manual_seed(
+                _row_seed(seed, i)) for i in range(len(ids))]
+            sample_kw = dict(temperature=float(temperature), top_k=top_k,
+                             generator=self._rows(gens)[0])
+        ids, kv_begin = self._rows(ids, kv_begin)
+        with self._parallel():
+            out_dev = self.model.generate(ids, N, eos_token_id=eos_token_id,
+                                          kv_begin=kv_begin, **sample_kw)
+            values, rel = self._response_maps(out_dev, T0, kv_begin, composite,
+                                              contrastive)
+        out_dev = self._gather(out_dev, 0)
+        values, rel = self._gather(values, 1), self._gather(rel, 1)
         # post-processing on the host: one copy of each result, then numpy
         out = out_dev.cpu().numpy()
         values, rel = values.float().cpu().numpy(), rel.cpu().numpy()
@@ -207,23 +277,28 @@ class AttributionPipeline:
         """One forward with logits only at the last position, then one
         backward (``topk == 1``: the per-example max logits, summed, whose
         gradients are disjoint) or ``topk`` pulls of its graph. Returns
-        ``(tokens [K, B] or None, values, relevance)`` on the host."""
-        row = self.model._row(self.model._forward(composite, kv_begin), -1)
-        embeds = self.model.embed(ids)
-        if topk > 1:
-            toks, value, rel = topk_relevance(row, embeds, topk)
-            toks = toks.cpu().numpy()
-        else:
-            held = {}
+        ``(tokens [K, B] or None, values, relevance)`` on the host (with a
+        mesh: this process's rows explained, every row returned)."""
+        ids, kv_begin = self._rows(ids, kv_begin)
+        with self._parallel():
+            row = self.model._row(self.model._forward(composite, kv_begin), -1)
+            embeds = self.model.embed(ids)
+            if topk > 1:
+                toks, value, rel = topk_relevance(row, embeds, topk)
+                toks = self._gather(toks, 1).cpu().numpy()
+            else:
+                held = {}
 
-            def target(e):
-                per_example = row(e).max(dim=-1).values
-                held["value"] = per_example.detach()
-                return per_example.sum()
+                def target(e):
+                    per_example = row(e).max(dim=-1).values
+                    held["value"] = per_example.detach()
+                    return per_example.sum()
 
-            _, rel = input_relevance(target, embeds)
-            toks, value = None, held["value"]
-        return toks, value.float().cpu().numpy(), rel.cpu().numpy()
+                _, rel = input_relevance(target, embeds)
+                toks, value = None, held["value"]
+        dim = 1 if topk > 1 else 0
+        value, rel = self._gather(value.float(), dim), self._gather(rel, dim)
+        return toks, value.cpu().numpy(), rel.cpu().numpy()
 
     def __call__(self, prompts, composite=None, topk: int = 1):
         """``topk=1`` (default): list of :class:`Heatmap`, one per prompt,

@@ -25,6 +25,19 @@ The pipeline pads prompts to a shared length (``pad_multiple``, 128 on a
 CUDA device), so mixed-length batches stay on the flash kernels.
 
     python -m lxt_tpu_torch.serve --model <checkpoint dir> [--device cuda]
+
+``--data-parallel N`` starts N ranks (this process is rank 0, the others
+are spawned, each on ``cuda:{rank % device_count}``; NCCL when every rank
+has a card of its own, else gloo). Rank 0 runs the HTTP frontend and the
+worker; for each coalesced call its pipeline first sends the call to the
+other ranks (``broadcast_object_list``), which make the same call, and the
+mesh pipeline splits the batch over the ranks and gathers the maps. Every
+rank ends each call by posting its outcome to the group's store and reading
+the others': a call that raised on any rank fails (a 500) and the ranks go
+on in step. Closing the server sends the others a stop message. A rank that
+dies, or a call that does not end on every rank within
+:data:`RANK_TIMEOUT_S` (the ranks are out of step), stops the server with
+an error; it never carries on with fewer ranks.
 """
 
 import collections
@@ -131,7 +144,8 @@ class AttributionServer:
         Raises :class:`PromptTooLongError`, :class:`ServerOverloadedError`
         (queue full) or ``ValueError`` (``topk`` out of ``[1, max_topk]``,
         ``respond_tokens`` out of ``[1, max_respond_tokens]``, both given,
-        or a ``temperature`` without ``respond_tokens``) without enqueuing.
+        a ``temperature`` without ``respond_tokens``, or ``top_k`` out of
+        ``[1, vocabulary size]``) without enqueuing.
         """
         topk = int(topk)
         if not 1 <= topk <= self.max_topk:
@@ -150,6 +164,12 @@ class AttributionServer:
         if temperature < 0 or (temperature > 0 and respond_tokens is None):
             raise self._reject(ValueError(
                 "temperature needs respond_tokens and must be >= 0"))
+        if top_k is not None:
+            top_k, vocab = int(top_k), self._vocab_size()
+            if top_k < 1 or (vocab is not None and top_k > vocab):
+                raise self._reject(ValueError(
+                    f"top_k must be in [1, {vocab or 'vocab size'}], got "
+                    f"{top_k}"))
         tokenizer = getattr(self.pipeline, "tokenizer", None)
         ids = None
         if tokenizer is not None:   # bare-callable pipelines skip the guard
@@ -177,6 +197,12 @@ class AttributionServer:
                 )) from None
         return fut
 
+    def _vocab_size(self):
+        """The model's vocabulary size (None for a bare-callable
+        pipeline)."""
+        cfg = getattr(getattr(self.pipeline, "model", None), "cfg", None)
+        return getattr(cfg, "vocab_size", None)
+
     def attribute(self, prompt: str, composite=None, topk: int = 1,
                   respond_tokens: Optional[int] = None, **kw):
         """Blocking convenience wrapper around :meth:`submit`."""
@@ -184,13 +210,16 @@ class AttributionServer:
                            respond_tokens=respond_tokens, **kw).result()
 
     def close(self):
-        """Reject new submissions; the worker exits after in-flight work."""
+        """Reject new submissions; the worker exits after in-flight work
+        (then the ``--data-parallel`` ranks are stopped)."""
         with self._submit_lock:
             if self._closed:
                 return
             self._closed = True
             self._queue.put(None)
         self._worker.join()
+        if isinstance(self.pipeline, DataParallelPipeline):
+            self.pipeline.close()
 
     # -- worker side --------------------------------------------------------
 
@@ -448,34 +477,293 @@ def http_server(server: AttributionServer, host: str = "127.0.0.1",
 
 
 # ---------------------------------------------------------------------------
-# CLI: python -m lxt_tpu_torch.serve --model <hf checkpoint dir>
+# --data-parallel: the ranks behind rank 0's pipeline
 # ---------------------------------------------------------------------------
 
-def build_server(args) -> AttributionServer:
-    """Checkpoint directory -> ready :class:`AttributionServer` (its
-    tokenizer and pipeline are reachable as ``server.pipeline``). Split
-    from :func:`main` so deployments (and tests) can wire their own
-    frontend."""
+class DataParallelPipeline(AttributionPipeline):
+    """Rank 0's pipeline under ``--data-parallel``: each call is first sent
+    to the other ranks (``procs``, which loop in :func:`_follow`), then made
+    here, and every rank ends it with :func:`_agree`; the mesh pipeline does
+    the rest. A call that raised on some rank raises here (a 500), and the
+    ranks go on in step. A rank that exited, or ranks out of step, stop the
+    pipeline: ``failure`` says why, every later call raises, and the
+    ``on_failure`` callbacks run (the CLI's stops the HTTP server). A
+    watchdog thread notices an exited rank between calls. :meth:`close`
+    collects every rank's kernel launch counts into ``rank_launches``."""
+
+    def __init__(self, model, tokenizer, mesh, procs, store):
+        super().__init__(model, tokenizer, mesh=mesh)
+        self.procs = procs
+        self.failure = None
+        self.on_failure = []
+        self.rank_launches = None
+        self._store = store
+        self._calls = 0
+        self._closing = threading.Event()
+        self._failure_lock = threading.Lock()
+        threading.Thread(target=self._watch, daemon=True,
+                         name="lxt-rank-watchdog").start()
+
+    def _dead(self):
+        return [(r + 1, p.exitcode) for r, p in enumerate(self.procs)
+                if not p.is_alive()]
+
+    def _fail(self, why):
+        with self._failure_lock:
+            if self.failure is not None:
+                return
+            self.failure = f"{why}; the server stops"
+        for fn in self.on_failure:
+            fn()
+
+    def _watch(self):
+        while not self._closing.wait(0.5):
+            dead = self._dead()
+            if dead:
+                self._fail(f"data-parallel ranks exited (rank, exit code): "
+                           f"{dead}")
+                return
+
+    def _call(self, name, *a, **kw):
+        """Make the call ``name`` on every rank, then agree on its outcome."""
+        import torch.distributed as dist
+        dead = self._dead()
+        if dead:
+            self._fail(f"data-parallel ranks exited (rank, exit code): {dead}")
+        if self.failure is not None:
+            raise RuntimeError(self.failure)
+        world = dist.get_world_size()
+        dist.broadcast_object_list([(name, a, kw)], src=0)
+        n, self._calls = self._calls, self._calls + 1
+        out = error = None
+        try:
+            out = getattr(AttributionPipeline, name)(self, *a, **kw)
+        except Exception as e:  # noqa: BLE001 — agreed on below
+            error = e
+        try:
+            failed = _agree(self._store, n, 0, world,
+                            None if error is None
+                            else f"{type(error).__name__}: {error}",
+                            RANK_TIMEOUT_S, self._dead)
+        except RuntimeError as e:
+            self._fail(str(e))
+            raise RuntimeError(self.failure) from error
+        if n:   # every rank has read call n - 1's outcomes
+            for r in range(world):
+                self._store.delete_key(_agree_key(n - 1, r))
+        if error is not None:
+            raise error
+        if failed:
+            r = min(failed)
+            raise RuntimeError(f"data-parallel rank {r} failed: {failed[r]}")
+        return out
+
+    def __call__(self, prompts, composite=None, topk: int = 1):
+        return self._call("__call__", prompts, composite=composite, topk=topk)
+
+    def respond(self, prompts, max_new_tokens: int, **kw):
+        return self._call("respond", prompts, max_new_tokens, **kw)
+
+    def close(self):
+        """Stop the other ranks and leave the process group (after a
+        failure, the ranks left are terminated)."""
+        import torch.distributed as dist
+        if self._closing.is_set():
+            return
+        self._closing.set()
+        if self.failure is None and not self._dead():
+            dist.broadcast_object_list([None], src=0)
+            counts = [None] * dist.get_world_size()
+            dist.gather_object(_launches(), counts, dst=0)
+            self.rank_launches = counts
+        # leave the group before waiting: the other ranks' teardown may wait
+        # for this one's
+        dist.destroy_process_group()
+        for p in self.procs:
+            p.join(60 if self.failure is None else 0)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+
+
+#: ``--data-parallel``: seconds a rank that ended a call waits for the
+#: others to end it; past it the ranks are out of step (one is blocked in a
+#: collective that a failed rank left) and the server stops
+RANK_TIMEOUT_S = 300.0
+
+
+def _agree_key(n, rank):
+    return f"lxt/call/{n}/{rank}"
+
+
+def _agree(store, n, rank, world, error, timeout_s, dead=lambda: []):
+    """The step that ends call ``n`` of ``--data-parallel`` on every rank:
+    each rank posts its outcome (``error``: None, or the text of the
+    exception it raised) to the group's store and reads every rank's.
+    Returns ``{rank: error}`` of the ranks that failed (empty: the call
+    succeeded everywhere). When every rank posts, none is blocked in a
+    collective, so the ranks are in step for the next call. Raises
+    ``RuntimeError`` when ``dead()`` names an exited rank, or when a rank
+    has not posted within ``timeout_s``: it is then blocked in a collective
+    that a failed rank left, and the ranks are out of step."""
+    store.set(_agree_key(n, rank), "ok" if error is None else f"!{error}")
+    keys = [_agree_key(n, r) for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    while not store.check(keys):
+        exited = dead()
+        if exited:
+            raise RuntimeError(f"data-parallel ranks exited (rank, exit "
+                               f"code): {exited}")
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"data-parallel ranks out of step: call {n} did not end on "
+                f"every rank within {timeout_s} s of rank {rank}'s end"
+                + ("" if error is None else f" (rank {rank}: {error})"))
+        time.sleep(0.002)
+    outcomes = [store.get(k).decode() for k in keys]
+    return {r: o[1:] for r, o in enumerate(outcomes) if o != "ok"}
+
+
+def _launches():
+    """This process's kernel launch counts (the flash kernels, the rotation
+    pass and K3)."""
+    from lxt_tpu_torch.ops import flash_attention, quant
+    return {**flash_attention.launches, **quant.launches}
+
+
+def _rank_device(device, rank):
+    import torch
+    if device != "cuda":
+        return device
+    return f"cuda:{rank % torch.cuda.device_count()}"
+
+
+def _backend(device, world):
+    import torch
+    if device == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def _load(args, device, tokenizer=None):
+    """``(model, tokenizer)`` of the checkpoint, the model on ``device``;
+    ``tokenizer()`` makes the tokenizer (default: transformers'
+    AutoTokenizer of the checkpoint)."""
     import torch
 
     import lxt_tpu_torch
     from lxt_tpu_torch.models.registry import from_pretrained
 
-    if getattr(args, "data_parallel", 1) > 1:
-        raise NotImplementedError(
-            "--data-parallel needs lxt_tpu's parallel/mesh.py, which is not "
-            "ported to lxt_tpu_torch yet (ROADMAP.md, queue 1, multi-device)")
     composite = {"attnlrp": lxt_tpu_torch.attnlrp,
                  "cp_lrp": lxt_tpu_torch.cp_lrp, None: None}[args.composite]
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
     model = from_pretrained(args.model, composite=composite, dtype=dtype,
-                            quantize_bits=args.bits,
-                            device=getattr(args, "device", "cuda"))
+                            quantize_bits=args.bits, device=device)
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+        return model, AutoTokenizer.from_pretrained(args.model)
+    return model, tokenizer()
 
-    from transformers import AutoTokenizer
-    tokenizer = AutoTokenizer.from_pretrained(args.model)
 
-    pipeline = AttributionPipeline(model, tokenizer)
+def _follow(rank, world, port, arg_dict, tokenizer=None):
+    """Rank ``rank`` > 0 of ``--data-parallel``: load the model, then make
+    each call rank 0 sends and agree on its outcome (:func:`_agree`), until
+    the stop message. A call that raised here is reported to rank 0;
+    ranks out of step end this process with an error."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    from lxt_tpu_torch.parallel import make_mesh
+
+    args = argparse.Namespace(**arg_dict)
+    args.device = getattr(args, "device", "cuda")
+    device = _rank_device(args.device, rank)
+    if device.startswith("cuda"):
+        torch.cuda.set_device(device)
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=False)
+    dist.init_process_group(_backend(args.device, world), store=store,
+                            rank=rank, world_size=world)
+    try:
+        pipeline = AttributionPipeline(*_load(args, device, tokenizer),
+                                       mesh=make_mesh(data=world))
+        n = 0
+        while True:
+            call = [None]
+            dist.broadcast_object_list(call, src=0)
+            if call[0] is None:
+                break
+            name, a, kw = call[0]
+            error = None
+            try:
+                getattr(pipeline, name)(*a, **kw)
+            except Exception as e:  # noqa: BLE001 — reported to rank 0
+                error = f"{type(e).__name__}: {e}"
+            _agree(store, n, rank, world, error, RANK_TIMEOUT_S)
+            n += 1
+        dist.gather_object(_launches(), None, dst=0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _data_parallel_pipeline(args, tokenizer=None):
+    """Start ranks 1..N-1, join them as rank 0 and return rank 0's
+    :class:`DataParallelPipeline`."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from lxt_tpu_torch.parallel import make_mesh
+
+    world = int(args.data_parallel)
+    args.device = getattr(args, "device", "cuda")
+    if dist.is_initialized():
+        raise RuntimeError("--data-parallel starts its own process group; "
+                           "this process already has one")
+    port = _free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_follow,
+                         args=(r, world, port, vars(args), tokenizer),
+                         daemon=True) for r in range(1, world)]
+    for p in procs:
+        p.start()
+    device = _rank_device(args.device, 0)
+    if device.startswith("cuda"):
+        torch.cuda.set_device(device)
+    # the group's store also carries the agreement that ends each call
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=True)
+    dist.init_process_group(_backend(args.device, world), store=store,
+                            rank=0, world_size=world)
+    model, tok = _load(args, device, tokenizer)
+    return DataParallelPipeline(model, tok, make_mesh(data=world), procs,
+                                store)
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m lxt_tpu_torch.serve --model <hf checkpoint dir>
+# ---------------------------------------------------------------------------
+
+def build_server(args, tokenizer=None) -> AttributionServer:
+    """Checkpoint directory -> ready :class:`AttributionServer` (its
+    tokenizer and pipeline are reachable as ``server.pipeline``). Split
+    from :func:`main` so deployments (and tests) can wire their own
+    frontend. ``args.data_parallel > 1`` starts the other ranks (see the
+    module docstring); :meth:`AttributionServer.close` stops them.
+    ``tokenizer``: a picklable callable that makes the tokenizer, on every
+    rank (default: transformers' AutoTokenizer of the checkpoint)."""
+    if getattr(args, "data_parallel", 1) > 1:
+        pipeline = _data_parallel_pipeline(args, tokenizer)
+    else:
+        pipeline = AttributionPipeline(*_load(args, getattr(args, "device", "cuda"),
+                                              tokenizer))
     return AttributionServer(pipeline, max_batch=args.max_batch,
                              max_wait_ms=args.max_wait_ms,
                              max_queue=args.max_queue,
@@ -512,8 +800,8 @@ def _parse_args(argv=None):
     ap.add_argument("--request-timeout-s", type=float, default=None,
                     help="per-request deadline; 504 when exceeded")
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="shard request batches over this many devices "
-                         "(not ported yet: only 1)")
+                    help="split request batches over this many ranks (one "
+                         "process each, on cuda:{rank %% device_count})")
     return ap.parse_args(argv)
 
 
@@ -522,9 +810,13 @@ def main(argv=None):
     server = build_server(args)
     httpd = http_server(server, args.host, args.port,
                         request_timeout_s=args.request_timeout_s)
+    pipeline = server.pipeline
+    if isinstance(pipeline, DataParallelPipeline):
+        pipeline.on_failure.append(
+            lambda: threading.Thread(target=httpd.shutdown, daemon=True).start())
     print(f"lxt_tpu_torch attribution server on "
           f"http://{args.host}:{httpd.server_address[1]} "
-          f"(POST /v1/attribute, POST /v1/respond, GET /healthz)")
+          f"(POST /v1/attribute, POST /v1/respond, GET /healthz)", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -532,6 +824,9 @@ def main(argv=None):
     finally:
         httpd.server_close()   # release the listening socket
         server.close()
+    failure = getattr(pipeline, "failure", None)
+    if failure is not None:
+        raise SystemExit(f"error: {failure}")
 
 
 if __name__ == "__main__":

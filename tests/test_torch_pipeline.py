@@ -228,18 +228,32 @@ def test_sampled_respond_is_seeded(llama_ref):
     assert tokens(a) != tokens(draw(4))
     greedy = pipe.respond(PROMPTS, 5, eos_token_id=None)
     assert tokens(draw(3, top_k=1)) == tokens(greedy)
-    # the maps explain the sampled ids: generate's with the same seed
+    # the maps explain the sampled ids: generate's with the same seeds (one
+    # generator a row, seeded from the seed and the row)
+    from lxt_tpu_torch.pipeline import _row_seed
     ids, kv_begin, _ = pipe._encode(PROMPTS)
-    out = llama_ref["model"].generate(ids, 5, kv_begin=kv_begin, temperature=1.0,
-                                      generator=torch.Generator().manual_seed(3))
+    out = llama_ref["model"].generate(
+        ids, 5, kv_begin=kv_begin, temperature=1.0,
+        generator=[torch.Generator().manual_seed(_row_seed(3, i))
+                   for i in range(len(ids))])
     for i, r in enumerate(a):
         assert [h.target_token_id for h in r.heatmaps] == out[i, ids.shape[1]:].tolist()
 
 
-def test_pipeline_refusals(llama_ref):
+def test_pipeline_refusals(llama_ref, tmp_path):
+    import torch.distributed as dist
+
+    from lxt_tpu_torch.parallel import make_mesh
     tm = llama_ref["model"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        AttributionPipeline(tm, ToyTokenizer(), mesh=object())
+    # mesh= works (a mesh of one process gives the plain pipeline's maps;
+    # tests/test_torch_parallel_serving.py runs dp 2 x tp 2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        meshed = AttributionPipeline(tm, ToyTokenizer(), mesh=make_mesh())(PROMPTS)
+    finally:
+        dist.destroy_process_group()
+    assert_same_maps(meshed, AttributionPipeline(tm, ToyTokenizer())(PROMPTS), bar=1e-7)
     bert = TModel("bert", None, {"embed": torch.zeros(1)}, lxt_tpu_torch.attnlrp)
     with pytest.raises(NotImplementedError, match="classifier"):
         AttributionPipeline(bert, ToyTokenizer())

@@ -16,17 +16,15 @@ against lxt_tpu, on CPU.
   its original context and whose sequence is longer: lxt_tpu's ring picks
   the short schedule on every shard (ROADMAP F7), the port's the global one.
 
-Ranks are spawned with multiprocessing "spawn" and meet through a
-``file://`` store under ``tmp_path`` (no ports to clash between test
-workers); a rank that hangs is terminated and fails its test. jax is
+Ranks are spawned by ``tests/_torch_ranks.py`` (multiprocessing "spawn",
+a ``file://`` store under ``tmp_path``, so no ports clash between test
+workers; a rank that hangs is terminated and fails its test). jax is
 imported inside the test functions only: each spawned rank imports this
 module to find its entry and must not load it.
 """
 
 import dataclasses
 import functools
-import multiprocessing
-import time
 
 import numpy as np
 import pytest
@@ -40,53 +38,13 @@ from lxt_tpu_torch.models import llama as tllama
 from lxt_tpu_torch.ops import flash_attention as tfa
 from lxt_tpu_torch.ops.rules import divide_gradient
 from lxt_tpu_torch.parallel import attribute_sequence_parallel, ring_flash_attention
+from tests._torch_ranks import spawn as _spawn
 
-RANK_TIMEOUT = 240  # seconds for a whole spawned group
 LSE_ATOL, RING_ATOL, REL_ATOL = 1e-5, 5e-5, 2e-4
 
 # ---------------------------------------------------------------------------
 # spawned ranks
 # ---------------------------------------------------------------------------
-
-
-def _rank_main(fn, rank, world, store, out, args):
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=world)
-    try:
-        res = fn(rank, world, *args)
-        if rank == 0:
-            torch.save(res, out)
-    finally:
-        dist.destroy_process_group()
-
-
-def _spawn(fn, world, tmp_path, *args):
-    """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; returns rank
-    0's result. A rank that fails or outlives RANK_TIMEOUT fails the test."""
-    ctx = multiprocessing.get_context("spawn")
-    out = tmp_path / "rank0.pt"
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world,
-                                                  str(tmp_path / "store"),
-                                                  str(out), args))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + RANK_TIMEOUT
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.terminate()
-            p.join(10)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    assert not hung, f"ranks {hung} hung past {RANK_TIMEOUT} s"
-    codes = [p.exitcode for p in procs]
-    assert codes == [0] * world, f"rank exit codes {codes}"
-    return torch.load(out, weights_only=False)
 
 
 def _shard(a, rank, world, axis):
@@ -408,12 +366,6 @@ def test_longrope_ring_uses_the_global_length(tmp_path):
     # F7: lxt_tpu's own ring is off its single-device result
     assert abs(val_jring / val_single - 1) > 1e-3
     assert np.abs(rel_jring - rel_single).max() > 5 * REL_ATOL
-
-
-def test_attribute_sequence_parallel_refuses_param_shardings():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        attribute_sequence_parallel(None, None, None, torch.zeros(1, 4, 8), None,
-                                    param_shardings={})
 
 
 def test_ring_of_one_process_explains_a_given_token():

@@ -380,8 +380,14 @@ def test_cli_build_server_serves_a_checkpoint(tmp_path):
                                                "max_new_tokens": 2})
         assert code == 200 and 1 <= len(out["responses"][0]["heatmaps"]) <= 2
 
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        build_server(_parse_args(["--model", str(tmp_path), "--data-parallel", "2"]))
+    # --data-parallel 2 works: rank 0 here, one spawned rank, the same map
+    dp = build_server(_parse_args(["--model", str(tmp_path), "--device", "cpu",
+                                   "--dtype", "float32", "--data-parallel", "2"]))
+    with serving(dp) as port:
+        code, out = post(port, "/v1/attribute", {"prompt": "w3 w4 w5"})
+    assert code == 200 and out["heatmaps"][0]["tokens"] == hm["tokens"]
+    np.testing.assert_allclose(out["heatmaps"][0]["relevance"], hm["relevance"],
+                               rtol=0, atol=1e-4)
     help_text = subprocess.run([sys.executable, "-m", "lxt_tpu_torch.serve", "--help"],
                                capture_output=True, text=True, timeout=120, check=True,
                                cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
