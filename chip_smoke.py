@@ -16,9 +16,12 @@ attribute_response over the response), the HTTP server
 from_pretrained), and vision: the explicit rules, ViT-B/16, OpenCLIP
 ViT-L/14 and Gemma-3-4B with one 896 x 896 image at full width and depth,
 and the explicit path (the explicit Llama, GPT-2 and BERT at full width),
-check= and the rule audit, and multi-device attribution (data, tensor,
-expert, pipeline and sequence x tensor parallelism, and the data-parallel
-server) over four processes on the one card.
+check= and the rule audit, multi-device attribution (data, tensor,
+expert, pipeline and sequence x tensor parallelism, the checks under
+dp x tp, and the data-parallel server) over four processes on the one
+card, and loading at scale (checkpoints of Llama-3-8B and Mixtral-8x7B
+widths written here and read by the native loader, layer by layer, NF4
+while converting).
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1-3 only, no result line
@@ -26,6 +29,7 @@ server) over four processes on the one card.
     python3 chip_smoke.py --vision    # phases 1-2 and 17 only, no result line
     python3 chip_smoke.py --explicit  # phases 1-2 and 18 only, no result line
     python3 chip_smoke.py --parallel  # phases 1-2 and 19 only, no result line
+    python3 chip_smoke.py --load      # phases 1-2 and 20 only, no result line
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
@@ -43,11 +47,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      k_start) pair of a 4-way split and one pair off the tile grid, bf16,
      float16 and float32, head dim 64, 128 (window 300) and 256 (window
      1024), on both bodies; BERT-base's call (B32 H12/12 T512 D64,
-     bidirectional, 8 rows with kv_end 300); then at the main path's call
+     bidirectional, 8 rows with kv_end 300); a query length other than the
+     key length (Tq != Tk: a chunk against a longer cache, keys that start
+     after the first queries, a non-causal call with more queries than
+     keys) at head dim 64, 128 and 256 in bf16, float16 and float32, the
+     body each kernel ran printed; then at the main path's call
      (B8 H32/4 T1024 D64), the
      NF4 8B path's (B1 H32/8 T4096 D128; Mixtral-8x7B's too), Gemma-3-4B's
      two (B1 H8/4 T4096 D256), GPT-2 XL's (B8 H25/25 T1024 D64, no
-     rope) and BERT-base's (bidirectional: non-causal SDPA), bf16: each
+     rope), BERT-base's (bidirectional: non-causal SDPA) and a chunk of
+     queries against its cache (B1 H32/8 Tq1024 Tk4096 D128, q_start 3072:
+     SDPA with an explicit boolean mask), bf16: each
      kernel's device time (CUDA-graph replays) and body (Hopper or
      mma.sync) beside its plain version's time, its
      roofline bound (fa.work: FLOPs over 989 TFLOP/s or bytes over 3.35
@@ -250,7 +260,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (f) build_server --data-parallel 2 on a TinyLlama-width checkpoint
      (this process rank 0, one rank spawned): 16 requests, each map within
      0.02 of its prompt alone through a single-process pipeline, both
-     ranks' launches exactly batches x one attribution's.
+     ranks' launches exactly batches x one attribution's; (g) the checks at
+     dp 2 x tp 2, Llama-3-8B width, 2 layers, float32, 2 x 1024, gamma on
+     every linear: under conservation_check the map and conservation_error
+     against the single process's (<= 1e-4), and under nan_check a NaN in
+     one process's head shard raising the same site on all four;
+ 20. loading at scale (the native loader, g++ into lxt_tpu_torch/_build/):
+     (a) a Llama-3-8B-width bf16 checkpoint cut to 8 layers, written here
+     from a seed and loaded with from_pretrained(dtype=bfloat16): seconds,
+     GB/s, the load's peak host RSS (sampled) and peak device memory,
+     weights bit-equal to the written ones; (b) a Mixtral-8x7B-width bf16
+     checkpoint cut to 2 layers, loaded with quantize_bits="nf4": peak
+     device memory during the load minus the resident size after it at
+     most 1.25 x one layer's bf16 bytes, and the projection to 32 layers;
+     (c) one bf16 attribution (1 x 4096, remat) on each loaded model
+     through K1/K2 (and K3 for NF4), its relevance bit-equal to that of a
+     model loaded by the plain numpy reader and converted, then quantized,
+     whole; the written files deleted at the end, also on failure.
 The line before the last is a JSON object with each kernel's launches, error,
 times, bound and library time at the main path's call (K3: at wg), under
 "at_8b" at the NF4 8B path's (K3: at wd), and, for the flash kernels, under
@@ -271,8 +297,9 @@ generate), "launches_serve" over phase 16's 32 served attribute requests,
 "launches_vision" over phase 17's ViT and OpenCLIP calls and
 "launches_multimodal" over its full-depth Gemma-3 calls (three attribute,
 generate, attribute_response), "launches_parallel" over phase 19's runs
-(every process's, the references excepted, and both serving ranks'); the
-last line is
+(every process's, the references excepted, and both serving ranks'),
+"launches_load" over phase 20's two attributions of the loaded models; the
+at_chunk entry is the Tq != Tk call; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -338,6 +365,19 @@ CASES = {
     # tile grid at D 64)
     "bert_base": (32, 12, 12, 512, 64, {"causal": False,
                                         "kv_end": [300] * 8 + [512] * 24}),
+    # a query length other than the key length (opt "Tk"): a chunk of
+    # queries against a longer cache (causal, q_start = Tk - Tq; Tk 704 runs
+    # K1's 128-row Hopper kv tiles past Tk at head dim 64), with a window
+    # across tiles at 128 and an odd last q tile, keys that start after the
+    # first queries (empty rows) at 256, and a non-causal call with more
+    # queries than keys cut by kv_end at 256; lse cotangents on two
+    "tk_chunk_hd64": (2, 4, 2, 256, 64, {"Tk": 704, "q_start": 448, "dlse": True}),
+    "tk_chunk_hd128_window300": (1, 8, 2, 320, 128, {"Tk": 1024, "q_start": 704,
+                                                     "window": 300}),
+    "tk_keys_later_hd256": (1, 8, 2, 256, 256, {"Tk": 512, "q_start": 256,
+                                                "k_start": 320, "dlse": True}),
+    "tk_bidirectional_hd256_kv_end": (2, 8, 4, 512, 256, {"Tk": 192, "causal": False,
+                                                          "kv_end": [192, 100]}),
 }
 # ring steps (flash_attention_lse's calls): every (q_start, k_start) pair of
 # a 4-way split of 4 x T (keys in the past, on the diagonal and wholly in the
@@ -366,7 +406,8 @@ MAIN_CASE = (SERVE_BATCH, 32, 4, SEQ, 64, {"rope": True})
 CALLS = {"main": MAIN_CASE, "8b": (1, 32, 8, 4096, 128, {"rope": True}),
          "gemma_local": CASES["gemma_local"], "gemma_global": CASES["gemma_global"],
          "ring": (1, 32, 8, 2048, 128, {"q_start": 2048, "dlse": True}),
-         "gpt2": (SERVE_BATCH, 25, 25, SEQ, 64, {}), "bert": CASES["bert_base"]}
+         "gpt2": (SERVE_BATCH, 25, 25, SEQ, 64, {}), "bert": CASES["bert_base"],
+         "chunk": (1, 32, 8, 1024, 128, {"Tk": 4096, "q_start": 3072})}
 CALL_NAMES = {"main": "B8 H32/4 T1024 D64 causal rope",
               "8b": "B1 H32/8 T4096 D128 causal rope",
               "gemma_local": "B1 H8/4 T4096 D256 window 1024 causal rope",
@@ -375,7 +416,9 @@ CALL_NAMES = {"main": "B8 H32/4 T1024 D64 causal rope",
                       "(full square) dlse",
               "gpt2": "B8 H25/25 T1024 D64 causal, no rope",
               "bert": "B32 H12/12 T512 D64 bidirectional, kv_end 300 on 8 of 32 rows, "
-                      "no rope"}
+                      "no rope",
+              "chunk": "B1 H32/8 Tq1024 Tk4096 D128 causal q_start 3072 (a chunk "
+                       "against its cache), no rope"}
 # peak rates of an H100 SXM (data sheet): bf16 tensor cores, float32 outside
 # them (the rotation pass's elementwise work), device memory
 PEAK_BF16, PEAK_F32, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
@@ -605,11 +648,33 @@ AUDIT_VANILLA = 12          # 5 a layer (the norms' 4, the gate's) + the final n
 # at PAR_GATE_LAYERS (one layer a stage), then bf16 at full depth; (e) sp 2
 # x tp 2 float32 at PAR_GATE_LAYERS and 1 x PAR_SP_T, remat off (as phase
 # 10); (f) serve --data-parallel 2 on phase 16's TinyLlama-width checkpoint
-PAR_WORLD, PAR_SEED, PAR_TIMEOUT = 4, 31, 420
+PAR_WORLD, PAR_SEED, PAR_TIMEOUT = 4, 31, 480
 PAR_GATE_LAYERS, PAR_DPTP, PAR_MIXTRAL_T = 4, (2, 4096), 1024
 PAR_PP_GATE, PAR_PP, PAR_PP_MICRO = (4, 2048), (4, 4096), 4
 PAR_SP_T = 8192
 PAR_SERVE_REQUESTS, PAR_SERVE_WORDS = 16, (256, 512)
+# (g) the checks: depth, batch and length, and the explicit-rule composite
+PAR_CHECK_LAYERS, PAR_CHECK = 2, (2, 1024)
+# phase 19 (g)'s bar on the conservation map (normalized L2) and on
+# conservation_error (absolute; near 1 here), each against the single process
+CHECK_BAR = 1e-6
+# phase 20, loading at scale: Llama-3-8B widths cut to 8 layers and
+# Mixtral-8x7B's cut to 2, bf16 checkpoints written from a seed (HF names);
+# the NF4 load's transient device bytes at most LOAD_TRANSIENT_BAR x one
+# layer's bf16 bytes
+LOAD_8B_LAYERS, LOAD_MIXTRAL_LAYERS, LOAD_TRANSIENT_BAR = 8, 2, 1.25
+LLAMA3_8B_CONFIG = dict(
+    model_type="llama", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=LOAD_8B_LAYERS, num_attention_heads=32, num_key_value_heads=8,
+    rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=8192,
+    tie_word_embeddings=False, hidden_act="silu", torch_dtype="bfloat16")
+MIXTRAL_8X7B_CONFIG = dict(
+    model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=LOAD_MIXTRAL_LAYERS, num_attention_heads=32,
+    num_key_value_heads=8, num_local_experts=8, num_experts_per_tok=2,
+    rms_norm_eps=1e-5, rope_theta=1e6, max_position_embeddings=32768,
+    sliding_window=None, tie_word_embeddings=False, hidden_act="silu",
+    torch_dtype="bfloat16")
 
 
 def card_line():
@@ -673,12 +738,13 @@ def kernel_inputs(case, dtype, seed):
     import torch
     from lxt_tpu_torch.models import common
     B, H, Hkv, T, D, opt = case
+    Tk = opt.get("Tk", T)
     gen = torch.Generator("cuda").manual_seed(seed)
 
     def r(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v, do = r(B, H, T, D), r(B, Hkv, T, D), r(B, Hkv, T, D), r(B, H, T, D)
+    q, k, v, do = r(B, H, T, D), r(B, Hkv, Tk, D), r(B, Hkv, Tk, D), r(B, H, T, D)
     cos = sin = None
     if opt.get("rope"):
         cos, sin = (t.to("cuda", dtype).contiguous()
@@ -688,7 +754,7 @@ def kernel_inputs(case, dtype, seed):
         return (None if key not in opt else
                 torch.tensor(opt[key], dtype=torch.int32, device="cuda"))
 
-    window = opt.get("window", T + 2**20)
+    window = opt.get("window", max(T, Tk) + 2**20)
     extra = (cos, sin, span("kv_begin"), span("kv_end"), window, D ** -0.5,
              opt.get("causal", True))
     return (q, k, v, do), extra
@@ -763,7 +829,7 @@ def bound(name, case):
                            rope=bool(opt.get("rope")),
                            q_start=opt.get("q_start", 0),
                            k_start=opt.get("k_start", 0),
-                           dlse=bool(opt.get("dlse")))
+                           dlse=bool(opt.get("dlse")), Tk=opt.get("Tk"))
     t_ops = flops / (PEAK_F32 if name == "rope_rotate" else PEAK_BF16) * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -772,14 +838,16 @@ def bound(name, case):
 _CAPTURE = {"refused": False}
 
 
-def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None, causal=True):
+def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None, causal=True,
+                   attn_mask=None):
     """The library's time for the same attention: one
     scaled_dot_product_attention call (causal or, for a ring step whose keys
     lie wholly in the past, non-causal; GQA) under its flash and its
     cuDNN backend, forward and backward (torch.autograd.grad with
     retain_graph) timed apart, each by CUDA-graph replays and eagerly; with
-    a window, whose mask only a boolean attn_mask can give, under the
-    memory-efficient backend too. q and k are rotated (where the call has
+    a window, whose mask only a boolean attn_mask can give, or an explicit
+    boolean ``attn_mask`` (a chunk of queries against a longer cache),
+    under the memory-efficient backend too. q and k are rotated (where the call has
     tables), and k/v repeated where a backend refuses GQA, outside the timed
     windows. Returns the fastest {"fwd": (ms, backend, eager ms), "bwd":
     (...)} by replay time (by the eager time, and the backend's name says
@@ -794,7 +862,10 @@ def sdpa_yardstick(q, k, v, do, cos, sin, scale, window=None, causal=True):
     best, lines = {}, []
     backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION]
     mask = {"is_causal": causal}
-    if window is not None:
+    if attn_mask is not None:
+        mask = {"attn_mask": attn_mask}
+        backends.append(SDPBackend.EFFICIENT_ATTENTION)
+    elif window is not None:
         i = torch.arange(q.shape[2], device=q.device)
         mask = {"attn_mask": (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)}
         backends.append(SDPBackend.EFFICIENT_ATTENTION)
@@ -886,8 +957,9 @@ def time_call(call, card):
     off, dlse = ring_args(case, seed=99)
     cos, sin, scale = extra[0], extra[1], extra[5]
     B, H, Hkv, T, D, opt = case
+    Tk = opt.get("Tk", T)
     window = opt.get("window")
-    full = fa.visible_pairs(T, window, opt.get("causal", True), **off) == T * T
+    full = fa.visible_pairs(T, window, opt.get("causal", True), **off, Tk=Tk) == T * Tk
     out, lse = fa.flash_fwd(q, k, v, *extra, **off)
     dq_args = (q, k, v, do, out, lse, *extra)
     _, delta = fa.flash_bwd_dq(*dq_args, dlse=dlse, **off)
@@ -902,8 +974,12 @@ def time_call(call, card):
         "rope_rotate": (lambda: fa.rope_rotate(q, cos, sin),
                         lambda: fa.rope_rotate_ref(q, cos, sin)),
     }
+    # Tq != Tk: the mask in global positions, as an explicit boolean mask
+    chunk_mask = (None if Tk == T else
+                  fa._allowed(q, k, None, None, extra[4], opt.get("causal", True),
+                              **off)[0, 0])
     lib, lib_lines = sdpa_yardstick(q, k, v, do, cos, sin, scale, window,
-                                    causal=not full)
+                                    causal=not full, attn_mask=chunk_mask)
     library = {"flash_fwd": lib.get("fwd"), "flash_bwd_dq": lib.get("bwd"),
                "flash_bwd_dkv": lib.get("bwd"), "rope_rotate": None}
     plain_iters = 10 if call == "main" else 3
@@ -1003,14 +1079,21 @@ def ptxas_report():
 def phase_kernels(card):
     import torch
     failures = []
+    from lxt_tpu_torch.ops import flash_attention as fa
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for i, (name, case) in enumerate(CASES.items()):
             res = compare_kernels(case, dtype, seed=i)
             ok = all(err <= bound for err, bound, _ in res.values())
             if not ok:
                 failures.append(f"kernel case {name} {dtype}")
+            # the body each kernel ran (Tq != Tk takes the same routing)
+            probe = torch.empty(1, 1, 1, case[4], dtype=dtype)
+            bodies = ", ".join(f"{n} {'Hopper' if fa._hopper(n, probe) else 'mma.sync'}"
+                               for n in FLASH[:3])
             print(f"kernel case {str(dtype)[6:]:8s} {name:22s} " + " ".join(
                 f"{k} {e:.3g}/{b:.3g}" for k, (e, b, _) in res.items())
+                + (f" (Tq {case[3]}, Tk {case[5]['Tk']}; {bodies})"
+                   if "Tk" in case[5] else "")
                 + (" PASS" if ok else " FAIL"), flush=True)
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for i, (name, (B, H, Hkv, T, D, opt)) in enumerate(RING_CASES.items()):
@@ -3859,16 +3942,19 @@ def par_ids(shape, vocab, seed):
     return torch.randint(0, vocab, shape, generator=gen, device="cuda")
 
 
-def par_target(family, params, cfg, tokens, remat=True, mesh=None, **kw):
+def par_target(family, params, cfg, tokens, remat=True, mesh=None, composite=None,
+               **kw):
     """The logit of ``tokens`` (one a row) at the last position, summed over
-    the rows; under a mesh, this data rank's rows of ``tokens``."""
+    the rows; under a mesh, this data rank's rows of ``tokens``; AttnLRP
+    unless ``composite``."""
     import lxt_tpu_torch
     from lxt_tpu_torch.models.registry import FAMILIES
     from lxt_tpu_torch.parallel.mesh import data_rows
     forward = FAMILIES[family]["forward"]
+    composite = composite or lxt_tpu_torch.attnlrp
 
     def target(x):
-        logits = forward(params, cfg, x, lxt_tpu_torch.attnlrp, remat=remat,
+        logits = forward(params, cfg, x, composite, remat=remat,
                          logits_at=-1, **kw).logits
         tok = tokens if mesh is None or tokens is None else data_rows(mesh, tokens)
         return lxt_tpu_torch.select_logit(logits, token=tok)
@@ -3936,6 +4022,40 @@ def par_measured(fn, spent=None):
     if spent is not None:
         counts.update(comm_seconds=spent["seconds"], comm_calls=spent["calls"])
     return out, counts, seconds, torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_composite():
+    """Phase 19 (g)'s explicit-rule composite: gamma 0.25 at every linear."""
+    import lxt_tpu_torch
+    return lxt_tpu_torch.attnlrp.with_gamma(linear_gamma=0.25)
+
+
+def par_checks(mesh, cfg, local, ids, tokens):
+    """Phase 19 (g) on one process of the mesh: the conservation run
+    (value, map, conservation_error), then the NaN check with a NaN written
+    into global rank 1's head shard (the message this process raised)."""
+    import torch
+    import torch.distributed as dist
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.ops.check import conservation_check, conservation_error, nan_check
+    from lxt_tpu_torch.parallel import attribute_sharded
+    from lxt_tpu_torch.parallel.mesh import model_parallel
+    with model_parallel(mesh):
+        embeds = llama.embed(local, ids)
+    step = attribute_sharded(par_target("llama", local, cfg, tokens, True, mesh,
+                                        composite=check_composite()), mesh)
+    with conservation_check():
+        value, rel = step(embeds)
+    out = {"value": float(value), "rel": rel.float().cpu(),
+           "error": float(conservation_error(rel, value)), "nan": None}
+    if dist.get_rank() == 1:
+        local["lm_head"][0, 0] = float("nan")
+    try:
+        with nan_check():
+            step(embeds)
+    except RuntimeError as e:
+        out["nan"] = str(e)
+    return out
 
 
 def parallel_rank(rank, store, out_dir, refs):
@@ -4059,6 +4179,13 @@ def parallel_rank(rank, store, out_dir, refs):
         del full
         gc.collect()
         torch.cuda.empty_cache()
+        # (g) the checks at dp 2 x tp 2, float32, gamma at every linear
+        cfg, local = sharded("llama", PAR_CHECK_LAYERS, "float32", PAR_SEED + 7)
+        ids = par_ids(PAR_CHECK, cfg.vocab_size, PAR_SEED + 7)
+        res["checks"] = par_checks(mesh, cfg, local, ids, refs["checks"]["tokens"])
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
         res["sp_rank"] = dist.get_rank(spm.get_group("sp"))
         dist.barrier()
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -4095,6 +4222,53 @@ def par_reference_run(family, layers, dtype, seed, shape, bits=None, remat=True)
         lambda: lxt_tpu_torch.input_relevance(target, embeds))
     return {"tokens": tokens, "value": float(value), "rel": rel.float().cpu(),
             "launches": launches, "seconds": seconds, "peak_gib": peak}
+
+
+def par_check_reference():
+    """Phase 19 (g)'s single process: the whole model under
+    conservation_check, explaining its argmax tokens."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch.models import llama
+    from lxt_tpu_torch.ops.check import conservation_check, conservation_error
+    cfg, params = par_full("llama", PAR_CHECK_LAYERS, "float32", PAR_SEED + 7)
+    ids = par_ids(PAR_CHECK, cfg.vocab_size, PAR_SEED + 7)
+    embeds = llama.embed(params, ids)
+    with torch.no_grad():
+        logits = llama.forward(params, cfg, embeds, lxt_tpu_torch.attnlrp,
+                               remat=False, logits_at=-1).logits
+    tokens = logits[:, -1].float().argmax(-1).cpu()
+    with conservation_check():
+        value, rel = lxt_tpu_torch.input_relevance(
+            par_target("llama", params, cfg, tokens, composite=check_composite()),
+            embeds)
+    out = {"tokens": tokens, "value": float(value), "rel": rel.float().cpu(),
+           "error": float(conservation_error(rel, value))}
+    del params, embeds, rel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_checks_report(card, ranks, ref):
+    """Phase 19 (g)'s gates: the conservation map and error of the mesh
+    against the single process's, and the NaN raised alike everywhere."""
+    got = ranks[0]["checks"]
+    d_map = nl2(got["rel"], ref["rel"])
+    d_err = abs(got["error"] - ref["error"])
+    msgs = [r["checks"]["nan"] for r in ranks]
+    same_nan = (all(m is not None and m == msgs[0] for m in msgs)
+                and msgs[0].startswith("NaN/Inf relevance at rule backward"))
+    ok = d_map <= CHECK_BAR and d_err <= CHECK_BAR and same_nan
+    print(f"parallel (g) the checks at dp 2 x tp 2, Llama-3-8B width float32 "
+          f"L{PAR_CHECK_LAYERS} B{PAR_CHECK[0]}x{PAR_CHECK[1]} remat, gamma 0.25 at "
+          f"every linear: conservation_check map against the single process "
+          f"normalized L2 {d_map:.4g}, conservation_error {got['error']:.8g} vs "
+          f"{ref['error']:.8g} (difference {d_err:.4g}; bar {CHECK_BAR} for both); "
+          f"nan_check with a NaN in process 1's head shard: every process raised "
+          f"{msgs[0]!r}: {same_nan}" + (" PASS" if ok else " FAIL") + f" [{card}]",
+          flush=True)
+    return [] if ok else ["parallel (g) checks"]
 
 
 def par_spawn(refs):
@@ -4282,7 +4456,8 @@ def phase_parallel(card):
                                 (B, PAR_MIXTRAL_T), bits="nf4"),
             "pp32": par_reference("llama", L, "float32", PAR_SEED + 4, PAR_PP_GATE),
             "sptp": par_reference("llama", L, "float32", PAR_SEED + 6, (1, PAR_SP_T),
-                                  remat=False)}
+                                  remat=False),
+            "checks": par_check_reference()}
     t_refs = time.perf_counter() - t_phase
     ranks, err = par_spawn({k: {"tokens": v["tokens"]} for k, v in refs.items()})
     if err:
@@ -4342,6 +4517,7 @@ def phase_parallel(card):
                for r in ranks]
     failures += par_report(card, f"(e) sp 2 x tp 2 float32 L{L} B1x{PAR_SP_T} remat off",
                            ranks, "sptp", sp_want, refs["sptp"], PARITY_BAR)
+    failures += par_checks_report(card, ranks, refs["checks"])
     launches = {n: sum(r[k]["launches"][n] for r in ranks
                        for k in ("dptp32", "dptp16", "dptp", "nf4", "ep", "pp32", "pp", "sptp"))
                 for n in KERNELS}
@@ -4356,6 +4532,238 @@ def phase_parallel(card):
     fa.reset_launches()
     print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return failures, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: loading at scale
+# ---------------------------------------------------------------------------
+
+def hf_mixtral_state(params, cfg):
+    """The port's stacked Mixtral parameters -> an HF Mixtral state dict
+    ([out, in] weights; experts w1 / w3 / w2 from wg / wu / wd), bf16
+    tensors on the host."""
+    state = {"model.embed_tokens.weight": params["embed"],
+             "model.norm.weight": params["final_norm"],
+             "lm_head.weight": params["lm_head"].T}
+    names = {"ln1": "input_layernorm", "ln2": "post_attention_layernorm",
+             "wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_router": "block_sparse_moe.gate"}
+    experts = {"wg": "w1", "wu": "w3", "wd": "w2"}
+    for i in range(cfg.num_layers):
+        lp = params["layers"]
+        for ours, hf in names.items():
+            w = lp[ours][i]
+            state[f"model.layers.{i}.{hf}.weight"] = w if w.dim() == 1 else w.T
+        for ours, hf in experts.items():
+            for e in range(cfg.num_experts):
+                state[f"model.layers.{i}.block_sparse_moe.experts.{e}.{hf}.weight"] = (
+                    lp[ours][i, e].T)
+    return {k: v.contiguous().cpu() for k, v in state.items()}
+
+
+def rss_bytes():
+    """This process's resident set, from /proc/self/statm."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def measured_load(fn):
+    """``fn()`` timed (host clock, ending in a synchronise), with a thread
+    sampling the resident set every 2 ms and the device's peak allocation:
+    (result, seconds, peak RSS over the RSS before, peak device bytes over
+    the allocation before, resident device bytes after over it)."""
+    import threading
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_dev, base_rss = torch.cuda.memory_allocated(), rss_bytes()
+    peak = [base_rss]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.002):
+            peak[0] = max(peak[0], rss_bytes())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        done.set()
+        thread.join()
+    peak[0] = max(peak[0], rss_bytes())
+    return (out, seconds, peak[0] - base_rss,
+            torch.cuda.max_memory_allocated() - base_dev,
+            torch.cuda.memory_allocated() - base_dev)
+
+
+def plain_model(model_dir, dtype, bits=None):
+    """The same checkpoint through the plain numpy reader (every tensor
+    copied to the host first) and converted whole, then quantized: the
+    order of the work before the native loader."""
+    from lxt_tpu_torch import io
+    from lxt_tpu_torch.models import registry
+    from lxt_tpu_torch.ops.quant import quantize_params
+    state = {}
+    for path in io.shard_paths(model_dir):
+        state.update(io.load_safetensors_ref(path, dtype))
+    model = registry._convert(state, registry.read_hf_config(model_dir), None, dtype,
+                              "cuda")
+    del state
+    if bits:
+        model.params = quantize_params(model.params, bits=bits, family=model.family)
+    return model
+
+
+def loaded_attribution(card, label, model, model_dir, dtype, bits, ids):
+    """Phase 20 (c): one attribution of a loaded model, its launches, and
+    its relevance against the plain loader's model's."""
+    import torch
+    from lxt_tpu_torch.ops import flash_attention as fa
+    from lxt_tpu_torch.ops import quant
+    fa.reset_launches()
+    quant.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, rel = model.attribute(ids)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {**fa.launches, **quant.launches}
+    ref = plain_model(model_dir, dtype, bits)
+    _, want = ref.attribute(ids)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = torch.equal(rel, want)
+    through = all(launches[n] > 0 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    if bits:
+        through = through and launches["nf4_dequant"] > 0
+    ok = equal and through and bool(torch.isfinite(rel).all())
+    print(f"load (c) {label}: one bf16 attribution 1 x {ids.shape[1]} remat "
+          f"{secs:.3f} s, launches {launches}; relevance bit-equal to the plain "
+          f"reader's model converted whole{', then quantized' if bits else ''}: "
+          f"{equal}" + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+    return ([] if ok else [f"load (c) {label}"]), launches
+
+
+def phase_load(card):
+    """Phase 20: Llama-3-8B (8 layers) and Mixtral-8x7B (2 layers, NF4)
+    width checkpoints written here, loaded by the native loader layer by
+    layer, and attributed. Returns (failures, launches of the two
+    attributions)."""
+    import torch
+    import lxt_tpu_torch
+    from lxt_tpu_torch import io
+    from lxt_tpu_torch.models import llama, mixtral
+    from lxt_tpu_torch.ops.quant import QuantizedTensor
+    t_phase = time.perf_counter()
+    failures, launches = [], {n: 0 for n in KERNELS}
+    io._native()   # g++ missing or failing fails the phase here
+    bf16 = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(40)
+    ids = torch.randint(0, 32000, (1, SEQ_8B), generator=gen, device="cuda")
+
+    def add(counts):
+        for n in KERNELS:
+            launches[n] += counts.get(n, 0)
+
+    # (a) Llama-3-8B width, 8 layers, bf16
+    cfg = llama.LlamaConfig(**dict(LLAMA3_8B, num_layers=LOAD_8B_LAYERS), dtype="bfloat16")
+    params = llama.init_params(cfg, torch.Generator("cuda").manual_seed(41))
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(LLAMA3_8B_CONFIG, f)
+        path = os.path.join(tmp, "model.safetensors")
+        t0 = time.perf_counter()
+        write_safetensors(path, hf_llama_state(params, cfg))
+        t_write, size = time.perf_counter() - t0, os.path.getsize(path)
+        model, secs, rss, peak, resident = measured_load(
+            lambda: lxt_tpu_torch.from_pretrained(tmp, dtype=bf16))
+        exact = all(torch.equal(model.params["layers"][n], params["layers"][n])
+                    for n in params["layers"]) and all(
+            torch.equal(model.params[n], params[n]) for n in ("embed", "final_norm",
+                                                                "lm_head"))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"load (a) Llama-3-8B width L{LOAD_8B_LAYERS} bf16 checkpoint "
+              f"{size / 1e9:.3f} GB (written in {t_write:.2f} s, warm in the page "
+              f"cache): from_pretrained(dtype=bfloat16) {secs:.3f} s, "
+              f"{size / 1e9 / secs:.3f} GB/s; the load's peak host RSS "
+              f"+{rss / 2**30:.3f} GiB (sampled every 2 ms; process ru_maxrss "
+              f"{resource_maxrss() / 2**30:.2f} GiB), peak device "
+              f"+{peak / 2**30:.3f} GiB for {resident / 2**30:.3f} GiB resident; "
+              f"weights bit-equal to the written ones: {exact}"
+              + (" PASS" if exact else " FAIL") + f" [{card}]", flush=True)
+        if not exact:
+            failures.append("load (a) weights")
+        f, counts = loaded_attribution(card, f"Llama-3-8B width L{LOAD_8B_LAYERS}",
+                                       model, tmp, bf16, None, ids)
+        failures += f
+        add(counts)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) Mixtral-8x7B width, 2 layers, bf16 checkpoint, NF4 while converting
+    cfg = mixtral.MixtralConfig(**dict(MIXTRAL_8X7B, num_layers=LOAD_MIXTRAL_LAYERS))
+    params = mixtral.init_params(cfg, torch.Generator("cuda").manual_seed(42), dtype=bf16)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(MIXTRAL_8X7B_CONFIG, f)
+        path = os.path.join(tmp, "model.safetensors")
+        t0 = time.perf_counter()
+        write_safetensors(path, hf_mixtral_state(params, cfg))
+        t_write, size = time.perf_counter() - t0, os.path.getsize(path)
+        layer_bytes = sum(v.numel() * 2 for v in params["layers"].values()) // cfg.num_layers
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, secs, rss, peak, resident = measured_load(
+            lambda: lxt_tpu_torch.from_pretrained(tmp, dtype=bf16, quantize_bits="nf4"))
+        lp = model.params["layers"]
+        nf4 = all(isinstance(lp[n], QuantizedTensor) and lp[n].bits == "nf4"
+                  for n in PROJECTIONS)
+        per_layer = sum((v.q.numel() * v.q.element_size() + v.scale.numel() * 4)
+                        if isinstance(v, QuantizedTensor) else v.numel() * v.element_size()
+                        for v in lp.values()) / cfg.num_layers
+        transient = peak - resident
+        ok = nf4 and transient <= LOAD_TRANSIENT_BAR * layer_bytes
+        full = resident + (MIXTRAL_8X7B["num_layers"] - cfg.num_layers) * per_layer
+        print(f"load (b) Mixtral-8x7B width L{LOAD_MIXTRAL_LAYERS} bf16 checkpoint "
+              f"{size / 1e9:.3f} GB (written in {t_write:.2f} s, warm): "
+              f"from_pretrained(dtype=bfloat16, quantize_bits='nf4') {secs:.3f} s, "
+              f"{size / 1e9 / secs:.3f} GB/s, peak host RSS +{rss / 2**30:.3f} GiB; "
+              f"device: resident {resident / 2**30:.3f} GiB after, peak "
+              f"{peak / 2**30:.3f} GiB during, transient {transient / 2**30:.3f} GiB = "
+              f"{transient / layer_bytes:.3f} x one layer's bf16 "
+              f"{layer_bytes / 2**30:.3f} GiB (bar {LOAD_TRANSIENT_BAR}); "
+              f"layers NF4 {nf4}; projected at {MIXTRAL_8X7B['num_layers']} layers: "
+              f"{per_layer / 2**30:.3f} GiB a layer, resident {full / 2**30:.2f} GiB, "
+              f"peak {(full + transient) / 2**30:.2f} GiB"
+              + (" PASS" if ok else " FAIL") + f" [{card}]", flush=True)
+        if not ok:
+            failures.append("load (b) NF4 transient")
+        f, counts = loaded_attribution(card, f"NF4 Mixtral-8x7B width L{LOAD_MIXTRAL_LAYERS}",
+                                       model, tmp, bf16, "nf4", ids)
+        failures += f
+        add(counts)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return failures, launches
+
+
+def resource_maxrss():
+    """The process's peak resident set so far (getrusage, bytes)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
 def main():
@@ -4398,6 +4806,10 @@ def main():
         return 1 if failures else 0
     if "--parallel" in sys.argv[1:]:
         failures, _ = phase_parallel(card)
+        print(f"failures: {failures}", flush=True)
+        return 1 if failures else 0
+    if "--load" in sys.argv[1:]:
+        failures, _ = phase_load(card)
         print(f"failures: {failures}", flush=True)
         return 1 if failures else 0
     t_start = time.perf_counter()
@@ -4463,7 +4875,10 @@ def main():
     torch.cuda.empty_cache()
     f, parallel_launches = phase_parallel(card)
     failures += f
-    print(f"phases 3-19 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    f, load_launches = phase_load(card)
+    failures += f
+    print(f"phases 3-20 took {time.perf_counter() - t_start:.1f} s", flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -4494,7 +4909,8 @@ def main():
          "launches_serve": serve_launches.get(name, 0),
          "launches_vision": vision_launches["vision"].get(name, 0),
          "launches_multimodal": vision_launches["multimodal"].get(name, 0),
-         "launches_parallel": parallel_launches.get(name, 0)}
+         "launches_parallel": parallel_launches.get(name, 0),
+         "launches_load": load_launches.get(name, 0)}
         for name, (src, tpu) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -197,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const FlashArgs 
   }
   float dq[D / 8][4] = {};
 
-  for (int k0 = 0; k0 < a.T; k0 += C::BN) {
+  for (int k0 = 0; k0 < a.Tk; k0 += C::BN) {
     if (mask.skip(q0, C::BM, k0, C::BN)) continue;
     __syncthreads();
     load_tile<T, D, C::BN>(sK, kg + k0 * a.sk[2], a.sk[2]);
@@ -348,7 +348,7 @@ cudaError_t launch_bwd_dq(const FlashArgs& a, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t launch_bwd_dkv(const FlashArgs& a, cudaStream_t stream) {
   using C = BwdTiles<T, D>;
-  return launch(flash_bwd_dkv_kernel<T, D>, dim3(a.T / C::BM, a.Hkv, a.B), C::smem_dkv, stream,
+  return launch(flash_bwd_dkv_kernel<T, D>, dim3(a.Tk / C::BM, a.Hkv, a.B), C::smem_dkv, stream,
                 a);
 }
 
@@ -566,10 +566,10 @@ cudaError_t launch_bwd_dkv(const FlashArgs& a, cudaStream_t stream) {
   DkvMaps m;
   cudaError_t err = tensor_map(&m.q, a.q, a.sq, a.B, a.H, a.T, D, C::BN);
   if (err == cudaSuccess) err = tensor_map(&m.dout, a.dout, a.sdo, a.B, a.H, a.T, D, C::BN);
-  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.T, D, C::BM);
-  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.T, D, C::BM);
+  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.Tk, D, C::BM);
+  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.Tk, D, C::BM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.Hkv, a.B, a.T / C::BM);
+  const dim3 grid(a.Hkv, a.B, a.Tk / C::BM);
   return launch_hopper(flash_bwd_dkv_hopper<D>, grid, Roles<2>::kThreads, C::smem, stream, a, m);
 }
 
@@ -817,10 +817,10 @@ inline cudaError_t launch_bwd_dkv256(const FlashArgs& a, cudaStream_t stream) {
   DkvMaps m;
   cudaError_t err = tensor_map(&m.q, a.q, a.sq, a.B, a.H, a.T, C::D, C::BN);
   if (err == cudaSuccess) err = tensor_map(&m.dout, a.dout, a.sdo, a.B, a.H, a.T, C::D, C::BN);
-  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.T, C::D, C::BM);
-  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.T, C::D, C::BM);
+  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.Tk, C::D, C::BM);
+  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.Tk, C::D, C::BM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.Hkv, a.B, a.T / C::BM);
+  const dim3 grid(a.Hkv, a.B, a.Tk / C::BM);
   return launch_hopper(flash_bwd_dkv_hopper256, grid, Roles<2>::kThreads, C::smem, stream, a,
                        m);
 }
@@ -890,7 +890,7 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
         tma_load(sDO + p * C::Q_PANEL, &m.dout, bar_q, 64 * p, q0, h, b);
       }
       int it = 0;
-      for (int k0 = 0; k0 < a.T; k0 += C::BN) {
+      for (int k0 = 0; k0 < a.Tk; k0 += C::BN) {
         if (mask.skip(q0, nq, k0, C::BN)) continue;
         const int s = it % C::STAGES;
         const uint32_t n = it / C::STAGES;
@@ -958,7 +958,7 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
     // in the producer's order, releasing at once those all masked here
     int k0 = -C::BN, it = 0, s = 0;
     auto next_tile = [&]() -> bool {
-      for (k0 += C::BN; k0 < a.T; k0 += C::BN) {
+      for (k0 += C::BN; k0 < a.Tk; k0 += C::BN) {
         if (mask.skip(q0, nq, k0, C::BN)) continue;
         s = it % C::STAGES;
         const uint32_t n = it / C::STAGES;
@@ -1031,7 +1031,7 @@ __global__ void __launch_bounds__(Roles<DqTiles<D>::NWG>::kThreads, 1)
     RopeFrags<D> dq_tab;
     int k_last = -1;
     if constexpr (kAhead)
-      for (int kt = 0; kt < a.T; kt += C::BN)
+      for (int kt = 0; kt < a.Tk; kt += C::BN)
         if (!mask.skip(q0w, 64, kt, C::BN)) k_last = kt;
     auto prefetch = [&]() {
       if constexpr (kAhead)
@@ -1109,8 +1109,8 @@ cudaError_t launch_bwd_dq(const FlashArgs& a, cudaStream_t stream) {
   DqMaps m;
   cudaError_t err = tensor_map(&m.q, a.q, a.sq, a.B, a.H, a.T, D, C::BQ);
   if (err == cudaSuccess) err = tensor_map(&m.dout, a.dout, a.sdo, a.B, a.H, a.T, D, C::BQ);
-  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.T, D, C::BN);
-  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.T, D, C::BN);
+  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.Tk, D, C::BN);
+  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.Tk, D, C::BN);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.H, a.B, (a.T + C::BQ - 1) / C::BQ);
   return launch_hopper(flash_bwd_dq_hopper<D>, grid, Roles<C::NWG>::kThreads, C::smem, stream,

@@ -43,7 +43,7 @@ struct FlashArgs {
   const float* lse;
   const float* delta;    // Δ = rowsum(out∘do) − dlse, as bwd_dq wrote it (bwd_dkv)
   const float* dlse;     // [B, H, T] lse cotangent (bwd_dq) or null
-  const void* cos;       // [T, D] rope tables in the activation dtype
+  const void* cos;       // [T, D] rope tables in the activation dtype (T == Tk)
   const void* sin;
   const int* kv_begin;   // [B] or null
   const int* kv_end;     // [B] or null
@@ -51,7 +51,9 @@ struct FlashArgs {
   void* out1;            // dv (bwd_dkv)
   float* lse_out;        // [B, H, T]: lse (fwd), Δ (bwd_dq)
   long long sq[3], sk[3], sv[3], sdo[3], sout[3], so0[3], so1[3];
-  int B, H, Hkv, T, window, causal;
+  int B, H, Hkv;
+  int T, Tk;             // rows of q, do, out, dq, lse, Δ; rows of k, v, dk, dv
+  int window, causal;
   int q_start, k_start;  // global positions of query row 0 and key row 0
   float scale, scale_log2;  // scale, and scale * log2(e)
 };
@@ -160,7 +162,7 @@ __device__ __forceinline__ void rope_transpose(float (&acc)[D / 8][4], const T* 
 // causal, j <= i. Query row i of a call sits at global position i + q_start
 // and key row j at j + k_start; the mask works in the call's key rows: query
 // row i stands at key row i + shift (shift = q_start - k_start), and kv0, kv1
-// are the valid keys moved by -k_start and cut at T. Every method takes and
+// are the valid keys moved by -k_start and cut at Tk. Every method takes and
 // returns the call's own row indices.
 struct Mask {
   int window, kv0, kv1, shift;
@@ -195,11 +197,11 @@ struct Mask {
   }
 };
 
-// keys at or past T do not exist: a kv tile may run past T (the Hopper K1
-// body's 128-row kv tiles at T % 128 == 64), and its rows there are masked
+// keys at or past Tk do not exist: a kv tile may run past Tk (the Hopper K1
+// body's 128-row kv tiles at Tk % 128 == 64), and its rows there are masked
 __device__ __forceinline__ Mask make_mask(const FlashArgs& a, int b) {
   return Mask{a.window, (a.kv_begin ? a.kv_begin[b] : 0) - a.k_start,
-              min((a.kv_end ? a.kv_end[b] : kNoPad) - a.k_start, a.T),
+              min((a.kv_end ? a.kv_end[b] : kNoPad) - a.k_start, a.Tk),
               a.q_start - a.k_start, a.causal != 0};
 }
 

@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[D / 8][4] = {};
 
-  for (int k0 = 0; k0 < a.T; k0 += C::BK) {
+  for (int k0 = 0; k0 < a.Tk; k0 += C::BK) {
     if (mask.skip(q0, C::BQ, k0, C::BK)) continue;
     __syncthreads();  // the previous step's readers of sK/sV are done
     load_tile<T, D, C::BK>(sK, kg + k0 * a.sk[2], a.sk[2]);
@@ -254,7 +254,7 @@ __global__ void __launch_bounds__(Roles<FwdTiles<D>::NWG>::kThreads, 1)
       for (int p = 0; p < C::PANELS; ++p)
         tma_load(sQ + p * C::Q_PANEL, &m.q, bar_q, 64 * p, q0, h, b);
       int it = 0;
-      for (int k0 = 0; k0 < a.T; k0 += C::BK) {
+      for (int k0 = 0; k0 < a.Tk; k0 += C::BK) {
         if (mask.skip(q0, nq, k0, C::BK)) continue;
         const int s = it % C::STAGES;
         const uint32_t n = it / C::STAGES;
@@ -298,7 +298,7 @@ __global__ void __launch_bounds__(Roles<FwdTiles<D>::NWG>::kThreads, 1)
     // in the producer's order, releasing at once those all masked here
     int k0 = -C::BK, it = 0, s = 0;
     auto next_tile = [&]() -> bool {
-      for (k0 += C::BK; k0 < a.T; k0 += C::BK) {
+      for (k0 += C::BK; k0 < a.Tk; k0 += C::BK) {
         if (mask.skip(q0, nq, k0, C::BK)) continue;
         s = it % C::STAGES;
         const uint32_t n = it / C::STAGES;
@@ -441,8 +441,8 @@ cudaError_t launch_fwd(const FlashArgs& a, cudaStream_t stream) {
   using C = FwdTiles<D>;
   FwdMaps m;
   cudaError_t err = tensor_map(&m.q, a.q, a.sq, a.B, a.H, a.T, D, C::BQ);
-  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.T, D, C::BK);
-  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.T, D, C::BK);
+  if (err == cudaSuccess) err = tensor_map(&m.k, a.k, a.sk, a.B, a.Hkv, a.Tk, D, C::BK);
+  if (err == cudaSuccess) err = tensor_map(&m.v, a.v, a.sv, a.B, a.Hkv, a.Tk, D, C::BK);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.H, a.B, (a.T + C::BQ - 1) / C::BQ);
   return launch_hopper(flash_fwd_hopper<D>, grid, Roles<C::NWG>::kThreads, C::smem, stream,

@@ -13,7 +13,6 @@ on the einsum path.
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from lxt_tpu_torch import composites
@@ -181,47 +180,34 @@ def forward(
 # ---------------------------------------------------------------------------
 
 def params_from_hf(state_dict, cfg: BertConfig, dtype=torch.float32,
-                   device="cuda"):
-    """Convert HF ``BertForSequenceClassification`` weights (torch tensors
-    or numpy arrays) to the stacked parameter dict; linear weights are
+                   device="cuda", quant=None):
+    """Convert HF ``BertForSequenceClassification`` weights (torch tensors,
+    numpy arrays or an ``io.LazyState``) to the stacked parameter dict,
+    layer by layer (``common.HFWeights``; ``quant`` quantizes the eligible
+    stacked projections as they are converted); linear weights are
     transposed to ``[in, out]``."""
-
-    def t(name):
-        w = state_dict[name]
-        if isinstance(w, torch.Tensor):
-            w = w.detach().to("cpu").float().numpy()
-        return np.asarray(w, dtype=np.float32)
-
-    def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dtype)
-
-    pre = "bert.encoder.layer."
-
-    def stack(fmt, transpose=False):
-        ws = [t(pre + fmt.format(i)) for i in range(cfg.num_layers)]
-        return tensor(np.stack([w.T if transpose else w for w in ws]))
-
-    layers = {}
-    for ours, hf in (("q", "attention.self.query"), ("k", "attention.self.key"),
-                     ("v", "attention.self.value"), ("o", "attention.output.dense"),
-                     ("i", "intermediate.dense"), ("out", "output.dense")):
-        layers["w" + ours] = stack("{}." + hf + ".weight", transpose=True)
-        layers["b" + ours] = stack("{}." + hf + ".bias")
-    for ours, hf in (("ln1", "attention.output.LayerNorm"),
-                     ("ln2", "output.LayerNorm")):
-        layers[ours + "_w"] = stack("{}." + hf + ".weight")
-        layers[ours + "_b"] = stack("{}." + hf + ".bias")
+    hf = common.HFWeights(state_dict, dtype, device, quant=quant)
+    pre = "bert.encoder.layer.{}."
+    leaves = {}
+    for ours, name in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                       ("v", "attention.self.value"), ("o", "attention.output.dense"),
+                       ("i", "intermediate.dense"), ("out", "output.dense")):
+        leaves["w" + ours] = hf.each(pre + name + ".weight", transpose=True)
+        leaves["b" + ours] = hf.each(pre + name + ".bias")
+    for ours, name in (("ln1", "attention.output.LayerNorm"),
+                       ("ln2", "output.LayerNorm")):
+        leaves[ours + "_w"] = hf.each(pre + name + ".weight")
+        leaves[ours + "_b"] = hf.each(pre + name + ".bias")
     emb = "bert.embeddings."
     return {
-        "word_emb": tensor(t(emb + "word_embeddings.weight")),
-        "pos_emb": tensor(t(emb + "position_embeddings.weight")),
-        "type_emb": tensor(t(emb + "token_type_embeddings.weight")),
-        "emb_ln_w": tensor(t(emb + "LayerNorm.weight")),
-        "emb_ln_b": tensor(t(emb + "LayerNorm.bias")),
-        "pooler_w": tensor(t("bert.pooler.dense.weight").T),
-        "pooler_b": tensor(t("bert.pooler.dense.bias")),
-        "cls_w": tensor(t("classifier.weight").T),
-        "cls_b": tensor(t("classifier.bias")),
-        "layers": layers,
+        "word_emb": hf.tensor(emb + "word_embeddings.weight"),
+        "pos_emb": hf.tensor(emb + "position_embeddings.weight"),
+        "type_emb": hf.tensor(emb + "token_type_embeddings.weight"),
+        "emb_ln_w": hf.tensor(emb + "LayerNorm.weight"),
+        "emb_ln_b": hf.tensor(emb + "LayerNorm.bias"),
+        "pooler_w": hf.tensor("bert.pooler.dense.weight", lambda w: w.T),
+        "pooler_b": hf.tensor("bert.pooler.dense.bias"),
+        "cls_w": hf.tensor("classifier.weight", lambda w: w.T),
+        "cls_b": hf.tensor("classifier.bias"),
+        "layers": hf.stack(cfg.num_layers, leaves),
     }

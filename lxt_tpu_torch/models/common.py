@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from lxt_tpu_torch.ops import tensor_parallel
+from lxt_tpu_torch.ops.quant import QuantizedTensor, quantize
 
 ACTIVATIONS: Dict[str, Callable] = {
     "silu": F.silu,
@@ -244,3 +245,101 @@ class ModelOutputs:
     requested (embeddings + each layer output)."""
     logits: Any
     hidden_states: Optional[Any] = None
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion
+# ---------------------------------------------------------------------------
+
+class HFWeights:
+    """Reads an HF state dict (torch tensors, numpy arrays, or an
+    ``io.LazyState`` that reads each tensor when asked) into the port's
+    layout on ``device`` in ``dtype``: what every family converter shares.
+
+    A stored tensor goes to ``device`` as it is stored (float64 read as
+    float32 first, as ``lxt_tpu``'s converters read float32), and the cast
+    to ``dtype``, the transposes and the splits run there, into tensors
+    allocated once: no float32 copy for a 16-bit target, and no host stack
+    of all layers. :meth:`stack` fills each ``[L, ...]`` leaf layer by
+    layer. ``quant`` ``(bits, eligible)`` (``ops.quant.eligibility``)
+    quantizes each eligible stacked leaf one slice at a time as it is
+    converted, with ``lxt_tpu``'s layer-stacked arithmetic (ROADMAP F6),
+    into preallocated codes and scales: bit-equal to ``quantize_params``
+    after a whole conversion, with no full-precision stack on the way."""
+
+    def __init__(self, state, dtype=torch.float32, device="cuda", prefix="",
+                 quant=None):
+        self.state, self.prefix, self.quant = state, prefix, quant
+        self.dtype, self.device = dtype, torch.device(device)
+        self._last = (None, None)   # the last tensor read: fused leaves share it
+
+    def __contains__(self, name):
+        return self.prefix + name in self.state
+
+    def get(self, name):
+        """Stored tensor ``name`` on the device, in its stored type."""
+        if self._last[0] != name:
+            self._last = (None, None)
+            w = self.state[self.prefix + name]
+            w = w.detach() if isinstance(w, torch.Tensor) else torch.from_numpy(
+                np.asarray(w))
+            if w.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+                w = w.float()
+            self._last = (name, w.to(self.device))
+        return self._last[1]
+
+    def each(self, fmt, transpose=False):
+        """The slice function of a stacked leaf: layer i reads
+        ``fmt.format(i)``, transposed if asked."""
+        if transpose:
+            return lambda i: self.get(fmt.format(i)).T
+        return lambda i: self.get(fmt.format(i))
+
+    def _cast(self, w):
+        out = torch.empty(w.shape, dtype=self.dtype, device=self.device)
+        return out.copy_(w)
+
+    def tensor(self, name, fn=None):
+        """One leaf: ``fn(stored)`` (a transpose, a reshape) in ``dtype``."""
+        w = self.get(name)
+        out = self._cast(w if fn is None else fn(w))
+        self._last = (None, None)
+        return out
+
+    def stack(self, n, leaves):
+        """``{key: [n, ...] leaf}`` from ``leaves``: key -> ``fn(i)``, the
+        device tensor of layer i, or ``(E, fn(i, e))`` for a leaf stacked
+        ``[n, E, ...]`` (Mixtral's experts). Filled layer by layer."""
+        out = {}
+        for i in range(n):
+            for key, spec in leaves.items():
+                if isinstance(spec, tuple):
+                    E, fn = spec
+                    for e in range(E):
+                        self._write(out, key, (n, E), (i, e), fn(i, e))
+                else:
+                    self._write(out, key, (n,), (i,), spec(i))
+        self._last = (None, None)
+        return out
+
+    def _write(self, out, key, lead, idx, w):
+        if key not in out:
+            shape = lead + tuple(w.shape)
+            out[key] = (QuantizedTensor(None, None, self.quant[0])
+                        if self.quant and self.quant[1](key, shape) else
+                        torch.empty(shape, dtype=self.dtype, device=self.device))
+        dst = out[key]
+        if isinstance(dst, torch.Tensor):
+            dst[idx].copy_(w)
+            return
+        # the slice in dtype, then quantize's layer-stacked path; the codes
+        # and scales are allocated at the first slice, whose shapes they take
+        qt = quantize(self._cast(w)[None], dst.bits)
+        if dst.q is None:
+            dst.q = torch.empty(lead + tuple(qt.q.shape[1:]), dtype=qt.q.dtype,
+                                device=self.device)
+            dst.scale = torch.empty(lead + tuple(qt.scale.shape[1:]),
+                                    dtype=qt.scale.dtype, device=self.device)
+            dst.block = qt.block
+        dst.q[idx].copy_(qt.q[0])
+        dst.scale[idx].copy_(qt.scale[0])

@@ -27,7 +27,6 @@ ROADMAP F9).
 import dataclasses
 from typing import Any, Tuple
 
-import numpy as np
 import torch
 
 from lxt_tpu_torch import composites
@@ -226,42 +225,32 @@ def forward_head(params, cfg: Gemma3Config, h, composite=composites.attnlrp, *,
 # ---------------------------------------------------------------------------
 
 def params_from_hf(state_dict, cfg: Gemma3Config, dtype=torch.float32,
-                   device="cuda"):
-    """Convert HF ``Gemma3ForCausalLM`` (text) weights (torch tensors or
-    numpy arrays) to the stacked parameter dict; linear weights are
-    transposed to ``[in, out]``."""
-
-    def t(name):
-        w = state_dict[name]
-        if isinstance(w, torch.Tensor):
-            w = w.detach().to("cpu").float().numpy()
-        return np.asarray(w, dtype=np.float32)
-
-    def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dtype)
-
-    def stack(fmt, transpose=False):
-        ws = [t("model.layers." + fmt.format(i)) for i in range(cfg.num_layers)]
-        return tensor(np.stack([w.T if transpose else w for w in ws]))
-
-    layers = {
-        "ln_in": stack("{}.input_layernorm.weight"),
-        "ln_post_attn": stack("{}.post_attention_layernorm.weight"),
-        "ln_pre_ff": stack("{}.pre_feedforward_layernorm.weight"),
-        "ln_post_ff": stack("{}.post_feedforward_layernorm.weight"),
-        "q_norm": stack("{}.self_attn.q_norm.weight"),
-        "k_norm": stack("{}.self_attn.k_norm.weight"),
+                   device="cuda", quant=None):
+    """Convert HF ``Gemma3ForCausalLM`` (text) weights (torch tensors, numpy
+    arrays or an ``io.LazyState``) to the stacked parameter dict, layer by
+    layer (``common.HFWeights``; ``quant`` quantizes the eligible
+    projections as they are converted); linear weights are transposed to
+    ``[in, out]``."""
+    hf = common.HFWeights(state_dict, dtype, device, quant=quant)
+    pre = "model.layers.{}."
+    leaves = {
+        "ln_in": hf.each(pre + "input_layernorm.weight"),
+        "ln_post_attn": hf.each(pre + "post_attention_layernorm.weight"),
+        "ln_pre_ff": hf.each(pre + "pre_feedforward_layernorm.weight"),
+        "ln_post_ff": hf.each(pre + "post_feedforward_layernorm.weight"),
+        "q_norm": hf.each(pre + "self_attn.q_norm.weight"),
+        "k_norm": hf.each(pre + "self_attn.k_norm.weight"),
     }
-    for ours, hf in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
-                     ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
-                     ("wg", "mlp.gate_proj"), ("wu", "mlp.up_proj"),
-                     ("wd", "mlp.down_proj")):
-        layers[ours] = stack("{}." + hf + ".weight", transpose=True)
-    params = {"embed": tensor(t("model.embed_tokens.weight")),
-              "final_norm": tensor(t("model.norm.weight")), "layers": layers}
-    if not cfg.tie_embeddings and "lm_head.weight" in state_dict:
-        params["lm_head"] = tensor(t("lm_head.weight").T)
+    for ours, name in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                       ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                       ("wg", "mlp.gate_proj"), ("wu", "mlp.up_proj"),
+                       ("wd", "mlp.down_proj")):
+        leaves[ours] = hf.each(pre + name + ".weight", transpose=True)
+    params = {"embed": hf.tensor("model.embed_tokens.weight"),
+              "final_norm": hf.tensor("model.norm.weight"),
+              "layers": hf.stack(cfg.num_layers, leaves)}
+    if not cfg.tie_embeddings and "lm_head.weight" in hf:
+        params["lm_head"] = hf.tensor("lm_head.weight", lambda w: w.T)
     return params
 
 
@@ -349,20 +338,21 @@ def multimodal_params_from_hf(state_dict, mmcfg: Gemma3MultimodalConfig,
     (``model.vision_tower.*``, ``model.multi_modal_projector.*``,
     ``model.language_model.*``, ``lm_head``): ``{"vision", "mm_proj",
     "mm_norm", "text"}``."""
+    from lxt_tpu_torch.io import Renamed
     from lxt_tpu_torch.models import siglip
-    from lxt_tpu_torch.models.vit import _converter
 
-    t, tensor = _converter(state_dict, dtype, device)
+    hf = common.HFWeights(state_dict, dtype, device)
     prefix = "model.language_model."
-    text_sd = {"model." + k[len(prefix):]: v for k, v in state_dict.items()
-               if k.startswith(prefix)}
+    names = {"model." + k[len(prefix):]: k for k in state_dict
+             if k.startswith(prefix)}
     if "lm_head.weight" in state_dict:
-        text_sd["lm_head.weight"] = state_dict["lm_head.weight"]
+        names["lm_head.weight"] = "lm_head.weight"
     return {
         "vision": siglip.params_from_hf(
             state_dict, mmcfg.vision, dtype=dtype, device=device,
             prefix="model.vision_tower.vision_model."),
-        "mm_proj": tensor(t("model.multi_modal_projector.mm_input_projection_weight")),
-        "mm_norm": tensor(t("model.multi_modal_projector.mm_soft_emb_norm.weight")),
-        "text": params_from_hf(text_sd, mmcfg.text, dtype=dtype, device=device),
+        "mm_proj": hf.tensor("model.multi_modal_projector.mm_input_projection_weight"),
+        "mm_norm": hf.tensor("model.multi_modal_projector.mm_soft_emb_norm.weight"),
+        "text": params_from_hf(Renamed(state_dict, names), mmcfg.text, dtype=dtype,
+                               device=device),
     }

@@ -184,37 +184,22 @@ def forward_head(params, cfg: GPT2Config, h, composite=composites.cp_lrp, *,
 # ---------------------------------------------------------------------------
 
 def params_from_hf(state_dict, cfg: GPT2Config, dtype=torch.float32,
-                   device="cuda"):
+                   device="cuda", quant=None):
     """Convert an HF ``GPT2LMHeadModel`` (or ``GPT2Model``) state dict, with
-    or without the ``transformer.`` prefix, to the stacked parameter dict.
-    HF's Conv1D weights are already ``[in, out]``: no transpose."""
-
-    def t(name):
-        w = state_dict[name]
-        if isinstance(w, torch.Tensor):
-            w = w.detach().to("cpu").float().numpy()
-        return np.asarray(w, dtype=np.float32)
-
-    def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dtype)
-
+    or without the ``transformer.`` prefix, to the stacked parameter dict,
+    layer by layer (``common.HFWeights``; ``quant`` quantizes the eligible
+    projections as they are converted). HF's Conv1D weights are already
+    ``[in, out]``: no transpose."""
     root = "transformer." if any(k.startswith("transformer.")
                                  for k in state_dict) else ""
-
-    def stack(fmt):
-        return tensor(np.stack([t(root + "h." + fmt.format(i))
-                                for i in range(cfg.num_layers)]))
-
-    layers = {
-        "ln1_w": stack("{}.ln_1.weight"), "ln1_b": stack("{}.ln_1.bias"),
-        "ln2_w": stack("{}.ln_2.weight"), "ln2_b": stack("{}.ln_2.bias"),
-        "w_attn": stack("{}.attn.c_attn.weight"), "b_attn": stack("{}.attn.c_attn.bias"),
-        "w_proj": stack("{}.attn.c_proj.weight"), "b_proj": stack("{}.attn.c_proj.bias"),
-        "w_fc": stack("{}.mlp.c_fc.weight"), "b_fc": stack("{}.mlp.c_fc.bias"),
-        "w_out": stack("{}.mlp.c_proj.weight"), "b_out": stack("{}.mlp.c_proj.bias"),
-    }
-    return {"wte": tensor(t(root + "wte.weight")),
-            "wpe": tensor(t(root + "wpe.weight")),
-            "lnf_w": tensor(t(root + "ln_f.weight")),
-            "lnf_b": tensor(t(root + "ln_f.bias")), "layers": layers}
+    hf = common.HFWeights(state_dict, dtype, device, prefix=root, quant=quant)
+    leaves = {ours: hf.each("h.{}." + name) for ours, name in (
+        ("ln1_w", "ln_1.weight"), ("ln1_b", "ln_1.bias"),
+        ("ln2_w", "ln_2.weight"), ("ln2_b", "ln_2.bias"),
+        ("w_attn", "attn.c_attn.weight"), ("b_attn", "attn.c_attn.bias"),
+        ("w_proj", "attn.c_proj.weight"), ("b_proj", "attn.c_proj.bias"),
+        ("w_fc", "mlp.c_fc.weight"), ("b_fc", "mlp.c_fc.bias"),
+        ("w_out", "mlp.c_proj.weight"), ("b_out", "mlp.c_proj.bias"))}
+    return {"wte": hf.tensor("wte.weight"), "wpe": hf.tensor("wpe.weight"),
+            "lnf_w": hf.tensor("ln_f.weight"), "lnf_b": hf.tensor("ln_f.bias"),
+            "layers": hf.stack(cfg.num_layers, leaves)}

@@ -11,7 +11,6 @@ conversion.
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from lxt_tpu_torch import composites
@@ -292,64 +291,44 @@ def forward_head(params, cfg, h, composite=composites.attnlrp, *,
 # ---------------------------------------------------------------------------
 
 def params_from_hf(state_dict, cfg: LlamaConfig, dtype=torch.float32,
-                   device="cuda"):
+                   device="cuda", quant=None):
     """Convert an HF Llama/Qwen2/Qwen3/Mistral/Phi-3 ``state_dict`` (torch
-    tensors or numpy arrays) to the stacked parameter dict. Linear weights
-    are transposed to ``[in, out]``; Phi-3's fused ``qkv_proj`` and
+    tensors, numpy arrays or an ``io.LazyState``) to the stacked parameter
+    dict, layer by layer (``common.HFWeights``; ``quant`` quantizes the
+    eligible projections as they are converted). Linear weights are
+    transposed to ``[in, out]``; Phi-3's fused ``qkv_proj`` and
     ``gate_up_proj`` are split into the Llama layout."""
-
-    def t(name):
-        w = state_dict[name]
-        if isinstance(w, torch.Tensor):
-            w = w.detach().to("cpu").float().numpy()
-        return np.asarray(w, dtype=np.float32)
-
-    def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dtype)
-
-    L = cfg.num_layers
-    pre = "model.layers."
-
-    def stack(fmt, transpose=False):
-        return tensor(np.stack([t(fmt.format(i)).T if transpose
-                                else t(fmt.format(i)) for i in range(L)]))
-
-    layers = {
-        "ln1": stack(pre + "{}.input_layernorm.weight"),
-        "ln2": stack(pre + "{}.post_attention_layernorm.weight"),
-        "wo": stack(pre + "{}.self_attn.o_proj.weight", transpose=True),
-        "wd": stack(pre + "{}.mlp.down_proj.weight", transpose=True),
-    }
-    if pre + "0.self_attn.qkv_proj.weight" in state_dict:
+    hf = common.HFWeights(state_dict, dtype, device, quant=quant)
+    pre = "model.layers.{}."
+    leaves = {"ln1": hf.each(pre + "input_layernorm.weight"),
+              "ln2": hf.each(pre + "post_attention_layernorm.weight"),
+              "wo": hf.each(pre + "self_attn.o_proj.weight", transpose=True),
+              "wd": hf.each(pre + "mlp.down_proj.weight", transpose=True)}
+    if "model.layers.0.self_attn.qkv_proj.weight" in hf:
         # Phi-3: qkv_proj = [q; k; v], gate_up_proj = [gate; up]
         q_dim, kv_dim = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
-        qkv = [t(pre + f"{i}.self_attn.qkv_proj.weight").T for i in range(L)]
-        gu = [t(pre + f"{i}.mlp.gate_up_proj.weight").T for i in range(L)]
         I = cfg.intermediate_size
-        layers.update(
-            wq=tensor(np.stack([w[:, :q_dim] for w in qkv])),
-            wk=tensor(np.stack([w[:, q_dim:q_dim + kv_dim] for w in qkv])),
-            wv=tensor(np.stack([w[:, q_dim + kv_dim:] for w in qkv])),
-            wg=tensor(np.stack([w[:, :I] for w in gu])),
-            wu=tensor(np.stack([w[:, I:] for w in gu])))
+        qkv = hf.each(pre + "self_attn.qkv_proj.weight", transpose=True)
+        gu = hf.each(pre + "mlp.gate_up_proj.weight", transpose=True)
+        leaves.update(
+            wq=lambda i: qkv(i)[:, :q_dim],
+            wk=lambda i: qkv(i)[:, q_dim:q_dim + kv_dim],
+            wv=lambda i: qkv(i)[:, q_dim + kv_dim:],
+            wg=lambda i: gu(i)[:, :I], wu=lambda i: gu(i)[:, I:])
     else:
-        for ours, hf in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
-                         ("wv", "self_attn.v_proj"), ("wg", "mlp.gate_proj"),
-                         ("wu", "mlp.up_proj")):
-            layers[ours] = stack(pre + "{}." + hf + ".weight", transpose=True)
+        for ours, name in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                           ("wv", "self_attn.v_proj"), ("wg", "mlp.gate_proj"),
+                           ("wu", "mlp.up_proj")):
+            leaves[ours] = hf.each(pre + name + ".weight", transpose=True)
         if cfg.qkv_bias:
-            for ours, hf in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
-                layers[ours] = stack(pre + "{}.self_attn." + hf + ".bias")
+            for ours, name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+                leaves[ours] = hf.each(pre + "self_attn." + name + ".bias")
         if cfg.qk_norm:
-            layers["q_norm"] = stack(pre + "{}.self_attn.q_norm.weight")
-            layers["k_norm"] = stack(pre + "{}.self_attn.k_norm.weight")
-
-    params = {
-        "embed": tensor(t("model.embed_tokens.weight")),
-        "final_norm": tensor(t("model.norm.weight")),
-        "layers": layers,
-    }
-    if not cfg.tie_embeddings and "lm_head.weight" in state_dict:
-        params["lm_head"] = tensor(t("lm_head.weight").T)
+            leaves["q_norm"] = hf.each(pre + "self_attn.q_norm.weight")
+            leaves["k_norm"] = hf.each(pre + "self_attn.k_norm.weight")
+    params = {"embed": hf.tensor("model.embed_tokens.weight"),
+              "final_norm": hf.tensor("model.norm.weight"),
+              "layers": hf.stack(cfg.num_layers, leaves)}
+    if not cfg.tie_embeddings and "lm_head.weight" in hf:
+        params["lm_head"] = hf.tensor("lm_head.weight", lambda w: w.T)
     return params

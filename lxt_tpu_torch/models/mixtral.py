@@ -40,7 +40,6 @@ group, the mixture's input taking a ``copy``.
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -356,48 +355,35 @@ def forward(
 # ---------------------------------------------------------------------------
 
 def params_from_hf(state_dict, cfg: MixtralConfig, dtype=torch.float32,
-                   device="cuda"):
-    """Convert HF ``MixtralForCausalLM`` weights (torch tensors or numpy
-    arrays) to the stacked parameter dict: linear weights transposed to
-    ``[in, out]``, the experts stacked on axis 1 (HF ``w1`` / ``w3`` /
-    ``w2`` -> ``wg`` / ``wu`` / ``wd``)."""
+                   device="cuda", quant=None):
+    """Convert HF ``MixtralForCausalLM`` weights (torch tensors, numpy
+    arrays or an ``io.LazyState``) to the stacked parameter dict, layer by
+    layer (``common.HFWeights``; ``quant`` quantizes the eligible
+    projections, expert by expert, as they are converted): linear weights
+    transposed to ``[in, out]``, the experts stacked on axis 1 (HF ``w1`` /
+    ``w3`` / ``w2`` -> ``wg`` / ``wu`` / ``wd``)."""
+    hf = common.HFWeights(state_dict, dtype, device, quant=quant)
+    pre = "model.layers.{}."
 
-    def t(name):
-        w = state_dict[name]
-        if isinstance(w, torch.Tensor):
-            w = w.detach().to("cpu").float().numpy()
-        return np.asarray(w, dtype=np.float32)
+    def experts(name):
+        fmt = pre + "block_sparse_moe.experts.{}." + name + ".weight"
+        return cfg.num_experts, lambda i, e: hf.get(fmt.format(i, e)).T
 
-    def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dtype)
-
-    L, E = cfg.num_layers, cfg.num_experts
-    pre = "model.layers."
-
-    def stack(fmt, transpose=False):
-        ws = [t(pre + fmt.format(i)) for i in range(L)]
-        return tensor(np.stack([w.T if transpose else w for w in ws]))
-
-    def stack_experts(hf):
-        fmt = pre + "{}.block_sparse_moe.experts.{}." + hf + ".weight"
-        return tensor(np.stack([np.stack([t(fmt.format(i, e)).T for e in range(E)])
-                                for i in range(L)]))
-
-    layers = {
-        "ln1": stack("{}.input_layernorm.weight"),
-        "ln2": stack("{}.post_attention_layernorm.weight"),
-        "wq": stack("{}.self_attn.q_proj.weight", True),
-        "wk": stack("{}.self_attn.k_proj.weight", True),
-        "wv": stack("{}.self_attn.v_proj.weight", True),
-        "wo": stack("{}.self_attn.o_proj.weight", True),
-        "w_router": stack("{}.block_sparse_moe.gate.weight", True),
-        "wg": stack_experts("w1"),
-        "wd": stack_experts("w2"),
-        "wu": stack_experts("w3"),
+    leaves = {
+        "ln1": hf.each(pre + "input_layernorm.weight"),
+        "ln2": hf.each(pre + "post_attention_layernorm.weight"),
+        "wq": hf.each(pre + "self_attn.q_proj.weight", True),
+        "wk": hf.each(pre + "self_attn.k_proj.weight", True),
+        "wv": hf.each(pre + "self_attn.v_proj.weight", True),
+        "wo": hf.each(pre + "self_attn.o_proj.weight", True),
+        "w_router": hf.each(pre + "block_sparse_moe.gate.weight", True),
+        "wg": experts("w1"),
+        "wd": experts("w2"),
+        "wu": experts("w3"),
     }
-    params = {"embed": tensor(t("model.embed_tokens.weight")),
-              "final_norm": tensor(t("model.norm.weight")), "layers": layers}
-    if not cfg.tie_embeddings and "lm_head.weight" in state_dict:
-        params["lm_head"] = tensor(t("lm_head.weight").T)
+    params = {"embed": hf.tensor("model.embed_tokens.weight"),
+              "final_norm": hf.tensor("model.norm.weight"),
+              "layers": hf.stack(cfg.num_layers, leaves)}
+    if not cfg.tie_embeddings and "lm_head.weight" in hf:
+        params["lm_head"] = hf.tensor("lm_head.weight", lambda w: w.T)
     return params

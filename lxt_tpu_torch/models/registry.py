@@ -13,7 +13,8 @@ a torchvision ViT, OpenCLIP visual tower or SigLIP tower ->
     values, maps = model.attribute_response(out, input_ids.shape[1])
 
 ``from_pretrained`` reads ``config.json`` with :mod:`json` and the weights
-with the numpy safetensors reader (:mod:`lxt_tpu_torch.io`): it needs
+with the native safetensors loader (:mod:`lxt_tpu_torch.io`), layer by
+layer (quantizing as it converts with ``quantize_bits``): it needs
 neither ``transformers`` nor ``safetensors``. bitsandbytes-serialized
 4-bit and 8-bit checkpoints are ingested on the host and re-quantized in
 kind.
@@ -36,7 +37,8 @@ from lxt_tpu_torch.attribution import (_pick, input_relevance,
                                        multi_site_relevance,
                                        multi_token_relevance, topk_relevance)
 from lxt_tpu_torch.models import bert, decode, gemma3, gpt2, llama, mixtral
-from lxt_tpu_torch.ops.quant import QuantizedTensor
+from lxt_tpu_torch.io import Renamed
+from lxt_tpu_torch.ops.quant import QuantizedTensor, eligibility
 
 _LLAMA = {"config": llama.LlamaConfig, "from_hf": llama.params_from_hf,
           "forward": llama.forward, "tp": "llama",
@@ -684,15 +686,17 @@ _GEMMA3_RENAMES = (("language_model.model.", "model.language_model."),
 
 
 def _gemma3_names(state_dict):
-    """A ``gemma3`` state dict with the module's current key names."""
-    renamed = {}
-    for k, v in state_dict.items():
+    """A ``gemma3`` state dict with the module's current key names (a view
+    that reads no tensor)."""
+    names = {}
+    for k in state_dict:
+        new_k = k
         for old, new in _GEMMA3_RENAMES:
             if k.startswith(old):
-                k = new + k[len(old):]
+                new_k = new + k[len(old):]
                 break
-        renamed[k] = v
-    return renamed
+        names[new_k] = k
+    return Renamed(state_dict, names)
 
 
 def _text_model(state_dict, hf_config):
@@ -701,19 +705,21 @@ def _text_model(state_dict, hf_config):
     to ``model.*``); the vision weights are left out."""
     prefix = "model.language_model."
     if any(k.startswith(prefix) for k in state_dict):
-        text = {"model." + k[len(prefix):]: v for k, v in state_dict.items()
-                if k.startswith(prefix)}
+        names = {"model." + k[len(prefix):]: k for k in state_dict
+                 if k.startswith(prefix)}
         if "lm_head.weight" in state_dict:
-            text["lm_head.weight"] = state_dict["lm_head.weight"]
-        state_dict = text
+            names["lm_head.weight"] = "lm_head.weight"
+        state_dict = Renamed(state_dict, names)
     return state_dict, hf_config.text_config
 
 
 def _convert(state_dict, hf_config, composite, dtype, device, family=None,
-             text_only=False):
-    """state dict (torch tensors or numpy arrays) -> AttributionModel, or a
-    :class:`MultimodalAttributionModel` for a ``gemma3`` checkpoint that
-    holds its vision tower (unless ``text_only``)."""
+             text_only=False, quantize_bits=None):
+    """state dict (torch tensors, numpy arrays or an ``io.LazyState``) ->
+    AttributionModel, or a :class:`MultimodalAttributionModel` for a
+    ``gemma3`` checkpoint that holds its vision tower (unless
+    ``text_only``). ``quantize_bits``: a text model's converter quantizes
+    the family's eligible stacked leaves layer by layer as it converts."""
     if (getattr(hf_config, "model_type", None) == "gemma3"
             and hasattr(hf_config, "text_config")):
         state_dict = _gemma3_names(state_dict)
@@ -730,8 +736,10 @@ def _convert(state_dict, hf_config, composite, dtype, device, family=None,
         family = detect_family(hf_config, state_dict)
     table = FAMILIES[family]
     cfg = table["config"].from_hf(hf_config)
+    quant = None if not quantize_bits else (
+        quantize_bits, eligibility(quantize_bits, family=family))
     params = table["from_hf"](state_dict, cfg, dtype=dtype or torch.float32,
-                              device=device)
+                              device=device, quant=quant)
     if composite is None:
         composite = composites.cp_lrp if family == "gpt2" else composites.attnlrp
     composite = composites.resolve(composite)
@@ -785,33 +793,48 @@ def from_pretrained(model_dir, composite: composites.Composite = None,
     """Load an :class:`AttributionModel` straight from an HF checkpoint
     directory onto ``device``; no torch model is instantiated.
 
+    The checkpoint is read through an ``io.LazyState`` (the native loader;
+    the 16-bit tensors in ``dtype``) and converted layer by layer, so the
+    host holds about one layer's tensors at a time.
+
     ``quantize_bits`` (8, 4 or "nf4") quantizes the family's projections
-    after conversion. bitsandbytes-serialized checkpoints (keys ending in
-    ``.quant_state.bitsandbytes__*`` for 4-bit, ``.SCB`` for 8-bit) are
-    dequantized on the host and, unless ``quantize_bits`` says otherwise,
-    re-quantized in kind ("nf4" / 8), which reproduces their values
-    exactly. ``canonizers`` as in :func:`from_hf`, applied before the
-    quantization (they transform full-precision weights). A ``gemma3``
-    checkpoint with vision weights loads as a
-    :class:`MultimodalAttributionModel` (``text_only=True``: its language
-    model alone)."""
-    from lxt_tpu_torch.io import load_checkpoint_state_dict
+    (``ops.quant.FAMILY_QUANTIZABLE``): each stacked one slice at a time
+    while it is converted, so the device never holds a full-precision stack
+    of them (an NF4 Mixtral-8x7B needs its codes and one layer's transient
+    bytes, not its 93 GB of bf16), bit-equal to ``quantize_params`` after a
+    whole conversion. Two cases keep that order instead (convert, then
+    quantize): ``canonizers`` (as in :func:`from_hf`, applied before the
+    quantization: they transform full-precision weights), and
+    bitsandbytes-serialized checkpoints (keys ending in
+    ``.quant_state.bitsandbytes__*`` for 4-bit, ``.SCB`` for 8-bit), which
+    are read whole, dequantized on the host and, unless ``quantize_bits``
+    says otherwise, re-quantized in kind ("nf4" / 8), which reproduces
+    their values exactly. A ``gemma3`` checkpoint with vision weights loads
+    as a :class:`MultimodalAttributionModel` (``text_only=True``: its
+    language model alone)."""
+    from lxt_tpu_torch.io import LazyState, load_checkpoint_state_dict
     from lxt_tpu_torch.ops.quant import ingest_bnb_state_dict, quantize_params
 
     hf_config = read_hf_config(model_dir)
     # the 16-bit tensors read in the target dtype: a bf16 checkpoint widened
-    # to a float32 host dict only to be cast back would double its bytes
-    state = load_checkpoint_state_dict(model_dir, dtype)
-    had_8bit = any(k.endswith(".SCB") for k in state)
-    if ingest_bnb_state_dict(state) and quantize_bits is None:
-        quantize_bits = 8 if had_8bit else "nf4"
+    # to float32 on the host only to be cast back would double its bytes
+    state = LazyState(model_dir, dtype)
+    bnb = any(k.endswith(".SCB") or ".quant_state.bitsandbytes__" in k
+              for k in state)
+    if bnb:
+        state = load_checkpoint_state_dict(model_dir, dtype)
+        had_8bit = any(k.endswith(".SCB") for k in state)
+        if ingest_bnb_state_dict(state) and quantize_bits is None:
+            quantize_bits = 8 if had_8bit else "nf4"
     model = _convert(state, hf_config, composite, dtype, device, family,
-                     text_only)
+                     text_only, None if canonizers or bnb else quantize_bits)
     if canonizers:
         model = model.canonize(*canonizers)
     if quantize_bits:
         if not isinstance(model, AttributionModel):
             raise ValueError("quantize_bits applies to text models only")
+        # what the conversion left: everything in the orders above, the
+        # eligible leaves that are not stacked (BERT's pooler) otherwise
         model.params = quantize_params(model.params, bits=quantize_bits,
                                        family=model.family)
     return model

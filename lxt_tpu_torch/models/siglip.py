@@ -19,7 +19,7 @@ import torch
 
 from lxt_tpu_torch import composites
 from lxt_tpu_torch.models import common
-from lxt_tpu_torch.models.vit import _converter, _stacked
+from lxt_tpu_torch.models.vit import _hwio, _stacked
 from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.attention import attention
 
@@ -134,8 +134,8 @@ def params_from_hf(state_dict, cfg: SiglipConfig, dtype=torch.float32,
     """Convert HF SigLIP vision weights found under ``prefix`` (torch
     tensors or numpy arrays); linear weights transposed to ``[in, out]``,
     the conv weight OIHW -> HWIO."""
-    t, tensor = _converter(state_dict, dtype, device, prefix)
-    layers = _stacked(t, tensor, "encoder.layers.{}.", cfg.num_layers, {
+    hf = common.HFWeights(state_dict, dtype, device, prefix=prefix)
+    layers = _stacked(hf, "encoder.layers.{}.", cfg.num_layers, {
         "ln1_w": ("layer_norm1.weight", False),
         "ln1_b": ("layer_norm1.bias", False),
         "ln2_w": ("layer_norm2.weight", False),
@@ -148,10 +148,10 @@ def params_from_hf(state_dict, cfg: SiglipConfig, dtype=torch.float32,
         "w_fc": ("mlp.fc1.weight", True), "b_fc": ("mlp.fc1.bias", False),
         "w_out": ("mlp.fc2.weight", True), "b_out": ("mlp.fc2.bias", False)})
     return {
-        "conv_w": tensor(t("embeddings.patch_embedding.weight").transpose(2, 3, 1, 0)),
-        "conv_b": tensor(t("embeddings.patch_embedding.bias")),
-        "pos_emb": tensor(t("embeddings.position_embedding.weight")),
-        "lnf_w": tensor(t("post_layernorm.weight")),
-        "lnf_b": tensor(t("post_layernorm.bias")),
+        "conv_w": hf.tensor("embeddings.patch_embedding.weight", _hwio),
+        "conv_b": hf.tensor("embeddings.patch_embedding.bias"),
+        "pos_emb": hf.tensor("embeddings.position_embedding.weight"),
+        "lnf_w": hf.tensor("post_layernorm.weight"),
+        "lnf_b": hf.tensor("post_layernorm.bias"),
         "layers": layers,
     }

@@ -17,7 +17,6 @@ the flash kernels' 128-row grid.
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from lxt_tpu_torch import composites
@@ -173,29 +172,15 @@ def patch_relevance(images, grad):
 # checkpoint conversion (torch tensors or numpy arrays)
 # ---------------------------------------------------------------------------
 
-def _converter(state_dict, dtype, device, prefix=""):
-    """``(t, tensor)``: ``t(name)`` reads ``prefix + name`` as float32
-    numpy, ``tensor(array)`` puts an array on ``device`` in ``dtype``."""
-
-    def t(name):
-        w = state_dict[prefix + name]
-        if isinstance(w, torch.Tensor):
-            w = w.detach().to("cpu").float().numpy()
-        return np.asarray(w, dtype=np.float32)
-
-    def tensor(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dtype)
-
-    return t, tensor
+def _hwio(w):
+    """A conv weight OIHW -> HWIO."""
+    return w.permute(2, 3, 1, 0)
 
 
-def _stacked(t, tensor, layer_fmt, num_layers, names):
+def _stacked(hf, layer_fmt, num_layers, names):
     """The stacked layer dict: ours -> (HF name, transpose)."""
-    def stack(name, transpose):
-        ws = [t(layer_fmt.format(i) + name) for i in range(num_layers)]
-        return tensor(np.stack([w.T if transpose else w for w in ws]))
-    return {ours: stack(name, tr) for ours, (name, tr) in names.items()}
+    return hf.stack(num_layers, {ours: hf.each(layer_fmt + name, tr)
+                                 for ours, (name, tr) in names.items()})
 
 
 def params_from_torchvision(state_dict, cfg: ViTConfig, dtype=torch.float32,
@@ -204,8 +189,8 @@ def params_from_torchvision(state_dict, cfg: ViTConfig, dtype=torch.float32,
     ``class_token``, ``encoder.*``, ``heads.head``; MHA's fused
     ``in_proj`` [3D, D]); linear weights transposed to ``[in, out]``, the
     conv weight OIHW -> HWIO."""
-    t, tensor = _converter(state_dict, dtype, device)
-    layers = _stacked(t, tensor, "encoder.layers.encoder_layer_{}.", cfg.num_layers, {
+    hf = common.HFWeights(state_dict, dtype, device)
+    layers = _stacked(hf, "encoder.layers.encoder_layer_{}.", cfg.num_layers, {
         "ln1_w": ("ln_1.weight", False), "ln1_b": ("ln_1.bias", False),
         "ln2_w": ("ln_2.weight", False), "ln2_b": ("ln_2.bias", False),
         "w_qkv": ("self_attention.in_proj_weight", True),
@@ -215,14 +200,14 @@ def params_from_torchvision(state_dict, cfg: ViTConfig, dtype=torch.float32,
         "w_fc": ("mlp.0.weight", True), "b_fc": ("mlp.0.bias", False),
         "w_out": ("mlp.3.weight", True), "b_out": ("mlp.3.bias", False)})
     return {
-        "conv_w": tensor(t("conv_proj.weight").transpose(2, 3, 1, 0)),
-        "conv_b": tensor(t("conv_proj.bias")),
-        "cls_token": tensor(t("class_token")),
-        "pos_emb": tensor(t("encoder.pos_embedding")),
-        "lnf_w": tensor(t("encoder.ln.weight")),
-        "lnf_b": tensor(t("encoder.ln.bias")),
-        "head_w": tensor(t("heads.head.weight").T),
-        "head_b": tensor(t("heads.head.bias")),
+        "conv_w": hf.tensor("conv_proj.weight", _hwio),
+        "conv_b": hf.tensor("conv_proj.bias"),
+        "cls_token": hf.tensor("class_token"),
+        "pos_emb": hf.tensor("encoder.pos_embedding"),
+        "lnf_w": hf.tensor("encoder.ln.weight"),
+        "lnf_b": hf.tensor("encoder.ln.bias"),
+        "head_w": hf.tensor("heads.head.weight", lambda w: w.T),
+        "head_b": hf.tensor("heads.head.bias"),
         "layers": layers,
     }
 
@@ -233,8 +218,8 @@ def params_from_openclip(state_dict, cfg: ViTConfig, dtype=torch.float32,
     subtree of a CLIP checkpoint: ``conv1``, ``class_embedding``,
     ``positional_embedding``, ``ln_pre``, ``transformer.resblocks.N.*``,
     ``ln_post``, ``proj``)."""
-    t, tensor = _converter(state_dict, dtype, device)
-    layers = _stacked(t, tensor, "transformer.resblocks.{}.", cfg.num_layers, {
+    hf = common.HFWeights(state_dict, dtype, device)
+    layers = _stacked(hf, "transformer.resblocks.{}.", cfg.num_layers, {
         "ln1_w": ("ln_1.weight", False), "ln1_b": ("ln_1.bias", False),
         "ln2_w": ("ln_2.weight", False), "ln2_b": ("ln_2.bias", False),
         "w_qkv": ("attn.in_proj_weight", True),
@@ -246,13 +231,13 @@ def params_from_openclip(state_dict, cfg: ViTConfig, dtype=torch.float32,
         "b_out": ("mlp.c_proj.bias", False)})
     D = cfg.hidden_size
     return {
-        "conv_w": tensor(t("conv1.weight").transpose(2, 3, 1, 0)),
-        "cls_token": tensor(t("class_embedding").reshape(1, 1, D)),
-        "pos_emb": tensor(t("positional_embedding")[None]),
-        "ln_pre_w": tensor(t("ln_pre.weight")),
-        "ln_pre_b": tensor(t("ln_pre.bias")),
-        "lnf_w": tensor(t("ln_post.weight")),
-        "lnf_b": tensor(t("ln_post.bias")),
-        "proj": tensor(t("proj")),   # [D, proj_dim], applied as-is
+        "conv_w": hf.tensor("conv1.weight", _hwio),
+        "cls_token": hf.tensor("class_embedding", lambda w: w.reshape(1, 1, D)),
+        "pos_emb": hf.tensor("positional_embedding", lambda w: w[None]),
+        "ln_pre_w": hf.tensor("ln_pre.weight"),
+        "ln_pre_b": hf.tensor("ln_pre.bias"),
+        "lnf_w": hf.tensor("ln_post.weight"),
+        "lnf_b": hf.tensor("ln_post.bias"),
+        "proj": hf.tensor("proj"),   # [D, proj_dim], applied as-is
         "layers": layers,
     }

@@ -30,8 +30,16 @@ order. A site whose finite relevances overflow float32 when summed reads
 as non-finite too. ``counters["host_reads"]`` counts those reads. With no check on, a
 rule's backward adds no device work.
 
-Multi-process attribution (``parallel/``) refuses both checks
-(:func:`refuse_parallel`): run them on one process.
+Under data and tensor parallelism (``parallel/mesh.attribute_sharded``,
+a forward under ``mesh.model_parallel``) both checks give what one process
+running the whole batch gives, which is also what ``lxt_tpu``'s GSPMD
+program computes: each rule site sums its incoming relevance and counts
+its input elements over the whole world (over ``data``, and over ``model``
+for a shard; a tensor replicated over ``model`` counts once), and the NaN
+check reduces its flags over the world before its one host read, so that
+every process raises the same site. The ring and the pipeline driver
+refuse both checks (:func:`refuse_parallel`): their sums would be per ring
+step or per microbatch.
 
 Scope: the redistribution assumes that the cotangent IS relevance, i.e. the
 explicit path (:mod:`lxt_tpu_torch.ops.functional`,
@@ -44,9 +52,10 @@ there.
 import contextlib
 import dataclasses
 import functools
-from typing import Optional
+from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from lxt_tpu_torch.ops import tensor_parallel
 
@@ -55,6 +64,8 @@ NAN_CHECK_FLAG = [False]
 #: the NaN check's record: (site, device float32 sum) pairs, owned by the
 #: outermost NaN context that is open (None when none is)
 _RECORD = [None]
+#: the ``data`` group of the running ``attribute_sharded`` call, or None
+_DATA = [None]
 #: device-to-host reads made to discharge the NaN check
 counters = {"host_reads": 0}
 _NOW = object()  # maybe_redistribute's default: the mode in force now
@@ -67,49 +78,80 @@ class Mode:
     conservation: bool
     #: the NaN check's record to append to, or None (no NaN check)
     record: Optional[list]
+    #: the tensor-parallel and the data-parallel group in force (None: the
+    #: work is not split that way)
+    model: Any = None
+    data: Any = None
+    #: the forward ran between a tensor-parallel copy and its reduce, where
+    #: each process holds a shard of the activations
+    sharded: bool = False
+
+
+class _Record(list):
+    """The NaN check's record; ``groups``: the (model, data) groups its
+    sites ran under, over which the flags are reduced (None: one process)."""
+
+    groups = None
+
+
+@contextlib.contextmanager
+def data_parallel(g):
+    """Run the block with ``g`` as the data-parallel group of the checks
+    (``mesh.attribute_sharded`` enters it; a group of one is none)."""
+    if g is not None and dist.get_world_size(g) == 1:
+        g = None
+    prev, _DATA[0] = _DATA[0], g
+    try:
+        yield
+    finally:
+        _DATA[0] = prev
 
 
 def mode() -> Optional[Mode]:
     """The check mode in force, or None when no check is on (then a rule's
-    backward does nothing more than its own arithmetic). Raises
-    ``ValueError`` under tensor parallelism (see :func:`refuse_parallel`)."""
+    backward does nothing more than its own arithmetic)."""
     if not (CONSERVATION_CHECK_FLAG[0] or NAN_CHECK_FLAG[0]):
         return None
-    if tensor_parallel.group() is not None:
-        refuse_parallel("tensor parallelism")
     return Mode(CONSERVATION_CHECK_FLAG[0],
-                _RECORD[0] if NAN_CHECK_FLAG[0] else None)
+                _RECORD[0] if NAN_CHECK_FLAG[0] else None,
+                tensor_parallel.group(), _DATA[0], tensor_parallel.sharded())
 
 
 def refuse_parallel(what):
-    """Raise ``ValueError`` when a check mode is on: the checks run on one
-    process. Split over processes (``what``), a rule site would spread its
-    uniform fill over its own shard of the input only (a row-parallel
-    product's shards would pass on the group's size times the relevance
-    they received), and each process would test its own shard for NaNs, so
-    some would raise and the others run on out of step. Every process
+    """Raise ``ValueError`` when a check mode is on (the ring and the
+    pipeline driver): there a rule site's sums would be those of one ring
+    step or one microbatch, which one process never forms. Every process
     refuses alike, before any collective."""
     if CONSERVATION_CHECK_FLAG[0] or NAN_CHECK_FLAG[0]:
-        raise ValueError(f"the conservation and NaN checks run on one "
-                         f"process; {what} splits the relevance over "
-                         f"processes (run the check without the mesh)")
+        raise ValueError(f"the conservation and NaN checks do not run under "
+                         f"{what}: its rule sites see one step's or one "
+                         f"microbatch's relevance (run the check without it, "
+                         f"or under attribute_sharded)")
 
 
 def _discharge():
     """Read the current record to the host in one copy, clear it, and raise
-    on its first non-finite site."""
+    on its first non-finite site. Under the mesh the index of each
+    process's first non-finite site is reduced (a min) over the world
+    first, so every process raises the same site."""
     record = _RECORD[0]
     if not record:
         return
     names = [where for where, _ in record]
     sums = torch.stack([total.to(record[0][1].device) for _, total in record])
+    groups, record.groups = record.groups, None
     record.clear()
-    flags = torch.isfinite(sums).cpu()
+    flags = torch.isfinite(sums)
+    n = len(names)
+    first = torch.where(flags, n, torch.arange(n, device=flags.device)).min()
+    for g in groups or ():
+        if g is not None:
+            first = tensor_parallel.all_reduce(first, g, op=dist.ReduceOp.MIN)
+    i = int(first)
     counters["host_reads"] += 1
-    if not bool(flags.all()):
-        i = int((~flags).nonzero()[0, 0])
+    if i < n:
         raise RuntimeError(f"NaN/Inf relevance at rule backward: {names[i]} "
-                           f"(site {i + 1} of {len(names)} in backward order)")
+                           f"(site {i + 1} of {n} in backward order)")
 
 
 @contextlib.contextmanager
@@ -121,7 +163,7 @@ def nan_check():
     prev = NAN_CHECK_FLAG[0], _RECORD[0]
     NAN_CHECK_FLAG[0] = True
     if _RECORD[0] is None:
-        _RECORD[0] = []
+        _RECORD[0] = _Record()
     try:
         yield
         if prev[1] is None:
@@ -159,8 +201,42 @@ def checked(fn):
     return wrapped
 
 
+def _total(r):
+    """The sum of a relevance, in float32 (float64 for a float64 one: a
+    reference run)."""
+    return r.to(torch.promote_types(r.dtype, torch.float32)).sum()
+
+
+def _world_fill(in_relevances, out_relevances, check, layout):
+    """The conservation fill of one site under the mesh: the incoming sum
+    and the input count over the world, as one process running the whole
+    batch forms them. Per tensor, over ``model``: a shard ("S") adds each
+    process's part; a replicated tensor ("R") counts once (tensor-parallel
+    rank 0's); the input of a column-parallel product ("P", after a copy,
+    whose backward sums each process's relevance) counts once and each
+    process fills its 1/tp share."""
+    tp = tensor_parallel.size(check.model)
+    first = check.model is None or dist.get_rank(check.model) == 0
+    kind_in, kind_out = {"row": ("S", "R"), "column": ("P", "S")}.get(
+        layout, ("S", "S") if check.sharded else ("R", "R"))
+    dev = next(r.device for r in (*in_relevances, *out_relevances)
+               if isinstance(r, torch.Tensor))
+    tot = torch.zeros(2, dtype=torch.float64, device=dev)
+    if kind_out == "S" or first:
+        for r in out_relevances:
+            if r is not None:
+                tot[0] += _total(r)
+    if kind_in == "S" or first:
+        tot[1] = sum(r.numel() for r in in_relevances if r is not None)
+    for g in (check.model, check.data):
+        if g is not None:
+            tot = tensor_parallel.all_reduce(tot, g)
+    mean = tot[0] / tot[1]
+    return mean / tp if kind_in == "P" else mean
+
+
 def maybe_redistribute(in_relevances, out_relevances, where="rule",
-                       check=_NOW):
+                       check=_NOW, layout=None):
     """The check hook of a rule backward.
 
     ``in_relevances``: one entry per input: the relevance (a tensor), None
@@ -168,24 +244,35 @@ def maybe_redistribute(in_relevances, out_relevances, where="rule",
     its share of the uniform mean but carries no relevance (a constant,
     such as a mask; it comes back as None). ``out_relevances``: the
     incoming relevances (tensors or None). ``check``: the :class:`Mode` the
-    rule's forward kept (default: the mode in force now).
+    rule's forward kept (default: the mode in force now). ``layout``: the
+    site's tensor-parallel split, "row" (a row-parallel product: the input
+    a shard, the output replicated), "column" (a column-parallel one: the
+    whole input, a shard of the output) or None (every entry a shard
+    between a copy and its reduce, replicated elsewhere).
 
     Under the NaN check each tensor entry records its float32 sum;
     under the conservation check each tensor entry becomes the uniform mean
     of the total outgoing relevance over all counted elements, a fill from
-    a device scalar. Returns a tuple matching ``in_relevances``."""
+    a device scalar; under the mesh both sums run over the world. Returns a
+    tuple matching ``in_relevances``."""
     if check is _NOW:
         check = mode()
+    parallel = check is not None and (check.model is not None
+                                      or check.data is not None)
     if check is not None and check.record is not None:
         check.record.extend((where, r.sum(dtype=torch.float32))
                             for r in in_relevances
                             if isinstance(r, torch.Tensor))
+        if parallel:
+            check.record.groups = (check.model, check.data)
     if check is None or not check.conservation:
         return tuple(None if isinstance(r, torch.Size) else r
                      for r in in_relevances)
-    out_sum = sum(r.float().sum() for r in out_relevances if r is not None)
-    n = sum(r.numel() for r in in_relevances if r is not None)
-    mean = out_sum / n
+    if parallel:
+        mean = _world_fill(in_relevances, out_relevances, check, layout)
+    else:
+        out_sum = sum(_total(r) for r in out_relevances if r is not None)
+        mean = out_sum / sum(r.numel() for r in in_relevances if r is not None)
     return tuple(torch.empty_like(r).copy_(mean)
                  if isinstance(r, torch.Tensor) else None
                  for r in in_relevances)

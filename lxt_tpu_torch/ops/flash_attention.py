@@ -19,15 +19,16 @@ head dim) alone.
 ``flash_bwd_dq`` also computes Δ of its rows from the forward's out and
 writes it out for ``flash_bwd_dkv``: the backward runs no separate Δ pass.
 
-Layout: q ``[B, H, T, D]``, k/v ``[B, Hkv, T, D]`` with ``Hkv`` dividing
-``H``; the kernels read the batch, head and time strides (the last dim must
+Layout: q ``[B, H, Tq, D]``, k/v ``[B, Hkv, Tk, D]`` with ``Hkv`` dividing
+``H`` (Tq and Tk may differ: a chunk of queries against a longer key
+span, as ``lxt_tpu``'s kernels take it); the kernels read the batch, head and time strides (the last dim must
 be contiguous), so head-split views of a projection need no copy. Masks are
 in global positions: ``causal``, a sliding ``window`` (``k > q − window``),
 and per-example ``kv_begin``/``kv_end`` [B] valid-key spans. Query row i
 sits at global position ``q_start`` + i and key row j at ``k_start`` + j
 (both 0 but in a ring step, ``parallel/ring.py``). Query rows with no
-visible key give out 0 and lse −1e30. Optional ``rope`` ``(cos, sin)``
-[T, D] tables rotate q and k (HF rotate-half, in the activation dtype):
+visible key give out 0 and lse −1e30; lse and Δ are ``[B, H, Tq]``.
+Optional ``rope`` ``(cos, sin)`` [T, D] tables (Tq == Tk only) rotate q and k (HF rotate-half, in the activation dtype):
 inside the kernels, except that the Hopper bodies read k (K1,
 ``flash_bwd_dq``) and q (``flash_bwd_dkv``) rotated once per call by
 ``rope_rotate``; the transposed rotation is applied to dq and dk. In bf16
@@ -54,7 +55,7 @@ LOG2E = 1.4426950408889634
 #: launch count of each kernel wrapper; the wrappers add one per launch
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "rope_rotate": 0}
-#: rows per tile in every kernel: CUDA calls need T % TILE == 0
+#: rows per tile in every kernel: CUDA calls need Tq % TILE == Tk % TILE == 0
 TILE = 64
 
 
@@ -130,19 +131,20 @@ PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
 
 
 def visible_pairs(T, window=None, causal=True, kv_begin=None, kv_end=None,
-                  q_start=0, k_start=0):
-    """Number of visible (query, key) pairs of a [T, T] attention, summed
-    over the batch rows of ``kv_begin``/``kv_end`` ([B] or None; None is one
-    unpadded row). Query i (global q_start + i) sees key j (global
-    k_start + j) when j > i − window, kv_begin ≤ j < kv_end and, if causal,
-    j ≤ i, all in global positions (the mask of the kernels)."""
+                  q_start=0, k_start=0, Tk=None):
+    """Number of visible (query, key) pairs of a [T, Tk] attention (Tk None:
+    T), summed over the batch rows of ``kv_begin``/``kv_end`` ([B] or None;
+    None is one unpadded row). Query i (global q_start + i) sees key j
+    (global k_start + j) when j > i − window, kv_begin ≤ j < kv_end and, if
+    causal, j ≤ i, all in global positions (the mask of the kernels)."""
+    Tk = T if Tk is None else Tk
     # each query's visible keys as a span of the call's key rows
     p = torch.arange(T, dtype=torch.int64) + (q_start - k_start)
     lo = (p - window + 1).clamp(min=0) if window is not None else torch.zeros_like(p)
-    hi = p.clamp(max=T - 1) if causal else torch.full_like(p, T - 1)
+    hi = p.clamp(max=Tk - 1) if causal else torch.full_like(p, Tk - 1)
     begins = [0] if kv_begin is None else [int(x) - k_start for x in kv_begin]
-    ends = [T] * len(begins) if kv_end is None else [
-        min(int(x) - k_start, T) for x in kv_end]
+    ends = [Tk] * len(begins) if kv_end is None else [
+        min(int(x) - k_start, Tk) for x in kv_end]
     if len(begins) == 1 and len(ends) > 1:
         begins = begins * len(ends)
     return sum(int((torch.minimum(hi, torch.tensor(e - 1))
@@ -153,20 +155,22 @@ def visible_pairs(T, window=None, causal=True, kv_begin=None, kv_end=None,
 
 def work(name, B, H, Hkv, T, D, itemsize=2, *, window=None, causal=True,
          kv_begin=None, kv_end=None, rope=False, q_start=0, k_start=0,
-         dlse=False):
+         dlse=False, Tk=None):
     """(FLOPs, bytes) one call of kernel ``name`` must spend: each product
     over the visible pairs costs 2·D FLOPs a pair and head, and each input
     is read once and each output written once (``dlse``: flash_bwd_dq also
-    reads the lse cotangent). ``rope_rotate`` is the rotation pass over a
-    [B, H, T, D] tensor (three FLOPs an element)."""
+    reads the lse cotangent). T is the query length and Tk the key length
+    (None: T). ``rope_rotate`` is the rotation pass over a [B, H, T, D]
+    tensor (three FLOPs an element)."""
+    Tk = T if Tk is None else Tk
     act = B * H * T * D * itemsize          # q, do, out, dq
-    kv = B * Hkv * T * D * itemsize         # k, v, dk, dv
+    kv = B * Hkv * Tk * D * itemsize        # k, v, dk, dv
     stat = B * H * T * 4                    # lse, delta (float32)
     tables = 2 * T * D * itemsize if rope else 0
     if name == "rope_rotate":
         return 3 * B * H * T * D, 2 * act + tables
     pairs = visible_pairs(T, window, causal, kv_begin, kv_end, q_start,
-                          k_start)
+                          k_start, Tk)
     if kv_begin is None and kv_end is None:
         pairs *= B
     flops = PRODUCTS[name] * pairs * H * 2 * D
@@ -271,7 +275,8 @@ class _FlashArgs(ctypes.Structure):
             "sin", "kv_begin", "kv_end", "out0", "out1", "lse_out")]
         + [(f"stride{i}", ctypes.c_longlong) for i in range(21)]
         + [(n, ctypes.c_int) for n in (
-            "B", "H", "Hkv", "T", "window", "causal", "q_start", "k_start")]
+            "B", "H", "Hkv", "T", "Tk", "window", "causal", "q_start",
+            "k_start")]
         + [(n, ctypes.c_float) for n in ("scale", "scale_log2")])
 
 
@@ -343,18 +348,19 @@ def _launch(name, q, k, v, *, dout=None, fwd_out=None, lse=None, delta=None,
     if not q.is_cuda:
         raise ValueError(f"{name}: expected CUDA tensors, got {q.device}")
     B, H, T, D = q.shape
-    Hkv = k.shape[1]
+    Hkv, Tk = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {q.dtype} not supported "
                          f"(bfloat16, float16 or float32)")
     if D not in NATIVE_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not in {NATIVE_HEAD_DIMS}")
     acts = [t for t in (q, k, v, dout, fwd_out) if t is not None]
-    if (T % TILE or H % Hkv or tuple(k.shape) != (B, Hkv, T, D)
-            or v.shape != k.shape
+    if (T % TILE or Tk % TILE or H % Hkv or tuple(k.shape) != (B, Hkv, Tk, D)
+            or v.shape != k.shape or (cos is not None and Tk != T)
             or any(t.shape != q.shape for t in acts[3:])):
-        raise ValueError(f"{name}: needs k, v [B, Hkv, T, D] with Hkv dividing "
-                         f"H and T % {TILE} == 0; got q {tuple(q.shape)}, "
+        raise ValueError(f"{name}: needs k, v [B, Hkv, Tk, D] with Hkv dividing "
+                         f"H, Tq % {TILE} == Tk % {TILE} == 0 and Tq == Tk "
+                         f"with rope; got q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     # (tensor, dtype, shape) of every other input the kernel reads densely
     dense = [(lse, torch.float32, (B, H, T)), (delta, torch.float32, (B, H, T)),
@@ -385,7 +391,7 @@ def _launch(name, q, k, v, *, dout=None, fwd_out=None, lse=None, delta=None,
         ptr(q), ptr(k), ptr(v), ptr(dout), ptr(fwd_out), ptr(lse), ptr(delta),
         ptr(dlse), ptr(cos), ptr(sin), ptr(kv_begin), ptr(kv_end),
         ptr(outs[0]) if outs else None, ptr(outs[1]) if len(outs) > 1 else None,
-        ptr(lse_out), *strides, B, H, Hkv, T, window, int(causal),
+        ptr(lse_out), *strides, B, H, Hkv, T, Tk, window, int(causal),
         int(q_start), int(k_start), scale, scale * LOG2E)
     lib = _library()
     with torch.cuda.device(q.device):
@@ -627,9 +633,10 @@ def flash_attention(q, k, v, window=None, *, scale: Optional[float] = None,
                     rope=None):
     """Fused attention softmax(q kᵀ·scale + mask) v with its backward.
 
-    q ``[B, H, T, D]``, k/v ``[B, Hkv, T, D]``. ``window``: sliding-window
+    q ``[B, H, Tq, D]``, k/v ``[B, Hkv, Tk, D]``. ``window``: sliding-window
     size (None = no window). ``kv_begin``/``kv_end``: optional [B] valid-key
-    span. ``rope``: optional ``(cos, sin)`` [T, D] tables applied in-kernel.
+    span. ``rope``: optional ``(cos, sin)`` [T, D] tables applied in-kernel
+    (Tq == Tk only).
     CUDA tensors run K1/K2 (or raise if the call is not supported); CPU
     tensors run the plain versions."""
     _check_device("flash_attention", q)
@@ -651,8 +658,12 @@ def flash_attention_lse(q, k, v, window=None, *, q_start=0, k_start=0,
                         kv_begin=None, kv_end=None,
                         scale: Optional[float] = None, causal: bool = True,
                         rope=None):
-    """Fused attention returning ``(out, lse float32 [B, H, T])`` with a
+    """Fused attention returning ``(out, lse float32 [B, H, Tq])`` with a
     backward exact in both cotangents (``lxt_tpu``'s flash_attention_lse).
+
+    q ``[B, H, Tq, D]``, k/v ``[B, Hkv, Tk, D]``: Tq and Tk may differ (a
+    chunk of queries against a longer key span); on a CUDA device both
+    are multiples of 64.
 
     ``q_start``/``k_start``: the global positions of the call's first query
     and first key, which shift the causal and window comparisons and place
@@ -661,8 +672,8 @@ def flash_attention_lse(q, k, v, window=None, *, q_start=0, k_start=0,
     lse −1e30 (zero weight in a logsumexp merge). The lse cotangent folds
     into Δ as Δ − dlse (∂lse/∂s = p), so merged partial attentions
     differentiate to the relevance of one attention. ``rope`` is refused
-    with nonzero offsets (the tables are indexed by the call's rows). Other
-    arguments as :func:`flash_attention`; Tq == Tk."""
+    with nonzero offsets and when Tq ≠ Tk (the tables are indexed by the
+    call's rows). Other arguments as :func:`flash_attention`."""
     _check_device("flash_attention_lse", q)
     return _call(_Flash, q, k, v, window, scale, causal, kv_begin, kv_end,
                  rope, q_start, k_start)

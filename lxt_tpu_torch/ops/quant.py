@@ -455,44 +455,54 @@ FAMILY_QUANTIZABLE = {
 }
 
 
-def quantize_params(params, bits=8, min_ndim: int = 2,
-                    family: str = None,
-                    skip=("embed", "wte", "wpe", "word_emb", "pos_emb",
-                          "type_emb", "lm_head")):
-    """Quantize the weight matrices of a parameter dict (norms, biases and
-    embeddings stay full precision). ``bits``: 8, 4 or "nf4".
+_ALIASES = {"qwen2": "llama", "qwen3": "llama", "mistral": "llama",
+            "phi3": "llama", "gemma3_text": "gemma3"}
+_SKIP = ("embed", "wte", "wpe", "word_emb", "pos_emb", "type_emb", "lm_head")
 
-    With ``family`` given, exactly the leaves in
-    :data:`FAMILY_QUANTIZABLE` are quantized (qwen2/qwen3/mistral/phi3
-    resolve to the llama spec, gemma3_text to gemma3); otherwise a name
-    heuristic selects matrices and skips norms, biases and embeddings."""
-    aliases = {"qwen2": "llama", "qwen3": "llama", "mistral": "llama",
-               "phi3": "llama", "gemma3_text": "gemma3"}
+
+def eligibility(bits=8, family: str = None, min_ndim: int = 2, skip=_SKIP):
+    """``eligible(name, shape)``: whether :func:`quantize_params` quantizes
+    a leaf of that name and shape (see there); the converters ask it while
+    they stack a leaf, to quantize it one layer slice at a time."""
     if family is not None:
-        family = aliases.get(family, family)
+        family = _ALIASES.get(family, family)
         if family not in FAMILY_QUANTIZABLE:
             raise ValueError(
                 f"no quantizable-leaf spec for family {family!r}; "
                 f"known: {sorted(FAMILY_QUANTIZABLE)}")
     spec = None if family is None else frozenset(FAMILY_QUANTIZABLE[family])
 
-    def eligible(name, leaf):
-        if not hasattr(leaf, "ndim"):
-            return False
+    def eligible(name, shape):
         if spec is not None:
-            return (name in spec and leaf.ndim >= min_ndim
-                    and (bits == 8 or leaf.shape[-2] % 2 == 0))
+            return (name in spec and len(shape) >= min_ndim
+                    and (bits == 8 or shape[-2] % 2 == 0))
         is_norm = "ln" in name or "norm" in name
         # bias vectors stack to 2-D under the layer axis: never quantize
         is_bias = name.startswith("b") or name.endswith("_b") or "bias" in name
-        return (leaf.ndim >= min_ndim and name not in skip and not is_norm
-                and not is_bias and min(leaf.shape[-2:]) >= 16
-                and leaf.shape[-2] % 2 == 0)
+        return (len(shape) >= min_ndim and name not in skip and not is_norm
+                and not is_bias and min(shape[-2:]) >= 16
+                and shape[-2] % 2 == 0)
+
+    return eligible
+
+
+def quantize_params(params, bits=8, min_ndim: int = 2,
+                    family: str = None, skip=_SKIP):
+    """Quantize the weight matrices of a parameter dict (norms, biases and
+    embeddings stay full precision). ``bits``: 8, 4 or "nf4".
+
+    With ``family`` given, exactly the leaves in
+    :data:`FAMILY_QUANTIZABLE` are quantized (qwen2/qwen3/mistral/phi3
+    resolve to the llama spec, gemma3_text to gemma3); otherwise a name
+    heuristic selects matrices and skips norms, biases and embeddings.
+    Leaves that are already quantized pass through."""
+    eligible = eligibility(bits, family, min_ndim, skip)
 
     def walk(tree, path=""):
         if isinstance(tree, dict):
             return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
         name = path.rsplit("/", 1)[-1]
-        return quantize(tree, bits) if eligible(name, tree) else tree
+        return (quantize(tree, bits) if hasattr(tree, "ndim")
+                and eligible(name, tuple(tree.shape)) else tree)
 
     return walk(params)

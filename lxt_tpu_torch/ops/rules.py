@@ -227,6 +227,8 @@ class _LinearRule(torch.autograd.Function):
         ctx.save_for_backward(x, w, b, out)
         ctx.kind, ctx.args, ctx.group = kind, args, group
         ctx.check = check.mode()
+        if group is not None:   # the summed output is replicated
+            tensor_parallel.end_shards()
         return out
 
     @staticmethod
@@ -237,8 +239,14 @@ class _LinearRule(torch.autograd.Function):
         rel_in = _REL_IN[ctx.kind](
             x32, w32, b32, g32 * out32, _row_matmul(ctx.group),
             lambda gg, ww: torch.matmul(gg, ww.T), *ctx.args)
+        # under tensor parallelism: a row-parallel product's x is a shard
+        # and its output replicated; a column-parallel one (after a copy)
+        # sees all of x but its share of the output
+        layout = ("row" if ctx.group is not None else
+                  "column" if ctx.check is not None and ctx.check.sharded else None)
         (grad_x,) = check.maybe_redistribute(
-            (rel_in / _stabilize(x32),), (g,), f"{ctx.kind}_linear", ctx.check)
+            (rel_in / _stabilize(x32),), (g,), f"{ctx.kind}_linear", ctx.check,
+            layout=layout)
         return grad_x.to(x.dtype), None, None, None, None, None
 
 

@@ -34,6 +34,9 @@ import torch.distributed as dist
 
 #: the ``model`` group of the running tensor-parallel call, or None
 _active = [None]
+#: whether the forward is between a :func:`copy` and the :func:`reduce`
+#: (or gather) that ends its block: there the activations are shards
+_sharded = [False]
 
 
 def group():
@@ -51,17 +54,32 @@ def rank(g=None):
     return 0 if g is None else dist.get_rank(g)
 
 
+def sharded():
+    """Whether the forward runs between a :func:`copy` and the reduce that
+    ends its block, where each process holds a shard of the activations
+    (the check mode keeps it for each rule site: ``ops/check.py``)."""
+    return _sharded[0]
+
+
+def end_shards():
+    """Mark the activations replicated again: a row-parallel product that
+    sums its partial outputs itself (``ops/rules._LinearRule``) ends the
+    block as :func:`reduce` does."""
+    _sharded[0] = False
+
+
 @contextlib.contextmanager
 def using(g):
     """Run the block with ``g`` as the tensor-parallel group; a group of
     one process is no tensor parallelism."""
     if g is not None and dist.get_world_size(g) == 1:
         g = None
-    prev, _active[0] = _active[0], g
+    prev, _active[0] = (_active[0], _sharded[0]), g
+    _sharded[0] = False
     try:
         yield
     finally:
-        _active[0] = prev
+        _active[0], _sharded[0] = prev
 
 
 def staged(g, t):
@@ -70,11 +88,12 @@ def staged(g, t):
     return t.is_cuda and dist.get_backend(g) == dist.Backend.GLOO
 
 
-def all_reduce(t, g):
-    """The sum of ``t`` over ``g``, as a new tensor (``t`` is untouched)."""
+def all_reduce(t, g, op=dist.ReduceOp.SUM):
+    """The sum (or ``op``) of ``t`` over ``g``, as a new tensor (``t`` is
+    untouched)."""
     stage = staged(g, t)
     buf = t.detach().cpu() if stage else t.detach().clone()
-    dist.all_reduce(buf, group=g)
+    dist.all_reduce(buf, op=op, group=g)
     return buf.to(t.device) if stage else buf
 
 
@@ -159,20 +178,29 @@ class _GatherLast(torch.autograd.Function):
 def copy(x):
     """Identity forward; the backward sums the gradient over the group."""
     g = _active[0]
-    return x if g is None else _Copy.apply(g, x)
+    if g is None:
+        return x
+    _sharded[0] = True
+    return _Copy.apply(g, x)
 
 
 def reduce(x):
     """The forward sums ``x`` over the group; identity backward."""
     g = _active[0]
-    return x if g is None else _Reduce.apply(g, x)
+    if g is None:
+        return x
+    _sharded[0] = False
+    return _Reduce.apply(g, x)
 
 
 def gather_last(x):
     """Vocabulary-split logits ``[..., V/tp]`` -> ``[..., V]`` on every
     process."""
     g = _active[0]
-    return x if g is None else _GatherLast.apply(g, x)
+    if g is None:
+        return x
+    _sharded[0] = False
+    return _GatherLast.apply(g, x)
 
 
 def embedding(table, ids):
@@ -186,4 +214,5 @@ def embedding(table, ids):
     inside = (local >= 0) & (local < n)
     rows = table[torch.where(inside, local, torch.zeros_like(local))]
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    _sharded[0] = False
     return _Reduce.apply(g, rows)

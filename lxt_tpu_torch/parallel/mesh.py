@@ -347,15 +347,17 @@ def attribute_sharded(target_fn, mesh: DeviceMesh):
     with the whole ``[B, ...]`` embeds; B must divide over ``data``.
     Returns ``(value, relevance [B, ...])`` on every process: the sum of
     the per-rank targets (``select_logit`` sums per-example logits, whose
-    gradients are disjoint) and the gathered maps. The conservation and
-    NaN checks are refused (they run on one process)."""
+    gradients are disjoint) and the gathered maps. Under
+    ``ops.check.conservation_check`` and ``nan_check`` the result is that
+    of one process running the whole batch (``ops/check.py``): every rule
+    site sums over the world, and a NaN raises the same site on every
+    process."""
     from lxt_tpu_torch.attribution import input_relevance
 
     def step(embeds):
-        check.refuse_parallel("attribute_sharded")
-        with model_parallel(mesh):
-            value, rel = input_relevance(target_fn, data_rows(mesh, embeds))
         g = mesh.get_group("data")
+        with model_parallel(mesh), check.data_parallel(g):
+            value, rel = input_relevance(target_fn, data_rows(mesh, embeds))
         if dist.get_world_size(g) > 1:
             value = tensor_parallel.all_reduce(value, g)
         return value, gather_rows(mesh, rel)

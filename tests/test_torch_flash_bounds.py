@@ -106,14 +106,14 @@ OFFSET_MASKS = {
 }
 
 
-def _brute_pairs(T, window, causal, kv_begin, kv_end, q_start, k_start):
+def _brute_pairs(T, window, causal, kv_begin, kv_end, q_start, k_start, Tk=None):
     """The mask counted pair by pair in global positions, summed over the
-    batch rows of the spans."""
+    batch rows of the spans (T queries, Tk keys; Tk None: T)."""
     B = len(kv_begin or kv_end or [0])
     n = 0
     for b in range(B):
         for i in range(q_start, q_start + T):
-            for j in range(k_start, k_start + T):
+            for j in range(k_start, k_start + (T if Tk is None else Tk)):
                 n += ((window is None or j > i - window) and (not causal or j <= i)
                       and (kv_begin is None or j >= kv_begin[b])
                       and (kv_end is None or j < kv_end[b]))
@@ -148,3 +148,44 @@ def test_ring_step_work_is_the_full_square():
     _, plain = tfa.work("flash_bwd_dq", B, H, Hkv, T, D, 2, q_start=T)
     assert moved - plain == B * H * T * 4
     assert tfa.work("flash_fwd", B, H, Hkv, T, D, k_start=T)[0] == 0
+
+
+# calls with a query length other than the key length: (Tq, Tk, window,
+# causal, kv_begin, kv_end, q_start, k_start)
+TK_MASKS = {
+    "chunk_on_cache": (128, 384, None, True, None, None, 256, 0),
+    "keys_start_later": (192, 64, None, True, None, None, 0, 128),
+    "window_chunk": (64, 256, 96, True, None, None, 192, 0),
+    "window_spans": (128, 64, 40, True, [10, 70], [60, 120], 30, 20),
+    "bidirectional_kv_end": (64, 192, None, False, None, [150, 30], 0, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TK_MASKS))
+def test_visible_pairs_at_tq_ne_tk_count_the_mask(name):
+    """visible_pairs and work at Tq ≠ Tk: Tq × the visible keys, against
+    the mask counted pair by pair and the plain versions' mask; k, v (dk,
+    dv) move Tk rows, q, do, out, dq, lse and Δ Tq rows."""
+    Tq, Tk, window, causal, kv_begin, kv_end, q_start, k_start = TK_MASKS[name]
+    want = _brute_pairs(Tq, window, causal, kv_begin, kv_end, q_start, k_start, Tk)
+    got = tfa.visible_pairs(Tq, window, causal, kv_begin, kv_end, q_start,
+                            k_start, Tk=Tk)
+    assert got == want
+    B = len(kv_begin or kv_end or [0])
+    q, k = torch.zeros(B, 1, Tq, 8), torch.zeros(B, 1, Tk, 8)
+    w, _ = tfa._canon(q, k, window, None, q_start, k_start)
+    span = lambda x: None if x is None else torch.tensor(x)  # noqa: E731
+    ok = tfa._allowed(q, k, span(kv_begin), span(kv_end), w, causal, q_start, k_start)
+    assert int(ok.expand(B, 1, Tq, Tk).sum()) == want
+    H, Hkv, D = 4, 2, 64
+    act, kv, stat = B * H * Tq * D * 2, B * Hkv * Tk * D * 2, B * H * Tq * 4
+    tensors = {"flash_fwd": 2 * act + 2 * kv + stat,
+               "flash_bwd_dq": 4 * act + 2 * kv + 2 * stat,
+               "flash_bwd_dkv": 2 * act + 4 * kv + 2 * stat}
+    for kernel, moved in tensors.items():
+        flops, got_moved = tfa.work(kernel, B, H, Hkv, Tq, D, window=window,
+                                    causal=causal, kv_begin=kv_begin,
+                                    kv_end=kv_end, q_start=q_start,
+                                    k_start=k_start, Tk=Tk)
+        assert flops == tfa.PRODUCTS[kernel] * want * H * 2 * D
+        assert got_moved == moved

@@ -91,12 +91,13 @@ HOPPER_CASES = {
 
 def _hopper_inputs(case, seed, dtype=torch.bfloat16):
     B, H, Hkv, T, D, opt = case
+    Tk = opt.get("Tk", T)
     gen = torch.Generator("cuda").manual_seed(seed)
 
     def r(*s):
         return torch.randn(s, generator=gen, device="cuda").to(dtype)
 
-    q, k, v, do = r(B, H, T, D), r(B, Hkv, T, D), r(B, Hkv, T, D), r(B, H, T, D)
+    q, k, v, do = r(B, H, T, D), r(B, Hkv, Tk, D), r(B, Hkv, Tk, D), r(B, H, T, D)
     cos = sin = None
     if opt.get("rope"):
         cos, sin = (t.cuda().to(dtype).contiguous()
@@ -106,8 +107,8 @@ def _hopper_inputs(case, seed, dtype=torch.bfloat16):
         return None if key not in opt else torch.tensor(opt[key], dtype=torch.int32,
                                                         device="cuda")
 
-    args = (cos, sin, span("kv_begin"), span("kv_end"), opt.get("window", T + 2**20),
-            D ** -0.5, opt.get("causal", True))
+    args = (cos, sin, span("kv_begin"), span("kv_end"),
+            opt.get("window", max(T, Tk) + 2**20), D ** -0.5, opt.get("causal", True))
     return q, k, v, do, args
 
 
@@ -164,6 +165,31 @@ def test_head_dim_256_windows_match_plain_versions(name, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     _assert_match_plain_versions(*_hopper_inputs(D256_CASES[name], seed=len(name),
                                                  dtype=dtype))
+
+
+# a query length other than the key length (opt "Tk"), at global offsets
+TK_CASES = {
+    "chunk_on_cache": {"Tk": 704, "q_start": 448},
+    "keys_start_later_window": {"Tk": 192, "k_start": 128, "window": 100},
+    "bidirectional_kv_end": {"Tk": 384, "causal": False, "kv_end": [300, 64]},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("name", sorted(TK_CASES))
+def test_kernels_at_tq_ne_tk_match_plain_versions(name, D, dtype):
+    """Tq 256 against Tk keys through every body (bf16: the Hopper ones),
+    with an lse cotangent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = TK_CASES[name]
+    q, k, v, do, args = _hopper_inputs((2, 4, 2, 256, D, opt), seed=D, dtype=dtype)
+    dlse = torch.randn(q.shape[:3], device="cuda")
+    _assert_match_plain_versions(q, k, v, do, args, dlse=dlse,
+                                 q_start=opt.get("q_start", 0),
+                                 k_start=opt.get("k_start", 0))
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])

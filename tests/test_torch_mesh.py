@@ -23,7 +23,16 @@ scales equal lxt_tpu's bit for bit):
 - Mixtral at ep 2 (ragged and dense mixtures) against lxt_tpu;
 - a config whose kv heads do not divide over tp is refused (local heads);
 - sp 2 × tp 2 (a ``("sp", "model")`` mesh) against lxt_tpu's
-  ``attribute_sequence_parallel`` with ``param_shardings`` on a 2 × 2 mesh.
+  ``attribute_sequence_parallel`` with ``param_shardings`` on a 2 × 2 mesh;
+- the conservation and NaN checks under ``attribute_sharded`` at dp 2 × tp
+  2: the Llama under a gamma composite and the ViT under ``with_gamma``
+  give the gathered input relevance and ``conservation_error`` of the
+  port's single process, and a NaN in one process's head shard raises the
+  same site on all four; the ring and the pipeline driver still refuse
+  both checks. The Llama's conservation run is also held against
+  lxt_tpu's ``attribute_sharded`` under its conservation check on
+  ``make_mesh(data=4, model=2)`` (relevance within 2e-5 of its largest
+  value: lxt_tpu's own sharded and single-device maps differ by 1.2e-5).
 
 Tolerances: values rtol 1e-5, relevance atol 1e-4 (sp × tp 2e-4, the
 float64 gamma map 1e-8), as tests/test_parallel.py. jax is imported inside
@@ -140,34 +149,88 @@ def _refusal(fn):
 
 
 def _check_refusals(mesh, case):
-    """The conservation and NaN checks under the mesh: attribute_sharded
-    (dp x tp), a forward under the tensor-parallel group, the ring and the
-    pipeline driver each refuse, on every process alike (the cases after
-    these run in step)."""
+    """The conservation and NaN checks under the ring and the pipeline
+    driver: each refuses, on every process alike (the cases after these
+    run in step)."""
     from lxt_tpu_torch.ops.check import conservation_check, nan_check
     from lxt_tpu_torch.parallel.pipeline_parallel import PipelineDriver
     cfg = tllama.LlamaConfig(**case["cfg"])
     params = params_from_numpy(case["params"], device="cpu")
-    local, _ = shard_params(params, family_param_shardings("llama", params, mesh))
-    ids = torch.from_numpy(case["inputs"])
-    e = tllama.embed(params, ids)
-    with model_parallel(mesh):
-        e_local = tllama.embed(local, ids)
-    step = attribute_sharded(_port_forward("llama", local, cfg, lxt_tpu_torch.attnlrp, {}),
-                             mesh)
+    e = tllama.embed(params, torch.from_numpy(case["inputs"]))
     out = []
     for check in (conservation_check, nan_check):
         with check():
-            out.append(_refusal(lambda: step(e_local)))
-            with model_parallel(mesh):
-                out.append(_refusal(lambda: tllama.forward(
-                    local, cfg, e_local, lxt_tpu_torch.attnlrp)))
             out.append(_refusal(lambda: attribute_sequence_parallel(
                 tllama.forward, params, cfg, e, lxt_tpu_torch.attnlrp,
                 group=mesh.get_group("data"))))
             out.append(_refusal(lambda: PipelineDriver(mesh.get_group("data"))(
                 None, e, cfg.num_layers, False)))
     return out
+
+
+def _check_composite(family):
+    """The explicit-rule composite of a family's checks: gamma at every
+    linear (and conv) site."""
+    base = getattr(lxt_tpu_torch, _COMPOSITE.get(family, "attnlrp"))
+    return base.with_gamma(conv_gamma=0.25 if family in ("vit", "siglip") else None,
+                           linear_gamma=0.25)
+
+
+def _checked_runs(mesh, case, dtype=torch.float32, poison=False):
+    """One family's conservation run at dp 2 x tp 2 (Mixtral: dp 2 x ep 2)
+    and, on rank 0, on one process with the whole batch: ``(value,
+    relevance, conservation error)`` each. ``poison``: the NaN check
+    instead, a NaN written into one element of global rank 1's head shard;
+    returns the message every rank raised (gathered)."""
+    import torch.distributed as dist
+    from lxt_tpu_torch.ops.check import conservation_check, conservation_error, nan_check
+    family = case["family"]
+    cfg = _PORT[family][1](**case["cfg"])
+    params = params_from_numpy(case["params"], device="cpu", dtype=dtype)
+    comp = _check_composite(family)
+    shardings = (mixtral_param_shardings(mesh) if family == "mixtral"
+                 else family_param_shardings(family, params, mesh))
+    local, _ = shard_params(params, shardings)
+    with model_parallel(mesh):
+        x = _port_inputs(family, local, cfg, case["inputs"])
+    kw = {k: data_rows(mesh, torch.from_numpy(v)) for k, v in case.get("kw", {}).items()}
+    step = attribute_sharded(_port_forward(family, local, cfg, comp, kw), mesh)
+    if poison:
+        if dist.get_rank() == 1:
+            local["lm_head"][0, 0] = float("nan")
+        msg = None
+        try:
+            with nan_check():
+                step(x)
+        except RuntimeError as e:
+            msg = str(e)
+        msgs = [None] * dist.get_world_size()
+        dist.all_gather_object(msgs, msg)
+        return msgs
+    with conservation_check():
+        value, rel = step(x)
+    out = {"mesh": (float(value), rel.numpy(), float(conservation_error(rel, value)))}
+    if dist.get_rank() == 0:
+        whole = _port_inputs(family, params, cfg, case["inputs"])
+        kw = {k: torch.from_numpy(v) for k, v in case.get("kw", {}).items()}
+        with conservation_check():
+            value, rel = lxt_tpu_torch.input_relevance(
+                _port_forward(family, params, cfg, comp, kw), whole)
+        out["single"] = (float(value), rel.numpy(),
+                         float(conservation_error(rel, value)))
+    return out
+
+
+#: the cases whose checks are held at dp 2 x tp 2: every tensor-parallel
+#: family, Mixtral at ep 2 and the NF4 Llama
+_CHECKED = ("llama", "gemma3", "gpt2", "bert", "siglip", "vit", "mixtral", "quant_nf4")
+#: the dense Llama and the ViT are held in float32; the other cases in
+#: float64, where the check sums in float64 too, so that the
+#: 1e-6 bar sees the fill alone and not float32's order of summation (in
+#: float32 Gemma-3's relevance of ~550 parts by 11 ulp, and Mixtral's and
+#: the NF4 Llama's conservation_error of ~76 and ~115 by 2 and 1)
+_CHECK_DTYPE = {f: torch.float64 for f in ("gemma3", "gpt2", "bert", "siglip", "mixtral",
+                                           "quant_nf4")}
 
 
 def _mesh_rank(rank, world, cases):
@@ -182,6 +245,10 @@ def _mesh_rank(rank, world, cases):
                                                           device="cpu"), mesh)))
     out["one_kv_head"] = _refusal(lambda: _tp_case(mesh, cases["one_kv_head_case"]))
     out["check_refusals"] = _check_refusals(mesh, cases["llama"])
+    for name in _CHECKED:
+        out[f"checked_{name}"] = _checked_runs(
+            mesh, cases[name], _CHECK_DTYPE.get(name, torch.float32))
+    out["nan_llama"] = _checked_runs(mesh, cases["llama"], poison=True)
     # sp x tp on a ("sp", "model") mesh of the same four processes
     from torch.distributed.device_mesh import init_device_mesh
     sp = cases["sp_tp"]
@@ -424,19 +491,50 @@ def test_nf4_split_off_its_blocks_is_refused(run):
 
 
 def test_check_modes_are_refused_under_the_mesh(run):
-    """The conservation and NaN checks run on one process: split over
-    processes, a row-parallel rule site would pass on tp times its
-    relevance and each process would test only its own shard for NaNs.
-    dp x tp, a tensor-parallel forward, the ring and the pipeline driver
-    refuse both alike on every process."""
+    """The ring and the pipeline driver refuse the conservation and the NaN
+    check alike on every process: their rule sites see one ring step's or
+    one microbatch's relevance. (attribute_sharded and a tensor-parallel
+    forward run both checks: the tests below.)"""
     _, got = run
-    where = ["attribute_sharded", "tensor parallelism", "sequence parallelism",
-             "pipeline parallelism"] * 2
+    where = ["sequence parallelism", "pipeline parallelism"] * 2
     assert len(got["check_refusals"]) == len(where)
     for msg, what in zip(got["check_refusals"], where):
         assert msg is not None and msg.startswith(
-            "the conservation and NaN checks run on one process"), msg
+            "the conservation and NaN checks do not run under"), msg
         assert what in msg, (msg, what)
+
+
+@pytest.mark.parametrize("name", _CHECKED)
+def test_conservation_check_dp2_tp2_matches_one_process(run, name):
+    """Under conservation_check at dp 2 x tp 2 every rule site sums its
+    incoming relevance and counts its inputs over the world (a shard over
+    model adds up, a replicated tensor counts once, a column-parallel
+    product's input fills its share): the gathered input relevance and
+    conservation_error are those of one process running the whole batch
+    (each tensor-parallel family, Mixtral at ep 2 and the NF4 Llama, under
+    gamma at every linear and conv site)."""
+    _, got = run
+    res = got[f"checked_{name}"]
+    (v_mesh, r_mesh, e_mesh), (v_one, r_one, e_one) = res["mesh"], res["single"]
+    np.testing.assert_allclose(v_mesh, v_one, rtol=1e-6)
+    assert r_mesh.shape == r_one.shape
+    np.testing.assert_allclose(r_mesh, r_one, rtol=0,
+                               atol=1e-6 * max(1.0, np.abs(r_one).max()))
+    np.testing.assert_allclose(e_mesh, e_one, rtol=0, atol=1e-6)
+
+
+def test_nan_check_dp2_tp2_raises_the_same_site_on_every_rank(run):
+    """A NaN in one process's head shard: that process's first non-finite
+    site is the head's rule, the other model rank's comes later (after the
+    copy's all-reduce) and the other data rank's never. The flags are
+    reduced over the world before the one host read, so all four raise
+    the head's site, and none waits in a collective another has left."""
+    _, got = run
+    msgs = got["nan_llama"]
+    assert len(msgs) == 4 and all(m is not None for m in msgs), msgs
+    assert len(set(msgs)) == 1, msgs
+    assert msgs[0].startswith("NaN/Inf relevance at rule backward: gamma_linear "
+                              "(site 1 of "), msgs[0]
 
 
 def test_kv_heads_must_divide_over_tp(run):
@@ -476,3 +574,32 @@ def test_sp2_tp2_matches_lxt_tpu(run):
         params, cfg, x, lxt_tpu.attnlrp, attn_impl="einsum").logits), e)
     _check(got["sp_tp"], (float(single[0]), np.asarray(single[1])),
            atol=SPTP_ATOL, what="sp x tp single")
+
+
+def test_conservation_check_dp2_tp2_matches_lxt_tpu_attribute_sharded(run):
+    """lxt_tpu's attribute_sharded is one GSPMD program over global arrays,
+    so its conservation check sums over the whole batch: the port's dp 2 x
+    tp 2 run gives its value, map and conservation_error."""
+    import jax.numpy as jnp
+    import lxt_tpu
+    from lxt_tpu.attribution import select_logit
+    from lxt_tpu.ops.check import conservation_check as jconservation
+    from lxt_tpu.ops.check import conservation_error as jerror
+    from lxt_tpu.parallel import (attribute_sharded as jsharded,
+                                  llama_param_shardings, make_mesh as jmesh,
+                                  shard_params as jshard)
+    cases, got = run
+    case = cases["llama"]
+    cfg, jl = case["jcfg"], _jax_modules()["llama"]
+    params = _jax_params(case["params"])
+    sharded, _ = jshard(params, llama_param_shardings(jmesh(data=4, model=2)))
+    comp = lxt_tpu.attnlrp.with_gamma(linear_gamma=0.25)
+    e = jl.embed(params, jnp.asarray(case["inputs"]))
+    with jconservation():
+        value, rel = jsharded(lambda x: select_logit(jl.forward(
+            sharded, cfg, x, comp).logits), jmesh(data=4, model=2))(e)
+    want = np.asarray(rel)
+    v_mesh, r_mesh, e_mesh = got["checked_llama"]["mesh"]
+    np.testing.assert_allclose(v_mesh, float(value), rtol=VAL_RTOL)
+    np.testing.assert_allclose(r_mesh, want, rtol=0, atol=2e-5 * np.abs(want).max())
+    np.testing.assert_allclose(e_mesh, float(jerror(rel, value)), rtol=2e-5)

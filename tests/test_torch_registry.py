@@ -7,7 +7,7 @@ safetensors: plain, bitsandbytes-NF4-serialized and bitsandbytes-8-bit.
 scales, and logits and input relevance (also under ``kv_begin`` and
 ``attention_mask`` left padding) within normalized L2 1e-5 in float32. The
 port reads ``config.json`` with json alone: for every key it leaves out it
-must give what transformers' ``AutoConfig`` gives. The numpy safetensors
+must give what transformers' ``AutoConfig`` gives. The native safetensors
 reader must match ``lxt_tpu.io.load_safetensors``. Tiny Gemma-3 text
 checkpoints (a ``gemma3_text`` one and an image + text ``gemma3`` one
 holding only its language model) load as lxt_tpu loads them.
