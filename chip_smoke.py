@@ -3773,7 +3773,7 @@ def kernel_census(fn):
         torch.cuda.synchronize()
     census, dtoh = {}, 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         if "DtoH" in e.name or "Device -> Pageable" in e.name:
             dtoh += 1

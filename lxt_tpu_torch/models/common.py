@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from lxt_tpu_torch import tracing
 from lxt_tpu_torch.ops import tensor_parallel
 from lxt_tpu_torch.ops.quant import QuantizedTensor, quantize
 
@@ -197,14 +198,25 @@ def run_layers(layer_fn, h, num_layers, remat, keep_hidden=False,
                              "layer_driver")
         return driver(layer_fn, h, num_layers, remat), None
     hiddens = []
+    layer = _spanned(layer_fn)
     for i in range(num_layers):
         if remat:
-            h = checkpoint(layer_fn, h, i, use_reentrant=False)
+            h = checkpoint(layer, h, i, use_reentrant=False)
         else:
-            h = layer_fn(h, i)
+            h = layer(h, i)
         if keep_hidden:
             hiddens.append(h)
     return h, (torch.stack(hiddens) if keep_hidden else None)
+
+
+def _spanned(layer_fn):
+    """``layer_fn`` inside the span ``lxt.layer``, or ``lxt.layer.recompute``
+    when autograd's engine runs it (remat's recompute in the backward)."""
+    def layer(h, i):
+        recompute = torch._C._current_graph_task_id() >= 0
+        with tracing.span("lxt.layer.recompute" if recompute else "lxt.layer"):
+            return layer_fn(h, i)
+    return layer
 
 
 def layer_probes(probes):

@@ -26,7 +26,9 @@ at the routing weight × expert output product. The top-K selection is a
 piecewise-constant mask with no gradient.
 
 ``routing`` counts, per block run, the host reads of the group sizes and
-the non-empty groups (each one expert's three products).
+the non-empty groups (each one expert's three products). The block runs
+inside the span ``lxt.moe`` and its read inside ``lxt.moe.read``
+(``tracing``).
 
 Expert parallelism (``parallel.mixtral_param_shardings``: the expert axis
 split over the ``model`` group): each process holds E/ep contiguous
@@ -43,7 +45,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from lxt_tpu_torch import composites
+from lxt_tpu_torch import composites, tracing
 from lxt_tpu_torch.models import common
 from lxt_tpu_torch.models.common import ACTIVATIONS, ModelOutputs
 from lxt_tpu_torch.models.llama import _sliding_window_spec, _torch_dtype, forward_head
@@ -237,8 +239,10 @@ def moe_block_ragged(x, lp, cfg: MixtralConfig, composite, act_fn):
     order = torch.argsort(expert_flat, stable=True)
     # one host read per block: torch.bincount would first read the ids'
     # minimum and maximum to the host, two more synchronisations
-    sizes = torch.zeros(E, dtype=expert_flat.dtype, device=x.device).scatter_add_(
-        0, expert_flat, torch.ones_like(expert_flat)).tolist()
+    counts = torch.zeros(E, dtype=expert_flat.dtype, device=x.device).scatter_add_(
+        0, expert_flat, torch.ones_like(expert_flat))
+    with tracing.span("lxt.moe.read"):
+        sizes = counts.tolist()
     routing["host_reads"] += 1
     first, count = _local_experts(lp, cfg)
     if count < E:
@@ -285,14 +289,15 @@ def _ragged_local(xf, lp, composite, act_fn, top_w, order, sizes, lo, K):
 def moe_block(x, lp, cfg: MixtralConfig, composite, act_fn):
     """The mixture (``cfg.moe_impl``). Under expert parallelism its input
     takes a ``copy`` and its output a ``reduce`` over the group."""
-    split = _local_experts(lp, cfg)[1] < cfg.num_experts
-    if split:
-        x = tensor_parallel.copy(x)
-    if cfg.moe_impl == "ragged":
-        out = moe_block_ragged(x, lp, cfg, composite, act_fn)
-    else:
-        out = moe_block_dense(x, lp, cfg, composite, act_fn)
-    return tensor_parallel.reduce(out) if split else out
+    with tracing.span("lxt.moe"):
+        split = _local_experts(lp, cfg)[1] < cfg.num_experts
+        if split:
+            x = tensor_parallel.copy(x)
+        if cfg.moe_impl == "ragged":
+            out = moe_block_ragged(x, lp, cfg, composite, act_fn)
+        else:
+            out = moe_block_dense(x, lp, cfg, composite, act_fn)
+        return tensor_parallel.reduce(out) if split else out
 
 
 def forward(

@@ -12,6 +12,11 @@ length up (128 on a CUDA device) so that the batch stays on the kernels.
 PyTorch runs eagerly, so ``lxt_tpu``'s program cache (``jit_cache_size``)
 has no counterpart.
 
+The host's own work of a call runs inside the spans
+``lxt.pipeline.encode`` and ``lxt.pipeline.finish`` (``tracing``);
+``counters`` counts the positions encoded and the prompts' tokens among
+them.
+
 Scale-out: with ``mesh=`` (``parallel.make_mesh``) every process of the
 mesh calls the pipeline with the same prompts. The batch is rounded up to
 the size of the ``data`` dimension (fully padded dummy rows), each process
@@ -33,11 +38,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from lxt_tpu_torch import composites
+from lxt_tpu_torch import composites, tracing
 from lxt_tpu_torch.attribution import (input_relevance, multi_site_relevance,
                                       topk_relevance)
 from lxt_tpu_torch.models.registry import CLASSIFIERS
 from lxt_tpu_torch.ops import tensor_parallel
+
+#: positions of the batches encoded (B x T after rounding, dummy rows
+#: included) and the prompts' own tokens among them;
+#: :func:`reset_counters` zeroes them
+counters = {"positions": 0, "useful_positions": 0}
+
+
+def reset_counters():
+    for name in counters:
+        counters[name] = 0
 
 
 def _sharded_model(model, mesh):
@@ -157,24 +172,27 @@ class AttributionPipeline:
         return pad
 
     def _encode(self, prompts):
-        # items may be pre-tokenized id lists (the serving layer tokenizes
-        # once for its length guard and passes the ids through)
-        seqs = [self.tokenizer(p)["input_ids"] if isinstance(p, str)
-                else list(p) for p in prompts]
-        T = max(len(s) for s in seqs)
-        m = self.pad_multiple
-        T = -(-T // m) * m
-        B = len(seqs)
-        if self.bucket_batch:
-            B = 1 << (B - 1).bit_length()   # next power of two
-        n = self._data()[1]
-        B = -(-B // n) * n                  # round the batch up to the data axis
-        ids = np.full((B, T), self._pad_id(), np.int64)
-        kv_begin = np.full((B,), T, np.int32)  # dummy rows: fully padded
-        for i, s in enumerate(seqs):
-            ids[i, T - len(s):] = s            # left padding
-            kv_begin[i] = T - len(s)
-        return ids, kv_begin, seqs
+        with tracing.span("lxt.pipeline.encode"):
+            # items may be pre-tokenized id lists (the serving layer tokenizes
+            # once for its length guard and passes the ids through)
+            seqs = [self.tokenizer(p)["input_ids"] if isinstance(p, str)
+                    else list(p) for p in prompts]
+            T = max(len(s) for s in seqs)
+            m = self.pad_multiple
+            T = -(-T // m) * m
+            B = len(seqs)
+            if self.bucket_batch:
+                B = 1 << (B - 1).bit_length()   # next power of two
+            n = self._data()[1]
+            B = -(-B // n) * n                  # round the batch up to the data axis
+            ids = np.full((B, T), self._pad_id(), np.int64)
+            kv_begin = np.full((B,), T, np.int32)  # dummy rows: fully padded
+            for i, s in enumerate(seqs):
+                ids[i, T - len(s):] = s            # left padding
+                kv_begin[i] = T - len(s)
+            counters["positions"] += B * T
+            counters["useful_positions"] += sum(len(s) for s in seqs)
+            return ids, kv_begin, seqs
 
     def _tokens_of(self, s):
         return (self.tokenizer.convert_ids_to_tokens(s)
@@ -312,24 +330,24 @@ class AttributionPipeline:
             raise ValueError(f"topk must be >= 1, got {topk}")
         ids, kv_begin, seqs = self._encode(prompts)
         toks, value, rel = self._attribute(ids, kv_begin, composite, topk)
-
-        out = []
-        for i, s in enumerate(seqs):
-            tokens = self._tokens_of(s)
-            lo = ids.shape[1] - len(s)
-            if topk > 1:
-                cands = []
-                for k in range(topk):
-                    r = rel[k, i, lo:]
-                    tid = int(toks[k, i])
-                    cands.append(Heatmap(
-                        tokens=tokens, relevance=_normalized(r),
-                        raw_relevance=r, value=float(value[k, i]),
-                        target_token=self._tokens_of([tid])[0],
-                        target_token_id=tid))
-                out.append(cands)
-            else:
-                r = rel[i, lo:]
-                out.append(Heatmap(tokens=tokens, relevance=_normalized(r),
-                                   raw_relevance=r, value=float(value[i])))
+        with tracing.span("lxt.pipeline.finish"):
+            out = []
+            for i, s in enumerate(seqs):
+                tokens = self._tokens_of(s)
+                lo = ids.shape[1] - len(s)
+                if topk > 1:
+                    cands = []
+                    for k in range(topk):
+                        r = rel[k, i, lo:]
+                        tid = int(toks[k, i])
+                        cands.append(Heatmap(
+                            tokens=tokens, relevance=_normalized(r),
+                            raw_relevance=r, value=float(value[k, i]),
+                            target_token=self._tokens_of([tid])[0],
+                            target_token_id=tid))
+                    out.append(cands)
+                else:
+                    r = rel[i, lo:]
+                    out.append(Heatmap(tokens=tokens, relevance=_normalized(r),
+                                       raw_relevance=r, value=float(value[i])))
         return out

@@ -49,8 +49,10 @@ import threading
 import time
 from typing import Optional
 
+from lxt_tpu_torch import tracing
 from lxt_tpu_torch.pipeline import (AttributionPipeline, Heatmap,
                                     ResponseAttribution)
+from lxt_tpu_torch.pipeline import counters as pipeline_counters
 
 
 @dataclasses.dataclass
@@ -361,7 +363,10 @@ def http_server(server: AttributionServer, host: str = "127.0.0.1",
         Same 400/503/504 semantics; ``max_new_tokens`` is capped by
         ``max_respond_tokens``.
       - ``GET /healthz`` -> ``{"ok": true, "served": N, "rejected": N,
-        "batches": [...]}`` (the last 32 coalesced batch sizes).
+        "batches": [...], "spans": {...}, "pipeline": {...}}``: the last 32
+        coalesced batch sizes, the totals of the program's spans
+        (``tracing.spans``) and the pipeline's padded and useful positions
+        (``pipeline.counters``), all since the process started.
 
     Returns the ``http.server.ThreadingHTTPServer`` (call
     ``serve_forever()``, typically in a thread, then ``shutdown()`` and
@@ -390,6 +395,8 @@ def http_server(server: AttributionServer, host: str = "127.0.0.1",
                     "served": server.requests_served,
                     "rejected": server.requests_rejected,
                     "batches": list(server.batch_sizes)[-32:],
+                    "spans": dict(tracing.spans),
+                    "pipeline": dict(pipeline_counters),
                 })
             else:
                 self._reply(404, {"error": "not found"})

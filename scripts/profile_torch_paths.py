@@ -131,7 +131,10 @@ def profile(run, label, card, expert_width=None, host_reads=False, reps=3,
                                 record_shapes=expert_width is not None) as prof:
         run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the program's spans (``lxt_tpu_torch.tracing``) are device-side
+    # annotations too, spanning whole layers: no operations
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     if not spans:
         raise SystemExit(f"{label}: the profiler saw no device kernels")
