@@ -9,19 +9,26 @@ kernels stay engaged (padded key blocks are skipped in-kernel) and rope
 positions follow the HF convention. ``pad_multiple`` rounds the padded
 length up (128 on a CUDA device) so that the batch stays on the kernels.
 
+The model runs a batch of mixed lengths as length groups
+(:func:`length_groups`): each group's prompts at that group's padded
+length, not the longest prompt's, all in the one forward and backward of
+the call. Positions are relative to ``kv_begin``, so every token keeps its
+position, and the maps are the one-batch maps.
+
 PyTorch runs eagerly, so ``lxt_tpu``'s program cache (``jit_cache_size``)
 has no counterpart.
 
 The host's own work of a call runs inside the spans
 ``lxt.pipeline.encode`` and ``lxt.pipeline.finish`` (``tracing``);
-``counters`` counts the positions encoded and the prompts' tokens among
-them.
+``counters`` counts the positions the model runs, the prompts' tokens
+among them and the length groups.
 
 Scale-out: with ``mesh=`` (``parallel.make_mesh``) every process of the
 mesh calls the pipeline with the same prompts. The batch is rounded up to
 the size of the ``data`` dimension (fully padded dummy rows), each process
 explains (or generates and explains) its rows, and the results are gathered
-over ``data``, so every process returns every prompt's. A ``model``
+over ``data``, so every process returns every prompt's (as one length
+group: the rows are dealt to processes before the model runs). A ``model``
 dimension of more than one process runs the model tensor-parallel: the
 pipeline keeps this process's shards of the weights
 (``parallel.model_param_shardings``; Mixtral: expert parallelism). A
@@ -41,18 +48,62 @@ import torch.distributed as dist
 from lxt_tpu_torch import composites, tracing
 from lxt_tpu_torch.attribution import (input_relevance, multi_site_relevance,
                                       topk_relevance)
+from lxt_tpu_torch.models.common import ModelOutputs
 from lxt_tpu_torch.models.registry import CLASSIFIERS
 from lxt_tpu_torch.ops import tensor_parallel
 
-#: positions of the batches encoded (B x T after rounding, dummy rows
-#: included) and the prompts' own tokens among them;
-#: :func:`reset_counters` zeroes them
-counters = {"positions": 0, "useful_positions": 0}
+#: positions the model runs (Σ rows × length over the length groups, dummy
+#: rows included), the prompts' own tokens among them, and the length
+#: groups run; :func:`reset_counters` zeroes them
+counters = {"positions": 0, "useful_positions": 0, "groups": 0}
+
+#: what one more length group costs, in positions: the host's launches of
+#: one more forward and backward, priced as positions the model runs. On an
+#: H100 a Mistral-7B pass costs the host ~0.33 s, of which ~0.15 s shows
+#: per extra group: the device time of ~1700 positions
+GROUP_COST = 2048
 
 
 def reset_counters():
     for name in counters:
         counters[name] = 0
+
+
+def length_groups(lengths, multiple, bucket=False):
+    """A batch's rows as length groups, ``[(rows, T, size)]``: each group's
+    rows (indices into ``lengths``, shortest first), its length (its
+    longest row's, rounded up to ``multiple``) and its batch (its row
+    count, rounded up to a power of two with ``bucket``).
+
+    Of the contiguous runs of the rows sorted by length, the partition that
+    minimises Σ size × T + ``GROUP_COST`` × groups, exactly: a dynamic
+    programme over the cut points, O(B²). A dummy row (length 0) counts
+    as one token."""
+    order = np.argsort(np.asarray(lengths), kind="stable")
+    padded = [-(-max(int(lengths[i]), 1) // multiple) * multiple for i in order]
+
+    def size(n):
+        return 1 << (n - 1).bit_length() if bucket else n
+
+    best, cut = [0], [0]
+    for j in range(1, len(order) + 1):
+        cost, i = min((best[i] + size(j - i) * padded[j - 1] + GROUP_COST, i)
+                      for i in range(j))
+        best.append(cost)
+        cut.append(i)
+    groups, j = [], len(order)
+    while j:
+        i = cut[j]
+        groups.append((order[i:j], padded[j - 1], size(j - i)))
+        j = i
+    return groups[::-1]
+
+
+def _count(groups, ids, kv_begin):
+    """Count a call's groups, and the tokens of its batch ``ids``."""
+    counters["positions"] += sum(size * T for _, T, size in groups)
+    counters["useful_positions"] += int((ids.shape[1] - kv_begin).sum())
+    counters["groups"] += len(groups)
 
 
 def _sharded_model(model, mesh):
@@ -111,11 +162,13 @@ class AttributionPipeline:
     else 1: ``ops.attention.attention`` takes the flash kernels only when
     the sequence length is a multiple of 128, so a batch padded to any
     other length would run the einsum path on the card.
-    ``bucket_batch`` rounds the batch up to the next power of two with
-    fully padded dummy rows (``kv_begin = T``); the results are unchanged.
+    ``bucket_batch`` rounds the batch, and each length group's, up to the
+    next power of two with fully padded dummy rows (``kv_begin = T``); the
+    results are unchanged.
     ``mesh``: a ``(data, model)`` mesh (see the module docstring); every
     process of it calls the pipeline alike. ``model`` is then the whole
     model, of which a tensor-parallel mesh keeps this process's shards.
+    Under a mesh a call runs as one length group.
     """
 
     def __init__(self, model, tokenizer, composite=None, mesh=None,
@@ -190,8 +243,6 @@ class AttributionPipeline:
             for i, s in enumerate(seqs):
                 ids[i, T - len(s):] = s            # left padding
                 kv_begin[i] = T - len(s)
-            counters["positions"] += B * T
-            counters["useful_positions"] += sum(len(s) for s in seqs)
             return ids, kv_begin, seqs
 
     def _tokens_of(self, s):
@@ -229,6 +280,7 @@ class AttributionPipeline:
             raise ValueError(f"top_k must be in [1, {vocab}], got {top_k}")
         ids, kv_begin, seqs = self._encode(prompts)
         T0 = ids.shape[1]
+        _count(self._whole(ids), ids, kv_begin)
         sample_kw = {}
         if temperature > 0:
             gens = [torch.Generator(device=self.model.device).manual_seed(
@@ -291,15 +343,62 @@ class AttributionPipeline:
             list(range(T0 - 1, T - 1)), out[:, T0:].T, contrastive=contrastive)
         return values, rel[..., :T]
 
+    @staticmethod
+    def _whole(ids):
+        """The batch ``ids [B, T]`` as one length group."""
+        B, T = ids.shape
+        return [(np.arange(B), T, B)]
+
+    def _groups(self, ids, kv_begin):
+        """The length groups a call runs: :func:`length_groups` of its
+        rows, or the whole batch under a mesh."""
+        if self.mesh is not None:
+            return self._whole(ids)
+        return length_groups(ids.shape[1] - kv_begin, self.pad_multiple,
+                             self.bucket_batch)
+
+    def _grouped_run(self, composite, kv_begin, groups, T):
+        """``run(embeds [B, T, D], **more)`` that runs each length group
+        apart: its rows' last ``T_g`` columns (the padding is on the left)
+        with ``kv_begin`` shifted by ``T - T_g``, so every token keeps its
+        position, and dummy rows (``kv_begin = T_g``) up to its size. The
+        logits come back in the rows' order. Nothing here waits for the
+        device, so the host launches a group while the device runs the one
+        before."""
+        device = self.model.device
+        order = np.concatenate([rows for rows, _, _ in groups])
+        inverse = torch.as_tensor(np.argsort(order), device=device)
+        parts = []
+        for rows, Tg, size in groups:
+            kv = np.full(size, Tg, np.int32)
+            kv[:len(rows)] = kv_begin[rows] - (T - Tg)
+            parts.append((torch.as_tensor(rows, device=device), T - Tg,
+                          size - len(rows), self.model._forward(composite, kv)))
+
+        def run(e, **more):
+            logits = []
+            for rows, cut, fill, run_g in parts:
+                x = e[:, cut:].index_select(0, rows)
+                if fill:
+                    x = torch.cat([x, x[:1].detach().expand(fill, -1, -1)])
+                logits.append(run_g(x, **more).logits[:len(rows)])
+            return ModelOutputs(torch.cat(logits).index_select(0, inverse))
+        return run
+
     def _attribute(self, ids, kv_begin, composite, topk):
         """One forward with logits only at the last position, then one
         backward (``topk == 1``: the per-example max logits, summed, whose
-        gradients are disjoint) or ``topk`` pulls of its graph. Returns
+        gradients are disjoint) or ``topk`` pulls of its graph, over the
+        call's length groups (:meth:`_groups`). Returns
         ``(tokens [K, B] or None, values, relevance)`` on the host (with a
         mesh: this process's rows explained, every row returned)."""
+        groups = self._groups(ids, kv_begin)
+        _count(groups, ids, kv_begin)
         ids, kv_begin = self._rows(ids, kv_begin)
         with self._parallel():
-            row = self.model._row(self.model._forward(composite, kv_begin), -1)
+            run = (self.model._forward(composite, kv_begin) if len(groups) == 1
+                   else self._grouped_run(composite, kv_begin, groups, ids.shape[1]))
+            row = self.model._row(run, -1)
             embeds = self.model.embed(ids)
             if topk > 1:
                 toks, value, rel = topk_relevance(row, embeds, topk)

@@ -7,13 +7,17 @@ top-k, ``bucket_batch``, ``pad_multiple=4`` against 1) and ``respond``
 (greedy and contrastive) give the same tokens, and values and relevance
 within normalized L2 1e-5. The random streams of sampling differ between
 the packages, so sampled tokens are held to their own properties: a seed
-gives the same tokens, ``top_k=1`` equals greedy.
+gives the same tokens, ``top_k=1`` equals greedy. A batch of mixed lengths
+run as length groups (``length_groups``, its cost set to 0 so that the
+batch splits) gives lxt_tpu's maps and the one-group maps, in the caller's
+order, and the one row of explained tokens that the benchmark records.
 
 The lxt_tpu pipelines and their outputs are built once per module: each
 distinct shape is a JAX compile.
 """
 
 import dataclasses
+import itertools
 import zlib
 
 import jax
@@ -34,7 +38,8 @@ from lxt_tpu_torch.models import gemma3 as tgemma
 from lxt_tpu_torch.models import gpt2 as tgpt2
 from lxt_tpu_torch.models import llama as tllama
 from lxt_tpu_torch.models.registry import AttributionModel as TModel
-from lxt_tpu_torch.pipeline import AttributionPipeline, ResponseAttribution
+from lxt_tpu_torch import pipeline as pipeline_mod
+from lxt_tpu_torch.pipeline import AttributionPipeline, ResponseAttribution, length_groups
 
 BAR = 1e-5
 VOCAB = 128
@@ -277,3 +282,141 @@ def test_pad_multiple_defaults_to_the_kernels_grid_on_cuda(llama_ref):
     assert pipe.pad_multiple == 128
     ids, kv_begin, _ = pipe._encode(PROMPTS)
     assert ids.shape == (3, 128) and kv_begin.tolist() == [125, 122, 126]
+
+
+# ---------------------------------------------------------------------------
+# length groups
+# ---------------------------------------------------------------------------
+
+#: prompts of widely differing lengths (5, 31, 2, 17, 9 words), not sorted
+MIXED = [" ".join(f"w{i}x{j}" for j in range(n)) for i, n in enumerate([5, 31, 2, 17, 9])]
+
+
+def _cost(groups):
+    return (sum(size * T for _, T, size in groups)
+            + pipeline_mod.GROUP_COST * len(groups))
+
+
+def _brute_force(lengths, multiple, bucket):
+    """The least cost over every split of the sorted lengths into
+    contiguous runs."""
+    order = np.argsort(lengths, kind="stable")
+    best = None
+    for cuts in itertools.product([False, True], repeat=len(order) - 1):
+        bounds = [0] + [i + 1 for i, c in enumerate(cuts) if c] + [len(order)]
+        groups = []
+        for i, j in zip(bounds, bounds[1:]):
+            T = -(-max(int(lengths[order[j - 1]]), 1) // multiple) * multiple
+            groups.append((order[i:j], T, 1 << (j - i - 1).bit_length() if bucket else j - i))
+        best = _cost(groups) if best is None else min(best, _cost(groups))
+    return best
+
+
+@pytest.mark.parametrize("bucket", [False, True], ids=["rows", "bucket_batch"])
+@pytest.mark.parametrize("multiple", [1, 128])
+def test_length_groups_are_the_cheapest_contiguous_split(bucket, multiple):
+    """Random batches of 1-8 rows (dummy rows of length 0 among them): the
+    dynamic programme's cost is brute force's least; the groups cover every
+    row once, in runs of the sorted lengths, each at a multiple of
+    ``multiple`` that holds its rows, each of ``size`` its row count (the
+    next power of two with ``bucket``)."""
+    rng = np.random.default_rng(multiple + bucket)
+    for _ in range(60):
+        lengths = rng.integers(0 if bucket else 1, 2049, rng.integers(1, 9))
+        groups = length_groups(lengths, multiple, bucket)
+        assert _cost(groups) == _brute_force(lengths, multiple, bucket)
+        rows = np.concatenate([r for r, _, _ in groups])
+        assert sorted(rows.tolist()) == list(range(len(lengths)))
+        assert list(lengths[rows]) == sorted(lengths)
+        for r, T, size in groups:
+            assert T % multiple == 0 and T >= lengths[r].max() and T >= 1
+            assert size == (1 << (len(r) - 1).bit_length() if bucket else len(r))
+
+
+def test_one_prompt_is_one_group():
+    assert [(r.tolist(), T, n) for r, T, n in length_groups([700], 128)] == [([0], 768, 1)]
+    assert [(r.tolist(), T, n) for r, T, n in length_groups([3], 1, True)] == [([0], 3, 1)]
+
+
+@pytest.mark.parametrize("option", [{}, {"bucket_batch": True}, {"pad_multiple": 4}],
+                         ids=["plain", "bucket_batch", "pad_multiple_4"])
+def test_the_default_cost_keeps_short_prompts_in_one_group(families, option):
+    """The tests' short prompts stay one group at ``GROUP_COST``: the
+    model's own run, as before the grouping; so does a mixed batch of
+    30 positions."""
+    pipe = AttributionPipeline(families["llama"][1], ToyTokenizer(), **option)
+    for prompts in (PROMPTS, MIXED):
+        ids, kv_begin, _ = pipe._encode(prompts)
+        (rows, T, size), = pipe._groups(ids, kv_begin)
+        assert sorted(rows.tolist()) == list(range(len(ids))) and (size, T) == ids.shape
+
+
+@pytest.fixture(scope="module")
+def mixed_ref():
+    """lxt_tpu's maps of MIXED per family (and Llama's top 3), and the port
+    model."""
+    out = {}
+    for family in ("llama", "gemma3_text", "gpt2"):
+        jm, tm = model_pair(family)
+        pipe = JPipeline(jm, ToyTokenizer())
+        out[family] = (pipe(MIXED), tm)
+        if family == "llama":
+            out["topk"] = pipe(MIXED, topk=3)
+    return out
+
+
+def _split(monkeypatch):
+    """Every length group at no cost: MIXED runs as several groups."""
+    monkeypatch.setattr(pipeline_mod, "GROUP_COST", 0)
+
+
+@pytest.mark.parametrize("family,option", [("llama", {}), ("gemma3_text", {}), ("gpt2", {}),
+                                           ("llama", {"bucket_batch": True})],
+                         ids=["llama", "gemma3_text", "gpt2", "llama_bucket_batch"])
+def test_grouped_maps_match_lxt_tpu(mixed_ref, monkeypatch, family, option):
+    """A batch split into length groups: lxt_tpu's maps of the one batch,
+    and the port's one-group maps, each prompt's in the caller's order."""
+    want, tm = mixed_ref[family]
+    pipe = AttributionPipeline(tm, ToyTokenizer(), **option)
+    whole = pipe(MIXED)
+    _split(monkeypatch)
+    ids, kv_begin, _ = pipe._encode(MIXED)
+    assert len(pipe._groups(ids, kv_begin)) >= 2
+    before = pipeline_mod.counters["groups"]
+    got = pipe(MIXED)
+    assert pipeline_mod.counters["groups"] - before >= 2
+    assert [len(g.tokens) for g in got] == [len(p.split()) for p in MIXED]
+    assert_same_maps(got, want)
+    for g, w in zip(got, whole):
+        assert g.tokens == w.tokens
+        assert _nl2(g.raw_relevance, w.raw_relevance) <= BAR
+    assert _nl2([g.value for g in got], [w.value for w in whole]) <= BAR
+
+
+def test_grouped_topk_matches_lxt_tpu(mixed_ref, monkeypatch):
+    _split(monkeypatch)
+    got = AttributionPipeline(mixed_ref["llama"][1], ToyTokenizer())(MIXED, topk=3)
+    assert len(got) == len(MIXED)
+    for cands, wants in zip(got, mixed_ref["topk"]):
+        assert len(cands) == 3
+        assert_same_maps(cands, wants)
+
+
+def test_a_grouped_call_records_one_row_of_explained_tokens(mixed_ref, monkeypatch):
+    """The benchmark wraps ``AttributionModel._row`` (``Explained``): a
+    split call still builds one row and so records one ``[B]`` argmax, in
+    the caller's order, each prompt's token as when it runs alone."""
+    from bench_port.harness.state import Explained
+
+    pipe = AttributionPipeline(mixed_ref["llama"][1], ToyTokenizer())
+    alone = []
+    for p in MIXED:
+        with Explained() as ex:
+            pipe([p])
+        (tok,) = ex.tokens
+        alone.append(int(tok[0]))
+    _split(monkeypatch)
+    with Explained() as ex:
+        pipe(MIXED)
+    (tokens,) = ex.tokens
+    assert tokens.tolist() == alone

@@ -2,7 +2,7 @@
 events in a torch.profiler trace, and the sites that open them (the
 pipeline, the layer loop with and without remat, the mixture), on tiny
 float32 models on the CPU; and ``pipeline.counters``' padded and useful
-positions."""
+positions and length groups."""
 
 import json
 import threading
@@ -180,11 +180,36 @@ def test_the_pipeline_counts_padded_and_useful_positions(bucket_batch, pad_multi
     B = 4 if bucket_batch else 3
     assert pipeline_mod.counters["positions"] - before["positions"] == B * T
     assert pipeline_mod.counters["useful_positions"] - before["useful_positions"] == 19
+    assert pipeline_mod.counters["groups"] - before["groups"] == 1
     d = _delta(spans_before)
     assert d["lxt.pipeline.encode.n"] == d["lxt.pipeline.finish.n"] == 1
     assert d["lxt.layer.n"] == 2 and d["lxt.layer.recompute.n"] == 0
     pipeline_mod.reset_counters()
-    assert pipeline_mod.counters == {"positions": 0, "useful_positions": 0}
+    assert pipeline_mod.counters == {"positions": 0, "useful_positions": 0, "groups": 0}
+
+
+@pytest.mark.parametrize("bucket_batch,pad_multiple", [(False, 1), (True, 8)])
+def test_a_split_call_counts_each_group_at_its_own_length(monkeypatch, bucket_batch,
+                                                          pad_multiple):
+    """With groups at no cost the call splits: ``positions`` counts Σ rows ×
+    length over its groups (dummy rows included), ``groups`` the groups, and
+    each group runs the layer loop once."""
+    monkeypatch.setattr(pipeline_mod, "GROUP_COST", 0)
+    pipe = AttributionPipeline(_tiny("llama"), Ids(), pad_multiple=pad_multiple,
+                               bucket_batch=bucket_batch)
+    lengths = [3, 10, 6]
+    ids, kv_begin, _ = pipe._encode(_prompts(lengths))
+    groups = pipe._groups(ids, kv_begin)
+    assert len(groups) >= 2
+    before = dict(pipeline_mod.counters)
+    spans_before = dict(tracing.spans)
+    pipe(_prompts(lengths))
+    d = {k: pipeline_mod.counters[k] - before[k] for k in before}
+    assert d["positions"] == sum(size * T for _, T, size in groups) < ids.size
+    if not bucket_batch:
+        assert d["positions"] == 19 and d["groups"] == 3
+    assert d["groups"] == len(groups) and d["useful_positions"] == 19
+    assert _delta(spans_before)["lxt.layer.n"] == 2 * len(groups)
 
 
 def test_mixture_reads_move_with_the_routing_counter():
