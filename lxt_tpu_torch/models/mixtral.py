@@ -21,6 +21,12 @@ token takes its top K:
 - :func:`moe_block_dense` runs every expert on every token with a one-hot
   combine: the parity reference.
 
+Both blocks take the router's ``(weights, ids)`` as ``routed`` where the
+caller routes them itself (``models/deepseek_v3.py``: a sigmoid router with
+a selection bias), and read E and K from ``cfg.num_experts`` and the ids:
+every mixture of the port runs the same sort, host read, grouped products
+and combine.
+
 The rule sites are ``lxt_tpu``'s: the uniform rule at the gated product and
 at the routing weight × expert output product. The top-K selection is a
 piecewise-constant mask with no gradient.
@@ -199,9 +205,15 @@ def _local_experts(lp, cfg):
     return tensor_parallel.rank() * count, count
 
 
-def moe_block_dense(x, lp, cfg: MixtralConfig, composite, act_fn):
-    """The mixture as a dense one-hot combine: every expert on every token."""
-    top_w, top_idx = _route(x, lp, cfg, composite)                # [B,T,K]
+def moe_block_dense(x, lp, cfg: MixtralConfig, composite, act_fn,
+                    routed=None):
+    """The mixture as a dense one-hot combine: every expert on every token.
+    ``routed``: the router's ``(weights, ids)``, ``[..., K]`` over x's
+    tokens (None: :func:`_route`'s)."""
+    top_w, top_idx = routed if routed is not None else _route(x, lp, cfg, composite)
+    K = top_idx.shape[-1]
+    top_w = top_w.reshape(*x.shape[:-1], K)                        # [B,T,K]
+    top_idx = top_idx.reshape(*x.shape[:-1], K)
     onehot = F.one_hot(top_idx, cfg.num_experts).to(top_w.dtype)  # [B,T,K,E]
     dense_w = (top_w[..., None] * onehot).sum(-2).to(x.dtype)     # [B,T,E]
     first, count = _local_experts(lp, cfg)
@@ -227,14 +239,18 @@ def _grouped(lhs, w, sizes):
                       for e, rows in enumerate(lhs.split(sizes)) if sizes[e]])
 
 
-def moe_block_ragged(x, lp, cfg: MixtralConfig, composite, act_fn):
+def moe_block_ragged(x, lp, cfg: MixtralConfig, composite, act_fn,
+                     routed=None):
     """The mixture as per-expert products on the rows sorted by expert:
-    K/E of the dense products, and the same rules at the same sites."""
+    K/E of the dense products, and the same rules at the same sites.
+    ``routed``: the router's ``(weights, ids)``, ``[N, K]`` over x's N
+    tokens (None: :func:`_route`'s)."""
     B, T, D = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
     N = B * T
     xf = x.reshape(N, D)
-    top_w, top_idx = _route(xf, lp, cfg, composite)               # [N,K]
+    top_w, top_idx = routed if routed is not None else _route(xf, lp, cfg, composite)
+    E, K = cfg.num_experts, top_idx.shape[-1]
+    top_w, top_idx = top_w.reshape(N, K), top_idx.reshape(N, K)   # [N,K]
     expert_flat = top_idx.reshape(-1)                              # [N*K]
     order = torch.argsort(expert_flat, stable=True)
     # one host read per block: torch.bincount would first read the ids'

@@ -1,5 +1,6 @@
 """One-call user surface: HF checkpoint or model of a Llama-family,
-Gemma-3 text, Mixtral, GPT-2 or BERT model -> :class:`AttributionModel`;
+Gemma-3 text, Mixtral, GPT-2, BERT or DeepSeek-V3 model ->
+:class:`AttributionModel`;
 a torchvision ViT, OpenCLIP visual tower or SigLIP tower ->
 :class:`VisionAttributionModel`; Gemma-3 image + text ->
 :class:`MultimodalAttributionModel` (counterpart of
@@ -36,7 +37,8 @@ from lxt_tpu_torch.attribution import (_pick, input_relevance,
                                        multi_site_latent_relevance,
                                        multi_site_relevance,
                                        multi_token_relevance, topk_relevance)
-from lxt_tpu_torch.models import bert, decode, gemma3, gpt2, llama, mixtral
+from lxt_tpu_torch.models import (bert, decode, deepseek_v3, gemma3, gpt2,
+                                  llama, mixtral)
 from lxt_tpu_torch.io import Renamed
 from lxt_tpu_torch.ops.quant import QuantizedTensor, eligibility
 
@@ -52,6 +54,7 @@ _GEMMA3 = {"config": gemma3.Gemma3Config, "from_hf": gemma3.params_from_hf,
 #: converter, forward and embedding (``embed(params, ids, cfg)``), its
 #: tensor-parallel table (``tp``: see ``parallel.model_param_shardings``),
 #: and for the causal LMs the KV-cached ``prefill`` and ``decode_step``
+#: (``deepseek_v3`` has neither a tensor-parallel table nor decoding)
 FAMILIES = {"llama": _LLAMA, "qwen2": _LLAMA, "qwen3": _LLAMA,
             "mistral": _LLAMA, "phi3": _LLAMA, "gemma3": _GEMMA3,
             "gemma3_text": _GEMMA3,
@@ -68,8 +71,14 @@ FAMILIES = {"llama": _LLAMA, "qwen2": _LLAMA, "qwen3": _LLAMA,
                         "forward": mixtral.forward, "tp": "mixtral",
                         "embed": lambda params, ids, cfg: mixtral.embed(params, ids),
                         "prefill": decode.mixtral_prefill,
-                        "decode_step": decode.mixtral_decode_step}}
+                        "decode_step": decode.mixtral_decode_step},
+            "deepseek_v3": {"config": deepseek_v3.DeepseekV3Config,
+                            "from_hf": deepseek_v3.params_from_hf,
+                            "forward": deepseek_v3.forward,
+                            "embed": lambda params, ids, cfg: llama.embed(params, ids)}}
 SUPPORTED_FAMILIES = tuple(FAMILIES)
+#: the families with no quantized path (``quantize_bits`` is refused)
+NOT_QUANTIZED = ("deepseek_v3",)
 #: the families whose forward returns ``[B, num_labels]`` classification
 #: logits (no positions, no ``logits_at``)
 CLASSIFIERS = ("bert",)
@@ -136,6 +145,20 @@ _HF_DEFAULTS = {
                                 num_channels=3, image_size=224, patch_size=16,
                                 hidden_act="gelu_pytorch_tanh",
                                 layer_norm_eps=1e-6),
+    "deepseek_v3": dict(vocab_size=129280, hidden_size=7168,
+                        intermediate_size=18432, moe_intermediate_size=2048,
+                        num_hidden_layers=61, num_attention_heads=128,
+                        num_key_value_heads=128, n_shared_experts=1,
+                        n_routed_experts=256, routed_scaling_factor=2.5,
+                        kv_lora_rank=512, q_lora_rank=1536,
+                        qk_rope_head_dim=64, v_head_dim=128,
+                        qk_nope_head_dim=128, n_group=8, topk_group=4,
+                        num_experts_per_tok=8, first_k_dense_replace=3,
+                        norm_topk_prob=True, hidden_act="silu",
+                        max_position_embeddings=4096, rms_norm_eps=1e-6,
+                        tie_word_embeddings=False, rope_theta=10000.0,
+                        rope_scaling=None, rope_interleave=True,
+                        attention_bias=False),
     # the image + text wrapper's own keys (its text and vision configs are
     # filled as gemma3_text and siglip_vision_model)
     "gemma3": dict(mm_tokens_per_image=256, boi_token_index=255999,
@@ -569,6 +592,10 @@ class AttributionModel:
         if self.family in CLASSIFIERS:
             raise ValueError("generate needs a causal LM head; "
                              "BERT is an encoder")
+        if "prefill" not in FAMILIES[self.family]:
+            raise NotImplementedError(
+                f"generate: family {self.family!r} has no KV-cached decoding "
+                f"(its latent attention's cache is not ported)")
         if generator is not None and not temperature > 0:
             raise ValueError("sampling (generator=) needs temperature > 0")
         ids0 = _tensor(input_ids, self.device).long()
@@ -816,6 +843,11 @@ def from_pretrained(model_dir, composite: composites.Composite = None,
     from lxt_tpu_torch.ops.quant import ingest_bnb_state_dict, quantize_params
 
     hf_config = read_hf_config(model_dir)
+    if quantize_bits and (family or getattr(hf_config, "model_type", None)
+                          ) in NOT_QUANTIZED:
+        raise ValueError(f"quantize_bits: family "
+                         f"{family or hf_config.model_type!r} has no quantized "
+                         f"path")
     # the 16-bit tensors read in the target dtype: a bf16 checkpoint widened
     # to float32 on the host only to be cast back would double its bytes
     state = LazyState(model_dir, dtype)

@@ -10,9 +10,12 @@ materializes a [T, T] bias; an additive ``bias`` or ``softcap`` takes the
 einsum path.
 
 Shapes are ``[batch, heads, seq, head_dim]``; the einsum path repeats GQA
-key/value heads, the kernels index them. ``impl="ring"`` runs the
-sequence-parallel ring (``parallel/ring.py``): each process holds one
-shard of the sequence.
+key/value heads, the kernels index them. The value head dim may differ
+from the query/key one (latent attention: 192 and 128): the kernels take
+one width, so the flash route zero-pads q, k and v to the smallest native
+width that holds both and slices the output back to v's.
+``impl="ring"`` runs the sequence-parallel ring (``parallel/ring.py``):
+each process holds one shard of the sequence.
 """
 
 import math
@@ -72,13 +75,12 @@ def route(impl, q, flash_ok):
 
 
 def _pad_head_dim(q, k, v):
-    """Zero-pad the head dim to the next native width (exact: padded q/k
-    columns add 0 to scores, padded v columns are sliced off)."""
-    D = q.shape[-1]
-    Dp = min(p for p in NATIVE_HEAD_DIMS if p >= D)
-    if Dp == D:
-        return q, k, v
-    return tuple(F.pad(t, (0, Dp - D)) for t in (q, k, v))
+    """Zero-pad q, k and v to the smallest native width that holds both
+    head dims (exact: padded q/k columns add 0 to scores, padded v columns
+    are sliced off)."""
+    Dp = min(p for p in NATIVE_HEAD_DIMS if p >= max(q.shape[-1], v.shape[-1]))
+    return tuple(t if t.shape[-1] == Dp else F.pad(t, (0, Dp - t.shape[-1]))
+                 for t in (q, k, v))
 
 
 def attention(
@@ -97,7 +99,8 @@ def attention(
 ):
     """LRP-aware scaled dot-product attention.
 
-    q, k, v : [B, H, Tq, D] / [B, Hkv, Tk, D] with ``Hkv`` dividing ``H``.
+    q, k, v : [B, H, Tq, D] / [B, Hkv, Tk, D] / [B, Hkv, Tk, Dv] with
+        ``Hkv`` dividing ``H``; the output is [B, H, Tq, Dv].
     rope : optional ``(cos, sin)`` tables ([T, D], or [B, T, D] for
         per-example positions); the flash kernels rotate in-kernel when the
         tables are 2-D and the head dim native, every other path applies
@@ -126,7 +129,7 @@ def attention(
         raise ValueError(f"impl must be 'auto', 'flash', 'einsum' or 'ring', "
                          f"got {impl!r}")
     n_rep = q.shape[1] // k.shape[1]
-    D = q.shape[-1]
+    D, Dv = q.shape[-1], v.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
 
@@ -136,7 +139,7 @@ def attention(
 
     Tq, Tk = q.shape[2], k.shape[2]
     flash_ok = (bias is None and softcap is None and Tq == Tk
-                and Tq % 128 == 0 and D <= max(NATIVE_HEAD_DIMS))
+                and Tq % 128 == 0 and max(D, Dv) <= max(NATIVE_HEAD_DIMS))
     impl = route(impl, q, flash_ok)
 
     if impl == "flash":
@@ -144,14 +147,14 @@ def attention(
         # in-kernel rope needs native-width 2-D tables (padding would break
         # the rotate-half split; 3-D = per-example positions)
         rope_in_kernel = (rope is not None and rope[0].dim() == 2
-                          and D in NATIVE_HEAD_DIMS)
+                          and D in NATIVE_HEAD_DIMS and Dv <= D)
         if rope is not None and not rope_in_kernel:
             q, k = _mcommon.apply_rope(q, k, *rope)
         q, k, v = _pad_head_dim(q, k, v)
         out = flash_attention(q, k, v, window, scale=scale, causal=causal,
                               kv_begin=kv_begin, kv_end=kv_end,
                               rope=rope if rope_in_kernel else None)
-        return out[..., :D]
+        return out[..., :Dv]
 
     if rope is not None:
         q, k = _mcommon.apply_rope(q, k, *rope)
@@ -180,9 +183,9 @@ def _ring(q, k, v, *, bias, causal, window, composite, scale, softcap,
             and kv_end is None):
         raise ValueError("ring attention supports structural masks only "
                          "(causal, window)")
-    D = q.shape[-1]
-    if D > max(NATIVE_HEAD_DIMS):
-        raise ValueError(f"ring attention: head dim {D} above "
+    D, Dv = q.shape[-1], v.shape[-1]
+    if max(D, Dv) > max(NATIVE_HEAD_DIMS):
+        raise ValueError(f"ring attention: head dim {max(D, Dv)} above "
                          f"{max(NATIVE_HEAD_DIMS)}")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -191,4 +194,4 @@ def _ring(q, k, v, *, bias, causal, window, composite, scale, softcap,
     q, k, v = composite.qkv(q, k, v)
     out = ring.ring_flash_attention(*_pad_head_dim(q, k, v), ring.active_group(),
                                     scale=scale, causal=causal, window=window)
-    return out[..., :D]
+    return out[..., :Dv]

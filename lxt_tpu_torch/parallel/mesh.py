@@ -198,6 +198,9 @@ def model_param_shardings(model, mesh: DeviceMesh):
     tensor-parallel table its family names in ``registry.FAMILIES``
     (``"tp"``); Mixtral's is expert parallelism."""
     from lxt_tpu_torch.models.registry import FAMILIES
+    if "tp" not in FAMILIES[model.family]:
+        raise NotImplementedError(f"family {model.family!r} has no "
+                                  f"tensor-parallel table")
     table = FAMILIES[model.family]["tp"]
     if table == "mixtral":
         return mixtral_param_shardings(mesh)

@@ -31,6 +31,7 @@ NAMES = (
     "lxt.layer.recompute",      # one layer's recompute in the backward (remat)
     "lxt.moe",                  # the mixture block (models/mixtral.moe_block)
     "lxt.moe.read",             # its one synchronising read of the group sizes
+    "lxt.mla",                  # latent attention, projections to output (models/deepseek_v3)
 )
 #: per name: spans opened, their nanoseconds, and those less their child
 #: spans'; :func:`reset` zeroes them

@@ -266,3 +266,53 @@ def test_route_takes_the_kernels_for_cuda_calls_of_every_dtype(impl, dtype):
     assert route(impl, cuda, flash_ok=True) == want
     assert route(impl, cuda, flash_ok=False) == "einsum"
     assert route(impl, cpu, flash_ok=True) == ("einsum" if impl == "auto" else impl)
+
+
+@pytest.mark.parametrize("kv_begin", [None, [40, 0]], ids=["causal", "kv_begin"])
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (24, 16)])
+def test_flash_with_a_narrower_v_matches_einsum(dqk, dv, kv_begin):
+    """Latent attention's widths (q/k 192, v 128; and 24 / 16): the flash
+    route pads q, k and v to the smallest native width that holds both
+    (256; 64), slices the output to v's and scales by Dqk^-0.5; forward
+    and gradients under attnlrp equal the einsum path's, which pads
+    nothing. Fully padded query rows take no cotangent and are not
+    compared (flash gives 0 there, einsum a uniform average)."""
+    rng = np.random.default_rng(dqk)
+    B, H, T = 2, 2, 128
+    q, k = (rng.standard_normal((B, H, T, dqk), dtype=np.float32) for _ in range(2))
+    v = rng.standard_normal((B, H, T, dv), dtype=np.float32)
+    ct = rng.standard_normal((B, H, T, dv), dtype=np.float32)
+    live = np.ones((B, 1, T, 1), np.float32)
+    for b, s in enumerate(kv_begin or ()):
+        live[b, :, :s] = 0
+    ct *= live
+    outs = {}
+    for impl in ("flash", "einsum"):
+        qt, kt, vt = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+        out = tattention(qt, kt, vt, causal=True, composite=lxt_tpu_torch.attnlrp,
+                         impl=impl, kv_begin=kv_begin)
+        assert out.shape == (B, H, T, dv)
+        grads = torch.autograd.grad(out, (qt, kt, vt), torch.tensor(ct))
+        outs[impl] = [out.detach().numpy() * live] + [g.numpy() for g in grads]
+    np.testing.assert_allclose(outs["flash"][0], outs["einsum"][0], rtol=0,
+                               atol=ATOL_FWD)
+    for g, w, name in zip(outs["flash"][1:], outs["einsum"][1:], "qkv"):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL_GRAD, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dqk,dv,width", [(48, 48, 64), (64, 64, 64), (200, 200, 256),
+                                          (192, 128, 256), (24, 16, 64)])
+def test_pad_head_dim_takes_the_smallest_native_width(dqk, dv, width):
+    """Equal head dims pad as before (to the next native width; a native
+    width is passed through untouched), and unequal ones to the smallest
+    native width that holds both."""
+    from lxt_tpu_torch.ops.attention import _pad_head_dim
+    q, k = (torch.randn(1, 2, 8, dqk) for _ in range(2))
+    v = torch.randn(1, 2, 8, dv)
+    padded = _pad_head_dim(q, k, v)
+    for t, p in zip((q, k, v), padded):
+        assert p.shape[-1] == width
+        if t.shape[-1] == width:
+            assert p is t
+        torch.testing.assert_close(p[..., :t.shape[-1]], t, rtol=0, atol=0)
+        assert not p[..., t.shape[-1]:].any()
